@@ -4,35 +4,57 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. machine: card name and power limit, CUDA/torch/nvcc versions; build
-     both kernels (csrc/advect.cu, csrc/implsch.cu) with nvcc for sm_90a;
+     both kernel sources (csrc/advect.cu, csrc/implsch.cu) with nvcc for
+     sm_90a, in parallel;
   2. small configurations: on the golden-trajectory grid (12° topo grid
      with obstructions, 12×18/15, irefra=1, ifrelfmax=3), 4 steps of
      ``FastWaveModel.advance`` through the kernels (8 advection and 2
      physics launches) and 4 through the plain PyTorch versions (none),
-     both on the card, where fl1 and every stress field must agree; then
-     one physics step, kernel against plain, on that grid and on a
-     3–21 m shallow grid (depth-induced breaking, bottom friction and a
-     cut inside the ladder are active there);
+     both on the card, where fl1 and every stress field must agree; one
+     physics step, kernel against plain, in minimal and in full mode, on
+     that grid and on a 3–21 m shallow grid (depth-induced breaking,
+     bottom friction and a cut inside the ladder are active there); and
+     the golden statistics.log trajectory — 5 output-date steps
+     ``advance(1, full_phys=True)`` through the kernels — against the
+     committed tests/golden/statistics_golden.json;
   3. full width (O320, 36 directions × 36 frequencies, 29 advected,
      idelpro 450 s, idelt 900 s, aqua planet, winds 8–12 m/s from seed 0,
-     JONSWAP cold start): 4 steps (2 physics) through the kernels with the
-     launch counts read around them; then each kernel against its plain
-     version on the same input — advection over the whole domain, physics
-     on the sea-point rows of a 32,768-row slice — timed with CUDA events;
+     JONSWAP cold start): 4 steps (2 physics) through the kernels, then one
+     output-date step (``advance(1, full_phys=True)`` on a physics step,
+     chunked full mode with the windsea/swell split), each with the launch
+     counts set to 0 before it and read after; then each kernel against
+     its plain version on the same input — advection over the whole
+     domain, physics in both modes on the sea-point rows of a 32,768-row
+     slice, the compact entry (kernel C) on the same slice in both modes —
+     timed with CUDA events; then the compact entry's own path, both modes
+     on every point of the compact field;
   4. where the time goes at O320: the mean of 8 more steps on the host
-     clock (synchronised), and 4 steps under ``torch.profiler`` for each
-     kernel's share of device time and the device's busy share;
-  5. one JSON line with each kernel's launches, error and times; the
-     card's name and power limit; the final ``{"ok": true, ...}`` line.
+     clock (synchronised), 4 steps under ``torch.profiler`` for each
+     kernel's share of device time and the device's busy share, and one
+     profiled output-date physics step split into the full-mode kernel and
+     the rest (windsea/swell separation, chunk copies);
+  5. one JSON line with each kernel's launches, errors, times and bound;
+     the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
 gives the sound readings and those of deliberately broken kernels):
   advection, kernel vs plain      max|k−p| ≤ ADVECT_TOL (FMA contraction)
-  physics spectrum                max|k−p| ≤ PHYS_TOL
+  physics spectrum                max|k−p| ≤ PHYS_TOL (both modes)
   physics stress rows             ≤ STRESS_TOL
+  full-mode diagnostic rows       ≤ FULL_ROW_TOL each (the four rows that
+                                  integrate the windsea mask are held out
+                                  at the points where mask bins differ,
+                                  all of them on the mask's edge)
+  full-mode windsea mask          a bin may differ only on the mask's
+                                  edge: within MASK_WIDTH of it in the
+                                  plain chain run in float64 (its
+                                  ``xllws_margin``); such bins ≤
+                                  XLLWS_SHARE of all
   4-step golden trajectory        fl1 ≤ TRAJ_TOL; each stress field
                                   ≤ TRAJ_STRESS_TOL (z0m and chrnck come
                                   through TAUT_Z0's 1/√(1−τw/τ))
+  golden statistics.log           average, minimum, maximum within
+                                  GOLDEN_RTOL of the committed values
 Physics rows whose FRCUTINDEX argument lies within TIE_WIDTH of a
 rounding tie (x.5, in float64) are held out of the physics tolerances:
 the cut index, and with it the stress, may round the other way in either
@@ -41,6 +63,7 @@ every other row must meet the tolerances.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -48,11 +71,19 @@ import time
 ADVECT_TOL = 1e-5
 PHYS_TOL = 2e-5
 STRESS_TOL = 1e-5
+FULL_ROW_TOL = 1e-4
+XLLWS_SHARE = 1e-6
+MASK_WIDTH = 1e-4
 TRAJ_TOL = 2.5e-4
 TRAJ_STRESS_TOL = 5e-3
+GOLDEN_RTOL = 2e-5
 TIE_WIDTH = 1e-5
 TIE_SHARE = 1e-3
 PHYS_ROWS = 32768
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "statistics_golden.json")
 
 
 def log(*a):
@@ -90,6 +121,67 @@ def cuda_ms(fn, reps, setup=None):
     return total / reps
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(byte_count, ops):
+    """The least time (ms) for the work: the larger of bytes over the
+    HBM rate and float32 operations over the card's peak; and which."""
+    t_b, t_o = byte_count / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea):
+    """Float32 operations of the IMPLSCH chain on one row, counted by stage
+    from csrc/implsch.cu.  Each add, subtract, multiply, min, max or
+    compare is one operation (an FMA two, as the peak rate counts it);
+    each division, square root and transcendental one.  Work the kernel
+    repeats (the saturation sum B(k) of SDISSIP, the scalar chains on all
+    32 lanes) is counted once.  Data-dependent work is counted as this
+    run's data needs it: ``above_cut`` is the mean number of frequencies
+    above the cut (IMPHFTAIL), ``shallow`` the share of rows shallower than
+    BATHYMAX (SBOTTOM), ``windsea`` the share of bins in the windsea mask
+    (the second FEMEANWS); the sea-ice branches are left out."""
+    import numpy as np
+    f, dia, jtot, niter = cfg.tables.nfre, cfg.dia, 19, 18
+    a, nb, ml = nang, nang * f, int(cfg.dia.mlsthg)
+    # SDEPTHLIM and FKMEAN: column sums, moments, the scaled bins
+    ops = (3 * nb + 2 * f + 5) + (nb + 6 * f + 11)
+    # the direction rows (cos, sin², FLM) and the first call's tail floor
+    ops += 12 * a + 2
+    # each SINFLX call: TAUT_Z0 (18 Newton steps of 33), FEMEANWS,
+    # FRCUTINDEX and STRESSO with its 19-node tail integral
+    ops += 2 * ((21 + 33 * niter) + (4 * f + 7) + 11
+                + (10 * f + 5 * a + 45 + 28 * jtot))
+    # SINPUT: call 1 with one gust (26 a bin), call 2 with two gusts and
+    # the swell damping (33 a bin and gust), 9 a bin for the sums
+    ops += (10 + 21 * f + 35 * nb) + (71 + 51 * f + 76 * nb)
+    # SDISSIP: B(k) = Σ_j W(k, j)·F(j) once per bin, its maximum, the
+    # dissipation of each bin
+    ops += f * (2 * a * a + 12 * a + 9)
+    # SNONLIN: TRANSF per extended frequency; per (KH, MC, direction) 32
+    # for the transfer terms, 4 for the centre bin inside the ladder and 8
+    # for each target bin inside it
+    targets = sum(int(((np.asarray(t) >= 1) & (np.asarray(t) <= f)).sum())
+                  for t in (dia.ikm, dia.ikm1, dia.ikp, dia.ikp1))
+    ops += 54 * ml + 2 * (ml + a * (32 * ml + 4 * min(ml, f) + 8 * targets))
+    # SDIWBK (15 Newton steps), SBOTTOM, the update with limiter and cap,
+    # IMPHFTAIL above the cut
+    ops += (190 + cfg.nfre_red * a * (3 + 9 * shallow) + 2 + 15 * nb
+            + 2 + 5 * a * above_cut)
+    if full:
+        nodd = f - 1 + f % 2
+        # PHIWA's sums and PHIHF's integral in both calls; the flux source
+        # sums and the cap term; WNFLUXES; the second FKMEAN and
+        # FEMEANWS; STOKESTRN
+        ops += 2 * (5 * nb + f + 4 * f + a + 9 + 28 * jtot)
+        ops += 17 * nb + 3 * f + (14 * f + 40) + (nb + 14 * f + 21)
+        ops += windsea * nb + 4 * f + 10
+        ops += 12 * nodd + 5 * a * nodd + 4 * a + 10
+    return ops
+
+
 def o320_model(dev):
     """bench.py's configuration at O320: the setup and a cold-started
     ``FastWaveModel`` under fixed 8–12 m/s winds from seed 0."""
@@ -108,19 +200,25 @@ def o320_model(dev):
     return ms, driver.FastWaveModel(ms, lambda date14: wind, cases.START)
 
 
-def physics_slice(ms, model, dev):
+def slice_check(ms, model, dev, full, above_cut):
     """Kernel B against the plain chain on the sea rows of a
-    PHYS_ROWS-row slice of the model's state.  Returns the readings."""
+    PHYS_ROWS-row slice of the model's state, in minimal or full mode;
+    then, on the same rows as a compact (nang, nfre, rows) spectrum,
+    kernel C against its plain version and against kernel B.  Returns the
+    readings, with the operations bound counted for ``above_cut`` (see
+    :func:`implsch_ops`) and this step's windsea mask."""
     import torch
+    from ecwam_tpu_torch.core.dispersion import BATHYMAX
+    from ecwam_tpu_torch.model import cases
     from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
     ft, fp = ms.fused, model.fp
-    cfg = ipk.minimal_config(ms.phys)
+    cfg = ms.phys if full else ipk.minimal_config(ms.phys)
     r0 = ft.nsrl // 2
     rows = slice(r0, r0 + PHYS_ROWS)
     scal = torch.cat([model._frc6, model._denv, model._stress6])
     args = (model._f_srl[rows], model._env2d[:, rows].contiguous(),
             scal[:, rows].contiguous(), model._tail[rows])
-    kw = dict(nang=fp.nang, nfre_red=fp.nfre_red)
+    kw = dict(nang=fp.nang, nfre_red=fp.nfre_red, full=full)
     tabs = ipk.pack_tables(cfg, dev)
 
     def run_kernel(a):
@@ -128,9 +226,9 @@ def physics_slice(ms, model, dev):
 
     def fresh():
         return (args[0].clone(), args[1], args[2], args[3].clone())
-    fk, sk, tk = run_kernel(fresh())
-    fpl, spl, tpl = ipk.implsch_srl_plain(cfg, *fresh(), **kw)
-    if not all(bool(torch.isfinite(x).all()) for x in (fk, sk, tk)):
+    got = run_kernel(fresh())
+    want = ipk.implsch_srl_plain(cfg, *fresh(), **kw)
+    if not all(bool(torch.isfinite(x).all()) for x in got):
         raise AssertionError("physics kernel produced non-finite values")
     # pad rows carry no sea point: their finite garbage never reaches one
     # (the advection valid-mask), so only finiteness is required there
@@ -138,50 +236,138 @@ def physics_slice(ms, model, dev):
     # rows whose FRCUTINDEX argument sits on a rounding tie may take the
     # other cut in one of the two float32 versions; they are counted and
     # held out, and every other disagreeing row fails the run
-    s_row = ((sk - spl).abs() / spl[:, sea].abs().amax(1, keepdim=True)
-             .clamp(min=1e-30)).amax(0)
-    off = torch.nonzero(sea & (s_row > STRESS_TOL)).flatten()
+    nst = len(ipk.STRESS_KEYS)
+    if full:
+        sea_rows = torch.nonzero(sea).flatten()
+        margin_at = cases.srl_margin(cfg, *args, nang=fp.nang,
+                                     nfre_red=fp.nfre_red)
+        fe = cases.full_errors(got[1][:, sea], want[1][:, sea],
+                               got[3][..., sea], want[3][..., sea],
+                               lambda pts: margin_at(sea_rows[pts]),
+                               MASK_WIDTH)
+        err = torch.zeros_like(got[1])
+        err[:, sea] = fe["err"]
+    else:
+        err = ((got[1] - want[1]).abs() / want[1][:, sea].abs().amax(
+            1, keepdim=True).clamp(min=1e-30))
+    s_row = err[:nst].amax(0)
+    off_row = (s_row > STRESS_TOL)
+    if full:
+        off_row |= err[nst:].amax(0) > FULL_ROW_TOL
+    off = torch.nonzero(sea & off_row).flatten()
     tie = torch.zeros_like(sea)
     if 0 < off.numel() <= TIE_SHARE * int(sea.sum()):
         dist = ipk.frcut_tie(cfg, *(x.double().cpu() for x in (
             args[0][off], args[1][:, off], args[2][:, off], args[3][off])),
-            **kw)
+            nang=fp.nang, nfre_red=fp.nfre_red)
         tie[off[dist.to(dev) < TIE_WIDTH]] = True
     keep = sea & ~tie
-    spec = [rel_max(fk[keep], fpl[keep]), rel_max(tk[keep], tpl[keep])]
+    spec = [rel_max(got[0][keep], want[0][keep]),
+            rel_max(got[2][keep], want[2][keep])]
     r = dict(n_sea=int(sea.sum()), n_tie=int(tie.sum()),
              n_off=off.numel() - int(tie.sum()),
              tie_stress=float(s_row[tie].max()) if tie.any() else 0.0,
              spec_rel=max(s[0] for s in spec),
              spec_abs=max(s[1] for s in spec),
              stress_rel=float(s_row[keep].max()))
+    if full:
+        rk = err[:, keep].amax(1)
+        r["rows"] = {k: float(rk[i]) for i, k in enumerate(ipk.SCAL_OUT_FULL)}
+        kept = keep[sea]
+        r["xllws"] = int(fe["edge"][kept].sum())
+        r["xllws_off"] = int(fe["off"][kept].sum())
+        r["xllws_bins"] = got[3][..., keep].numel()
+        r["margin"] = float(fe["margin"][kept].max())
+        r["flip_points"] = int(((fe["edge"] + fe["off"])[kept] > 0).sum())
     r["ms"] = cuda_ms(run_kernel, 10, fresh)
     r["plain_ms"] = cuda_ms(
         lambda a: ipk.implsch_srl_plain(cfg, *a, **kw), 2, fresh)
-    full = (model._f_srl.clone(), model._env2d, scal, model._tail.clone())
-    r["all_rows_ms"] = cuda_ms(lambda _: run_kernel(full), 3)
+    r["bytes"] = nbytes(*args, *args[::3], *got[1:2], *(got[3:] if full
+                                                         else ()))
+    depth = ipk.SCAL_IN.index("depth")
+    windsea = float(got[3][..., sea].mean()) if full else 0.0
+    data = dict(above_cut=above_cut, windsea=windsea,
+                shallow=float((args[2][depth] < BATHYMAX).double().mean()))
+    r["ops"] = PHYS_ROWS * implsch_ops(cfg, fp.nang, full, **data)
+
+    # kernel C on the same rows in the compact layout
+    nang, nfre, nred = fp.nang, ms.tb.nfre, fp.nfre_red
+    fl = torch.cat([args[0].reshape(-1, nang, nred),
+                    args[3].reshape(-1, nang, nfre - nred)], dim=2)
+    fl = fl.permute(1, 2, 0).contiguous()
+    ck = ipk.implsch_compact(cfg, fl, args[1], args[2], full=full,
+                             tables_dev=tabs)
+    cp = ipk.implsch_compact_plain(cfg, fl, args[1], args[2], full=full)
+    srl_as_compact = torch.cat(
+        [got[0].reshape(-1, nang, nred),
+         got[2].reshape(-1, nang, nfre - nred)], dim=2).permute(1, 2, 0)
+    same = (torch.equal(ck[0], srl_as_compact) and torch.equal(ck[1], got[1])
+            and (not full or torch.equal(ck[2], got[3])))
+    c_spec = rel_max(ck[0][..., keep], cp[0][..., keep])
+    keep_rows = torch.nonzero(keep).flatten()
+    c_margin = cases.compact_margin(cfg, fl, args[1], args[2])
+    c_fe = (cases.full_errors(ck[1][:, keep], cp[1][:, keep],
+                              ck[2][..., keep], cp[2][..., keep],
+                              lambda pts: c_margin(keep_rows[pts]),
+                              MASK_WIDTH)
+            if full else dict(err=cases.row_errors(ck[1][:, keep],
+                                                   cp[1][:, keep]),
+                              edge=torch.zeros(1), off=torch.zeros(1)))
+    r["compact"] = dict(
+        same_as_srl=same, spec_rel=c_spec[0], spec_abs=c_spec[1],
+        rows_rel=float(c_fe["err"].max()), xllws=int(c_fe["edge"].sum()),
+        xllws_off=int(c_fe["off"].sum()),
+        ms=cuda_ms(lambda _: ipk.implsch_compact(
+            cfg, fl, args[1], args[2], full=full, tables_dev=tabs), 10),
+        plain_ms=cuda_ms(lambda _: ipk.implsch_compact_plain(
+            cfg, fl, args[1], args[2], full=full), 2),
+        bytes=nbytes(fl, args[1], args[2], *ck))
+    all_rows = (model._f_srl.clone(), model._env2d, scal,
+                 model._tail.clone())
+    if not full:
+        r["all_rows_ms"] = cuda_ms(lambda _: run_kernel(all_rows), 3)
+    keys = ipk.SCAL_OUT_FULL if full else ipk.SCAL_OUT_MIN
+    data["shallow"] = float((scal[depth] < BATHYMAX).double().mean())
+    r["all_rows_bound"] = bound(
+        nbytes(*all_rows, *all_rows[::3]) + 4 * ft.nsrl * (
+            len(keys) + (ms.tb.nang * ms.tb.nfre if full else 0)),
+        ft.nsrl * implsch_ops(cfg, fp.nang, full, **data))
     return r
 
 
-def profile_steps(model, nsteps):
-    """Device time of each kernel and the busy share over ``nsteps``
-    steps under ``torch.profiler``: (wall ms, {kernel: (ms, calls)},
-    busy ms)."""
+def check_slice(r, full, name):
+    ok = (r["n_off"] == 0 and r["n_tie"] <= TIE_SHARE * r["n_sea"]
+          and r["spec_rel"] <= PHYS_TOL and r["stress_rel"] <= STRESS_TOL)
+    if full:
+        ok = ok and (max(v for k, v in r["rows"].items()) <= FULL_ROW_TOL
+                     and r["xllws_off"] == 0
+                     and r["xllws"] <= XLLWS_SHARE * r["xllws_bins"])
+    c = r["compact"]
+    ok = ok and (c["same_as_srl"] and c["spec_rel"] <= PHYS_TOL
+                 and c["rows_rel"] <= (FULL_ROW_TOL if full else STRESS_TOL)
+                 and c["xllws_off"] == 0)
+    if not ok:
+        raise AssertionError(f"{name}: physics kernel disagrees with plain")
+
+
+def profile(fn, names):
+    """Device time of each kernel name and the busy share of ``fn()``
+    under ``torch.profiler``: (wall ms, {name: (ms, calls)}, busy ms)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.advance(nsteps)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     split = {}
-    for name in ("advect", "implsch"):
-        ev = [e for e in kern if name in e.name]
-        split[name] = (sum(e.device_time for e in ev) / 1e3, len(ev))
+    for label, match in names.items():
+        ev = [e for e in kern if match(e.name)]
+        split[label] = (sum(e.device_time for e in ev) / 1e3, len(ev))
     return wall, split, sum(e.device_time for e in kern) / 1e3
 
 
@@ -195,8 +381,10 @@ def main():
     from ecwam_tpu_torch.ops import propagation_cuda as pcu
     from ecwam_tpu_torch.ops import propagation_fused as pfz
     from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise RuntimeError("the port imported jax")
+    banned = [m for m in sys.modules if m in ("jax", "ecwam_tpu")
+              or m.startswith(("jax.", "ecwam_tpu."))]
+    if banned:
+        raise RuntimeError(f"the port imported {banned[:5]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -216,7 +404,7 @@ def main():
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: {sec:.1f} s; " + " | ".join(regs))
 
-    # ---- 2. small configuration: kernels vs plain trajectory -------------
+    # ---- 2. small configurations -----------------------------------------
     err, launched = cases.golden_kernel_vs_plain(dev)
     log(f"golden 4 steps, kernels vs plain (tolerance fl1 {TRAJ_TOL}, "
         f"stress {TRAJ_STRESS_TOL}): "
@@ -235,6 +423,30 @@ def main():
             f"(tol {PHYS_TOL}), stress {stress:.3e} (tol {STRESS_TOL})")
         if not (spec <= PHYS_TOL and stress <= STRESS_TOL):
             raise AssertionError(f"{name}: physics kernel disagrees")
+        f = cases.full_kernel_vs_plain(kw, dev, width=MASK_WIDTH)
+        worst = max(f["rows"], key=f["rows"].get)
+        log(f"{name} full-mode physics step, kernel vs plain: spectrum "
+            f"{f['spec']:.3e} (tol {PHYS_TOL}); rows "
+            + ", ".join(f"{k} {v:.2e}" for k, v in f["rows"].items())
+            + f" (worst {worst}, tol {FULL_ROW_TOL}); xllws {f['xllws']} of "
+            f"{f['bins']} bins differ on the mask's edge and "
+            f"{f['off_edge']} off it, on {f['flip_points']} points (largest "
+            f"|margin| {f['margin']:.3e}, width {MASK_WIDTH})")
+        if not (f["spec"] <= PHYS_TOL and f["rows"][worst] <= FULL_ROW_TOL
+                and f["off_edge"] == 0
+                and f["xllws"] <= XLLWS_SHARE * f["bins"]):
+            raise AssertionError(f"{name}: full-mode kernel disagrees")
+    n0 = ipk.implsch_srl.full_launches
+    gold = cases.golden_statistics_error(cases.golden_statistics(dev),
+                                         GOLDEN)
+    worst = max(gold, key=gold.get)
+    log(f"golden statistics.log, {cases.GOLDEN_STEPS} output-date steps "
+        f"through the kernels ({ipk.implsch_srl.full_launches - n0} "
+        f"full-mode launches) vs statistics_golden.json: worst {worst} "
+        f"{gold[worst]:.3e} (tol {GOLDEN_RTOL}); "
+        + ", ".join(f"{k} {v:.1e}" for k, v in gold.items()))
+    if not gold[worst] <= GOLDEN_RTOL:
+        raise AssertionError("golden statistics disagree with the reference")
 
     # ---- 3. full width: the main path through the kernels ----------------
     t0 = time.perf_counter()
@@ -265,6 +477,38 @@ def main():
         raise AssertionError("O320 SWH not finite and positive")
     if not bool(torch.isfinite(model._f_srl).all()):
         raise AssertionError("O320 spectrum not finite")
+    t_phys_min = max(b for _, b in steps)
+
+    # the output date: one physics step in chunked full mode
+    model.advance(1)                            # no physics on this step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ipk.implsch_srl.full_launches = 0
+    t_f = model.timers.phys
+    model.advance(1, full_phys=True)
+    launches["implsch_full"] = ipk.implsch_srl.full_launches
+    t_phys_full = model.timers.phys - t_f
+    peak_full = torch.cuda.max_memory_allocated() / 1e9
+    n = ms.n_real
+    out_norms = {k: (float(v[:n].mean()), float(v[:n].min()),
+                     float(v[:n].max())) for k, v in (
+        ("swh", torch.as_tensor(model.swh())),
+        ("esea", model.state["sep"]["esea"]),
+        ("eswell", model.state["sep"]["eswell"]))}
+    log(f"O320 output-date step: t_phys full {t_phys_full:.4f} s against "
+        f"minimal {t_phys_min:.4f} s; {launches['implsch_full']} full-mode "
+        f"launches; peak allocation {peak_full:.2f} GB; norms (avg, min, "
+        f"max) " + ", ".join(f"{k} {v}" for k, v in out_norms.items()))
+    if launches["implsch_full"] <= 0:
+        raise AssertionError("the output date bypassed the full-mode kernel")
+    if not all(np.isfinite(v).all() and v[1] > 0
+               for v in out_norms.values()):
+        raise AssertionError("O320 output-date norms not finite and positive")
+    if (set(model.state) != set(ipk.SCAL_OUT_FULL) | {"sep"}
+            or len(model.state["sep"]) != 12):
+        raise AssertionError("O320 output-date state keys")
+    # frequencies above the cut, for kernel B's operations bound
+    above_cut = ms.tb.nfre - 1 - float(model.state["mij"][:n].double().mean())
 
     # kernel A vs plain, one all-band pass over the whole domain
     fp = model.fp
@@ -277,26 +521,71 @@ def main():
     a_ms = cuda_ms(lambda _: pcu.advect(f0, fp.tabs, fp.lc, **kw), 10)
     a_plain = cuda_ms(lambda _: pcu.advect_plain(f0, fp.tabs, fp.lc, **kw),
                       2)
+    a_bytes = nbytes(f0, got, fp.lc["rows"], fp.tabs["dn_base"],
+                     fp.tabs["up_base"], fp.tabs.get("pf"),
+                     fp.tabs.get("grads"),
+                     *(fp.tabs[k] for k in pcu._F32_TABLES))
     log(f"advect: kernel {a_ms:.3f} ms, plain {a_plain:.3f} ms, "
-        f"max|k-p| {a_abs:.3e} = {a_rel:.3e} of max (tol {ADVECT_TOL})")
+        f"max|k-p| {a_abs:.3e} = {a_rel:.3e} of max (tol {ADVECT_TOL}); "
+        f"{a_bytes / 1e9:.3f} GB a pass")
     if not a_rel <= ADVECT_TOL:
         raise AssertionError("advection kernel disagrees with plain")
     del got, want, f0
 
-    # kernel B vs plain on a 32,768-row slice of the same state
-    r = physics_slice(ms, model, dev)
-    log(f"implsch: {r['n_tie']} of {r['n_sea']} sea rows on an FRCUTINDEX "
-        f"rounding tie (stress off by up to {r['tie_stress']:.3e}); "
-        f"{r['n_off']} other rows off the stress tolerance")
-    log(f"implsch ({PHYS_ROWS} rows): kernel {r['ms']:.3f} ms, plain "
-        f"{r['plain_ms']:.3f} ms; spectrum max|k-p| {r['spec_abs']:.3e} = "
-        f"{r['spec_rel']:.3e} of max (tol {PHYS_TOL}), stress "
-        f"{r['stress_rel']:.3e} (tol {STRESS_TOL}); kernel on all "
-        f"{ft.nsrl} rows {r['all_rows_ms']:.3f} ms")
-    if not (r["n_off"] == 0 and r["n_tie"] <= TIE_SHARE * r["n_sea"]
-            and r["spec_rel"] <= PHYS_TOL
-            and r["stress_rel"] <= STRESS_TOL):
-        raise AssertionError("physics kernel disagrees with plain")
+    # kernels B and C vs plain on a 32,768-row slice of the same state
+    sl = {}
+    for full in (False, True):
+        mode = "full" if full else "minimal"
+        r = sl[mode] = slice_check(ms, model, dev, full, above_cut)
+        c = r["compact"]
+        log(f"implsch {mode} ({PHYS_ROWS} rows): {r['n_tie']} of "
+            f"{r['n_sea']} sea rows on an FRCUTINDEX rounding tie (stress "
+            f"off by up to {r['tie_stress']:.3e}); {r['n_off']} other rows "
+            "off the tolerances")
+        log(f"implsch {mode} ({PHYS_ROWS} rows): kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms; spectrum max|k-p| "
+            f"{r['spec_abs']:.3e} = {r['spec_rel']:.3e} of max (tol "
+            f"{PHYS_TOL}), stress {r['stress_rel']:.3e} (tol {STRESS_TOL})"
+            + (f"; kernel on all {ft.nsrl} rows {r['all_rows_ms']:.3f} ms"
+               if not full else "")
+            + f"; bound on all rows {r['all_rows_bound'][0]:.3f} ms "
+            f"({r['all_rows_bound'][1]})")
+        if full:
+            worst = max(r["rows"], key=r["rows"].get)
+            log(f"implsch full rows: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in r["rows"].items())
+                + f" (worst {worst}, tol {FULL_ROW_TOL}); xllws "
+                f"{r['xllws']} of {r['xllws_bins']} bins differ on the "
+                f"mask's edge and {r['xllws_off']} off it, on "
+                f"{r['flip_points']} points (largest |margin| "
+                f"{r['margin']:.3e}, width {MASK_WIDTH}; "
+                + ", ".join(cases.MASK_FIELDS) + " held out at edge points)")
+        log(f"implsch_compact {mode}: kernel {c['ms']:.3f} ms, plain "
+            f"{c['plain_ms']:.3f} ms; spectrum {c['spec_rel']:.3e} of max, "
+            f"rows {c['rows_rel']:.3e}, xllws {c['xllws']} bins differ on "
+            f"the edge and {c['xllws_off']} off it; "
+            f"bit-identical to the SRL entry: {c['same_as_srl']}")
+        check_slice(r, full, f"implsch {mode}")
+
+    # kernel C's own path: the compact entry on every point, both modes
+    fl1, env2d, scal = cases.compact_inputs(model)
+    cfgs = {full: ms.phys if full else ipk.minimal_config(ms.phys)
+            for full in (False, True)}
+    ipk.implsch_compact.launches = 0
+    for full, cfg in cfgs.items():
+        out = ipk.implsch_compact(cfg, fl1, env2d, scal, full=full)
+        if not all(bool(torch.isfinite(x).all()) for x in out):
+            raise AssertionError("compact entry produced non-finite values")
+        del out
+    launches["implsch_compact"] = ipk.implsch_compact.launches
+    c_all = {full: cuda_ms(lambda _, c=cfg, f=full: ipk.implsch_compact(
+        c, fl1, env2d, scal, full=f), 3) for full, cfg in cfgs.items()}
+    log(f"implsch_compact on all {fl1.shape[-1]} points: minimal "
+        f"{c_all[False]:.3f} ms, full {c_all[True]:.3f} ms; launches "
+        f"{launches['implsch_compact']}")
+    if launches["implsch_compact"] <= 0:
+        raise AssertionError("the compact entry bypassed its kernel")
+    del fl1, env2d, scal
 
     # ---- 4. where the time goes --------------------------------------------
     torch.cuda.synchronize()
@@ -307,26 +596,56 @@ def main():
     bins = ms.n_real * ms.tb.nang * ms.tb.nfre
     log(f"O320 steady state: mean step {step_s * 1e3:.3f} ms over 8 steps "
         f"(4 with physics) = {bins / step_s / 1e9:.3f} Gbins/s")
-    wall, split, busy = profile_steps(model, 4)
+    names = dict(advect=lambda s: "advect" in s,
+                 implsch=lambda s: "implsch_kernel<false" in s,
+                 implsch_full=lambda s: "implsch_kernel<true" in s)
+    wall, split, busy = profile(lambda: model.advance(4), names)
     log(f"O320 profiled 4 steps: wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f} %); "
         + ", ".join(f"{k} {t:.3f} ms in {n} launches "
                     f"({100 * t / busy:.1f} % of device time)"
                     for k, (t, n) in split.items()))
+    model.advance(1)
+    wall, split, busy = profile(lambda: model.advance(1, full_phys=True),
+                                names)
+    rest = busy - sum(t for t, _ in split.values())
+    log(f"O320 profiled output-date step (advection + chunked full "
+        f"physics): wall {wall:.3f} ms, device busy {busy:.3f} ms; "
+        + ", ".join(f"{k} {t:.3f} ms in {n} launches"
+                    for k, (t, n) in split.items())
+        + f"; outside the kernels (windsea/swell split, chunk copies) "
+        f"{rest:.3f} ms")
 
     # ---- 5. report ---------------------------------------------------------
+    def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
+              byte_count, ops):
+        b_ms, b_by = bound(byte_count, ops)
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=n_launch,
+                    max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    mn, fu = sl["minimal"], sl["full"]
+    isrc = "ecwam_tpu_torch/csrc/implsch.cu"
     kernels = [
-        dict(name="advect", route="cuda",
-             source="ecwam_tpu_torch/csrc/advect.cu",
-             replaces="ecwam_tpu/ops/propagation_pallas.py:564",
-             launches=launches["advect"], max_abs_err=a_abs,
-             max_rel_err=a_rel, ms=a_ms, plain_ms=a_plain),
-        dict(name="implsch_minimal", route="cuda",
-             source="ecwam_tpu_torch/csrc/implsch.cu",
-             replaces="ecwam_tpu/ops/physics/implsch_pallas.py:381",
-             launches=launches["implsch"], max_abs_err=r["spec_abs"],
-             max_rel_err=r["spec_rel"], ms=r["ms"],
-             plain_ms=r["plain_ms"])]
+        entry("advect", "ecwam_tpu_torch/csrc/advect.cu",
+              "ecwam_tpu/ops/propagation_pallas.py:564", launches["advect"],
+              a_abs, a_ms, a_plain, a_bytes, 0),
+        entry("implsch_minimal", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+              launches["implsch"], mn["spec_abs"], mn["ms"], mn["plain_ms"],
+              mn["bytes"], mn["ops"]),
+        entry("implsch_full", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+              launches["implsch_full"], fu["spec_abs"], fu["ms"],
+              fu["plain_ms"], fu["bytes"], fu["ops"]),
+        entry("implsch_compact", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:250",
+              launches["implsch_compact"],
+              fu["compact"]["spec_abs"], fu["compact"]["ms"],
+              fu["compact"]["plain_ms"], fu["compact"]["bytes"], fu["ops"])]
+    kernels[0]["max_rel_err"] = a_rel
+    for e, r in zip(kernels[1:], (mn, fu, fu["compact"])):
+        e["max_rel_err"] = r["spec_rel"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

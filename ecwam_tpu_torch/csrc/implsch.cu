@@ -1,18 +1,32 @@
-// Fused IMPLSCH physics step, minimal mode, on SRL rows — one warp per row.
+// Fused IMPLSCH physics step, minimal or full mode — one warp per row.
 //
 // Replaces ecwam_tpu/ops/physics/implsch_pallas.py:implsch_pallas_srl
-// (the Pallas TPU kernel that traces ops/physics/implsch.py under
-// kernelmode.pallas_safe).  The plain PyTorch reference is
+// (kernel B, the SRL entry) and implsch_pallas.py:implsch_pallas (kernel
+// C, the compact (nang, nfre, n) entry): the Pallas TPU kernels that trace
+// ops/physics/implsch.py under kernelmode.pallas_safe.  One launch entry,
+// implsch_launch, takes either layout through a point stride and a bin
+// stride.  The plain PyTorch reference is
 // ecwam_tpu_torch/ops/physics/implsch.py:implsch via
-// implsch_cuda.implsch_srl_plain; the wrapper is
-// ecwam_tpu_torch/ops/physics/implsch_cuda.py:implsch_srl.
+// implsch_cuda.implsch_srl_plain / implsch_compact_plain; the wrappers are
+// implsch_cuda.implsch_srl / implsch_compact.
 //
 // Chain per row (implsch.F90:120-360): SDEPTHLIM, FKMEAN, 2×SINFLX (AIRSEA
 // Newton NITER=18, SINPUT ARD with the sheltering frequency scan,
 // FEMEANWS, FRCUTINDEX, STRESSO with TAU_PHI_HF's JTOT integral), SDISSIP
 // ARD, SNONLIN DIA (isnonlin=1), SDIWBK, SBOTTOM, the semi-implicit
 // update with limiter/floor/cap, IMPHFTAIL, SETICE.  The spectrum (SRL row
-// + its tail-block row) is updated in place; the 6 stress rows go out.
+// + its tail-block row, or the compact column) is written back; the 6
+// stress rows go out.
+//
+// Full mode (output dates, template flag FULL) adds, per row: PHIWA in the
+// second SINFLX call; the WNFLUXES source sums Σ_k ssource, Σ_k sinθ·ssource
+// and Σ_k cosθ·ssource per frequency, formed right after SNONLIN (divided by
+// max(1−δ·fld, 1)) plus the FLMAX cap term in a second pass, so no fourth
+// bin array is kept; WNFLUXES' scalar chain; the second FKMEAN and FEMEANWS;
+// STOKESTRN with STOKFAC derived from wavnum and depth.  It writes the 30
+// SCAL_OUT_FULL rows and the windsea mask xllws as float 0/1 into
+// (nang, nfre, nrows); each lane keeps its directions' mask bits in a 64-bit
+// register word (nfre <= 64), and writes them point-fastest across warps.
 //
 // What bounds it: arithmetic and transcendentals.  Its only bulk traffic
 // is one read and one write of each spectrum row (≈2·nang·nfre·4 bytes);
@@ -53,14 +67,33 @@ enum Par {
   P_FLMIN, P_CITHRSH, P_CITHRSH_TAIL, P_BATHYMAX, P_DKMAX, P_DEPTHTRS,
   P_ROWATERM1, P_ZPI4GM2, P_SBOT_C, P_ABMIN, P_DELABM1, P_ENH_MIN,
   P_ENH_MAX,
+  // full mode only
+  P_DELTM, P_ZPI4GM1, P_COEFA, P_COEFX, P_WSEMEAN_MIN,
+  P_LWAMRSETCI, P_ZCITHRS, P_CITHRSH_INV, P_ZMAXEXP, P_EFD_FAC, P_FFD_FAC,
+  P_EFD_MIN, P_EFD_MAX, P_CDB_C1, P_CDB_C2, P_CDB_P1, P_CDB_P2, P_CDB_MAX,
+  P_EPSU10, P_EPSUS3, P_TAUOCMIN, P_TAUOCMAX, P_PHIEPSMIN, P_PHIEPSMAX,
+  P_PHIOC_ICE, P_PHIAW_ICE, P_TWOG, P_TWOGM1, P_STOKES_C, P_STMAX,
+  P_CITHRSH_STOKES,
   NPAR
 };
 
 // per-frequency tables following the parameters, in this order
 enum FreqTab { T_FR, T_DFIM, T_DFIMOFR, T_DFIMFR, T_ZPIFR, T_FR5, T_COFRM4,
-               T_RHOWG, T_FLMAX, NFREQTAB };
+               T_RHOWG, T_FLMAX, T_DFIMSIM, NFREQTAB };
+
+// rows of the full-mode output block, in the order of
+// implsch_cuda.SCAL_OUT_FULL (the first 6 are the minimal mode's)
+enum Out { O_UFRIC, O_TAUW, O_TAUWDIR, O_Z0M, O_Z0B, O_CHRNCK, O_MIJ,
+           O_PHIWA, O_EMEAN, O_FMEAN, O_F1MEAN, O_AKMEAN, O_XKMEAN,
+           O_EMEANWS, O_FMEANWS, O_WSEMEAN, O_WSFMEAN, O_TAUXD, O_TAUYD,
+           O_TAUOCXD, O_TAUOCYD, O_TAUOC, O_PHIOCD, O_PHIEPS, O_PHIAW,
+           O_EM_OC, O_F1_OC, O_USTOKES, O_VSTOKES, O_STRNMS, NOUT_FULL };
 
 constexpr int WARPS = 2;     // rows (warps) per block
+// blocks per SM that shared memory allows at 36×36 (≈18 KB a row): as a
+// launch bound it steers ptxas's register allocation, and the minimal
+// kernel on all O320 rows ran 4 % faster with it than without (PERF.md)
+constexpr int MIN_BLOCKS = 6;
 constexpr int KPL = 2;       // directions per lane: nang <= 64
 constexpr int JTOT = 19;     // tail-integral nodes (tables.JTOT_TAUHF)
 constexpr int NITER = 18;    // TAUT_Z0 Newton steps
@@ -71,13 +104,14 @@ struct Tabs {
   const float* fr; const float* dfim; const float* dfimofr;
   const float* dfimfr; const float* zpifr; const float* fr5;
   const float* cofrm4; const float* rhowg; const float* flmax;
+  const float* dfimsim;
   const float* th; const float* sinth; const float* costh;
   const float* wmat; const float* swellft; const float* wtauhf;
   const float* af11; const float* rnl; const float* xk_ext;
   const int* ic; const int* ip; const int* ip1; const int* im;
   const int* im1; const int* ikm; const int* ikm1; const int* ikp;
   const int* ikp1; const int* shifts;
-  int nang, nfre, mlsthg, niab;
+  int nang, nfre, nred, mlsthg, niab;
 };
 
 // sum over the warp, the same value (lane 0's) on every lane
@@ -192,22 +226,30 @@ __device__ float transf(const float* P, float xk, float depth) {
 }
 
 // per-warp working set in shared memory
+// (full mode adds sp, sumt, sumx, sumy)
 struct Work {
   float* fl; float* fld; float* sl;
   float* wav; float* cinv; float* xk2cg; float* tm; float* ws; float* sx;
   float* sy;
   float* cosw; float* sin2; float* flm; float* dx; float* enh;
+  float* sp; float* sumt; float* sumx; float* sumy;
 };
 
-__host__ __device__ __forceinline__ int work_floats(int nang, int nfre, int mlsthg) {
-  return 3 * nang * nfre + 7 * nfre + 7 * nang + mlsthg;
+__host__ __device__ __forceinline__ int work_floats(int nang, int nfre,
+                                                    int mlsthg, bool full) {
+  return 3 * nang * nfre + (full ? 11 : 7) * nfre + 7 * nang + mlsthg;
 }
 
 // SINPUT ARD (sinput_ard.F90:88-434): fld and sl in full, and per
-// frequency ws = Σ_k xllws·F (FEMEANWS), sx/sy = Σ_k spos·sin/cos (STRESSO)
+// frequency ws = Σ_k xllws·F (FEMEANWS), sx/sy = Σ_k spos·sin/cos (STRESSO).
+// FULL also keeps sp = Σ_k spos per frequency, the xllws bits of the lane's
+// directions (bit m of xbits[q]) and phw = Σ (sl − spos)·ρwgΔfΔθ, the
+// first term of PHIWA (stresso.F90:71-78)
+template <bool FULL>
 __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
                            bool llsneg, float wswave, float wdwave,
-                           float ufric, float z0m, float raorw, float wstar) {
+                           float ufric, float z0m, float raorw, float wstar,
+                           unsigned long long* xbits, float& phw) {
   const float* P = T.par;
   const int nang = T.nang, nfre = T.nfre;
   const float avg = ngst > 1 ? 0.5f : 1.f;
@@ -245,6 +287,10 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
     tauy[g] = u2 * cwd;
   }
   const float rogoroair = P[P_G] / raorw;
+  if (FULL) {
+    xbits[0] = xbits[1] = 0ull;
+    phw = 0.f;
+  }
 
   for (int m = 0; m < nfre; ++m) {
     const float zp = T.zpifr[m];
@@ -295,7 +341,7 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
       xs[g] = xs[g] + warp_sum(px) * constf;
       ys[g] = ys[g] + warp_sum(py) * constf;
     }
-    float wsp = 0.f, sxp = 0.f, syp = 0.f;
+    float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
       const int k = lane + 32 * q;
@@ -309,24 +355,37 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
       wsp += xll[q] * f;
       sxp += sp * T.sinth[k];
       syp += sp * T.costh[k];
+      if (FULL) {
+        spp += sp;
+        dph += (fm * f - sp) * T.rhowg[m];
+        if (xll[q] != 0.f) xbits[q] |= 1ull << m;
+      }
     }
     wsp = warp_sum(wsp);
     sxp = warp_sum(sxp);
     syp = warp_sum(syp);
+    if (FULL) {
+      spp = warp_sum(spp);
+      phw += warp_sum(dph);
+    }
     if (lane == 0) {
       W.ws[m] = wsp;
       W.sx[m] = sxp;
       W.sy[m] = syp;
+      if (FULL) W.sp[m] = spp;
     }
   }
   __syncwarp();
 }
 
 // STRESSO + TAU_PHI_HF's stress integral (stresso.F90:63-160,
-// tau_phi_hf.F90:73-255): the total wave stress and its direction
+// tau_phi_hf.F90:73-255): the total wave stress and its direction.  FULL
+// also completes PHIWA: phiwa comes in as sinput_ard's phw and leaves with
+// Σ ρwgΔfΔθ-to-the-cut · sp and the tail's energy flux PHIHF added
+template <bool FULL>
 __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
                         float ufric, float z0m, float aird, float wdwave,
-                        float& tauw, float& tauwdir) {
+                        float& tauw, float& tauwdir, float& phiwa) {
   const float* P = T.par;
   const int nang = T.nang, nfre = T.nfre;
   auto rhowgdfth = [&](int m) {
@@ -339,6 +398,8 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
   float yst = msum(nfre, lane, [&](int m) {
     return rhowgdfth(m) * W.cinv[m] * W.sy[m]; });
   const float af = fmaxf(aird, 1.f);
+  if (FULL)
+    phiwa += msum(nfre, lane, [&](int m) { return rhowgdfth(m) * W.sp[m]; });
   xst = xst / af;
   yst = yst / af;
   const float u2 = ufric * ufric;
@@ -354,13 +415,15 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
   const float sqrtgz0 = 1.f / sqrtz0og;
   const float zinf = logf(omegacc * sqrtz0og);
   const float consttau = P[P_ZPI4GM2] * T.fr5[mij];
-  float part = 0.f;
+  float part = 0.f, part2 = 0.f;
 #pragma unroll
   for (int q = 0; q < KPL; ++q) {
     const int k = lane + 32 * q;
     if (k >= nang) continue;
     const float cw = fmaxf(W.cosw[k], 0.f);
-    part += W.fl[k * nfre + mij] * (cw * cw) * cw;
+    const float fc2 = W.fl[k * nfre + mij] * (cw * cw);
+    part += fc2 * cw;
+    if (FULL) part2 += fc2;
   }
   const float f1dcos3 = P[P_DELTH] * warp_sum(part);
   const float delz = fmaxf((0.f - zinf) / (float)(JTOT - 1), 0.f);
@@ -377,6 +440,26 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
     taul = fmaxf(taul - P[P_TAUWSHELTER] * fnc2, 0.f);
     ustc = sqrtf(taul);
     tauhf += fnc2;
+  }
+  if (FULL) {
+    // PHIHF: the full range up to log 1 = 0, afresh from the sheltered u*
+    // (tau_phi_hf.F90:200-254)
+    const float f1dcos2 = P[P_DELTH] * warp_sum(part2);
+    float taup = ust * ust, ustph = ust, acc = 0.f;
+    for (int j = 0; j < JTOT; ++j) {
+      const float y = expf(zinf + (float)j * delz);
+      const float cm1 = y * sqrtgz0 * P[P_GM1];
+      const float zx = ustph * cm1 + P[P_ZALP];
+      const float zlog = fminf(xloggz0 + 2.f * logf(cm1) + P[P_XKAPPA] / zx,
+                               0.f);
+      const float z2 = zlog * zlog;
+      const float zbeta = z2 * z2 * expf(zlog);
+      const float fnc2 = zbeta * taup * T.wtauhf[j] * delz;
+      taup = fmaxf(taup - P[P_TAUWSHELTER] * f1dcos3 * consttau * fnc2, 0.f);
+      ustph = sqrtf(taup);
+      acc += fnc2 / y;
+    }
+    phiwa += f1dcos2 * (aird * P[P_ZPI4GM1] * T.fr5[mij]) * sqrtz0og * acc;
   }
   xst = xst + tauhf * sinf(usdirp);
   yst = yst + tauhf * cosf(usdirp);
@@ -492,22 +575,35 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth) {
   }
 }
 
-__global__ void __launch_bounds__(32 * WARPS)
-implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
-                       const float* __restrict__ env2d,
-                       const float* __restrict__ scal,
-                       float* __restrict__ out6, Tabs T, int nsrl, int nfr) {
+
+// Layout of the spectrum: bin (k, m) of row p lies at
+// fin[p·f_ps + (k·nfr + m)·f_bs] for m < nfr (SRL rows: f_ps = nang·nfr,
+// f_bs = 1; compact (nang, nfre, n): f_ps = 1, f_bs = n, nfr = nfre), and
+// at tin[p·nang·(nfre−nfr) + k·(nfre−nfr) + m − nfr] above (the SRL tail
+// block).  fout/tout take the result in the same layout; they may equal
+// fin/tin (in place).  The template flag COMPACT (f_bs != 1) keeps the
+// bin-stride multiply out of the SRL instantiations.
+struct Layout {
+  const float* fin; float* fout; long f_ps, f_bs;
+  const float* tin; float* tout; int nfr;
+};
+
+template <bool FULL, bool COMPACT>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+implsch_kernel(Layout Lo, const float* __restrict__ env2d,
+               const float* __restrict__ scal, float* __restrict__ out,
+               float* __restrict__ xllws, Tabs T, int nrows) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long p = (long)blockIdx.x * WARPS + warp;
-  if (p >= nsrl) return;                       // whole warp leaves together
+  if (p >= nrows) return;                      // whole warp leaves together
   const float* P = T.par;
   const int nang = T.nang, nfre = T.nfre, nb = nang * nfre;
-  const int nt = nfre - nfr;
+  const int nfr = Lo.nfr, nt = nfre - nfr;
 
   Work W;
-  W.fl = smem + warp * work_floats(nang, nfre, T.mlsthg);
+  W.fl = smem + warp * work_floats(nang, nfre, T.mlsthg, FULL);
   W.fld = W.fl + nb;
   W.sl = W.fld + nb;
   W.wav = W.sl + nb;
@@ -522,20 +618,28 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
   W.flm = W.sin2 + nang;
   W.dx = W.flm + nang;
   W.enh = W.dx + 4 * nang;
+  W.sp = W.enh + T.mlsthg;                     // FULL only
+  W.sumt = W.sp + nfre;
+  W.sumx = W.sumt + nfre;
+  W.sumy = W.sumx + nfre;
 
-  // ---- load: SRL row (k-major, nfr freqs) + tail row (nfre-nfr freqs)
-  float* frow = f_srl + p * (long)(nang * nfr);
-  float* trow = tail + p * (long)(nang * nt);
+  // ---- load: the row's advected bins + its tail-block bins
+  const float* frow = Lo.fin + p * Lo.f_ps;
+  const float* trow = nt ? Lo.tin + p * (long)(nang * nt) : nullptr;
+  auto fidx = [&](int k, int m) {
+    const int i = k * nfr + m;
+    return COMPACT ? (long)i * Lo.f_bs : (long)i;
+  };
   for (int b = lane; b < nb; b += 32) {
     const int k = b / nfre, m = b - k * nfre;
-    W.fl[b] = m < nfr ? frow[k * nfr + m] : trow[k * nt + (m - nfr)];
+    W.fl[b] = m < nfr ? frow[fidx(k, m)] : trow[k * nt + (m - nfr)];
   }
   for (int m = lane; m < nfre; m += 32) {
-    W.wav[m] = env2d[(long)m * nsrl + p];
-    W.cinv[m] = env2d[(long)(nfre + m) * nsrl + p];
-    W.xk2cg[m] = env2d[(long)(2 * nfre + m) * nsrl + p];
+    W.wav[m] = env2d[(long)m * nrows + p];
+    W.cinv[m] = env2d[(long)(nfre + m) * nrows + p];
+    W.xk2cg[m] = env2d[(long)(2 * nfre + m) * nrows + p];
   }
-  auto sc = [&](int i) { return scal[(long)i * nsrl + p]; };
+  auto sc = [&](int i) { return scal[(long)i * nrows + p]; };
   const float wswave = sc(0), wdwave = sc(1), aird = sc(2), wstar = sc(3);
   const float cicover = sc(4), depth = sc(6), emaxdpt = sc(7);
   float ufric = sc(8), tauw = sc(9), tauwdir = sc(10), z0m = sc(11);
@@ -580,7 +684,8 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
 
   // ---- 2×SINFLX (sinflx.F90:190-260)
   int mij = nfre - 1;
-  float fmeanws = 0.f;
+  float fmeanws = 0.f, phiwa = 0.f;
+  unsigned long long xbits[KPL];
   for (int icall = 1; icall <= 2; ++icall) {
     if (icall == 1) {
       for (int k = lane; k < nang; k += 32) {
@@ -591,8 +696,8 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
     }
     taut_z0(P, wswave, wdwave, tauw, tauwdir, ufric, icall == 1 ? 0 : 1,
             ufric, z0m, z0b, chrnck);
-    sinput_ard(T, W, lane, icall == 1 ? 1 : 2, icall == 2, wswave, wdwave,
-               ufric, z0m, raorw, wstar);
+    sinput_ard<FULL>(T, W, lane, icall == 1 ? 1 : 2, icall == 2, wswave,
+                     wdwave, ufric, z0m, raorw, wstar, xbits, phiwa);
     // FEMEANWS (femeanws.F90:52-100)
     float emws = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
         + P[P_EPSMIN];
@@ -608,11 +713,30 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
     mij1 = min(max(mij1, 1), nfre);
     if (!(cicover <= P[P_CITHRSH_TAIL])) mij1 = nfre;
     mij = mij1 - 1;
-    stresso(T, W, lane, mij, ufric, z0m, aird, wdwave, tauw, tauwdir);
+    stresso<FULL>(T, W, lane, mij, ufric, z0m, aird, wdwave, tauw, tauwdir,
+                  phiwa);
   }
 
   sdissip_ard(T, W, lane);
   snonlin(T, W, lane, depth);
+
+  // ---- WNFLUXES' source sums, SNONLIN included (implsch.F90:297-305)
+  if (FULL) {
+    for (int m = lane; m < nfre; m += 32) {
+      float st = 0.f, sx = 0.f, sy = 0.f;
+      for (int k = 0; k < nang; ++k) {
+        const int b = k * nfre + m;
+        const float ss = W.sl[b] / fmaxf(1.f - P[P_DELT5] * W.fld[b], 1.f);
+        st += ss;
+        sx += T.sinth[k] * ss;
+        sy += T.costh[k] * ss;
+      }
+      W.sumt[m] = st;
+      W.sumx[m] = sx;
+      W.sumy[m] = sy;
+    }
+    __syncwarp();
+  }
 
   // ---- SDIWBK (sdiwbk.F90:44-75) + SBOTTOM (sbottom.F90:41-60)
   float sds = 0.f;
@@ -634,7 +758,7 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
   const bool bottom = depth < P[P_BATHYMAX];
   for (int b = lane; b < nb; b += 32) {
     const int m = b % nfre;
-    if (m >= nfr) continue;
+    if (m >= T.nred) continue;
     const float f = W.fl[b];
     float s = W.sl[b] + (-sds) * f;
     float d = W.fld[b] + (-sds);
@@ -648,7 +772,9 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
     W.fld[b] = d;
   }
 
-  // ---- semi-implicit update with growth limiter (implsch.F90:260-300)
+  // ---- semi-implicit update with growth limiter (implsch.F90:260-300);
+  // FULL keeps the FLMAX cap's flux term deltm·min(flmax − F, 0) in fld,
+  // which is dead after the update
   const float usfm = ufric * fmaxf(fmeanws, fmean);
   for (int b = lane; b < nb; b += 32) {
     const int k = b / nfre, m = b - k * nfre;
@@ -658,9 +784,128 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
     const float flhab = fminf(fabsf(gtemp2), temp);
     float f = W.fl[b] + sgn(gtemp2) * flhab;
     f = fmaxf(f, W.flm[k]);
+    if (FULL) W.fld[b] = P[P_DELTM] * fminf(T.flmax[m] - f, 0.f);
     W.fl[b] = fminf(f, T.flmax[m]);
   }
   __syncwarp();
+
+  float o[NOUT_FULL];                          // FULL's extra rows
+  if (FULL) {
+    // the cap term joins the source sums (implsch.F90:375,390)
+    for (int m = lane; m < nfre; m += 32) {
+      float st = 0.f, sx = 0.f, sy = 0.f;
+      for (int k = 0; k < nang; ++k) {
+        const float cap = W.fld[k * nfre + m];
+        st += cap;
+        sx += T.sinth[k] * cap;
+        sy += T.costh[k] * cap;
+      }
+      W.sumt[m] += st;
+      W.sumx[m] += sx;
+      W.sumy[m] += sy;
+    }
+    __syncwarp();
+
+    // WNFLUXES (wnfluxes.F90:150-340) with the first FKMEAN's em, f1
+    auto rhowgdfth = [&](int m) {
+      if (m > mij) return 0.f;
+      const float w = T.rhowg[m];
+      return (m == mij && mij != nfre - 1) ? 0.5f * w : w;
+    };
+    const float philf = msum(nfre, lane, [&](int m) {
+      return W.sumt[m] * rhowgdfth(m); });
+    const float xstr = msum(nfre, lane, [&](int m) {
+      return W.sumx[m] * (W.cinv[m] * rhowgdfth(m)); });
+    const float ystr = msum(nfre, lane, [&](int m) {
+      return W.sumy[m] * (W.cinv[m] * rhowgdfth(m)); });
+    float ooval = 1.f, ustar = ufric, em_oc = emean, f1_oc = f1mean;
+    if (P[P_LWAMRSETCI] != 0.f && cicover > P[P_ZCITHRS]) {
+      const float ci4 = cicover * P[P_CITHRSH_INV];
+      const float oi = expf(-fminf((ci4 * ci4) * (ci4 * ci4), P[P_ZMAXEXP]));
+      const float u10p = fmaxf(wswave, P[P_EPSU10]);
+      const float cd_bulk = fminf((P[P_CDB_C1] + P[P_CDB_C2]
+                                   * powf(u10p, P[P_CDB_P1]))
+                                  * powf(u10p, P[P_CDB_P2]), P[P_CDB_MAX]);
+      const float uu = ufric / u10p;
+      const float cd_ice = oi * (uu * uu) + (1.f - oi) * cd_bulk;
+      const float us_i = fmaxf(sqrtf(cd_ice) * u10p, P[P_EPSUS]);
+      const float us2 = us_i * us_i;
+      const float efd = fminf(P[P_EFD_FAC] * (us2 * us2), P[P_EFD_MAX]);
+      em_oc = fmaxf(oi * emean + (1.f - oi) * efd, P[P_EFD_MIN]);
+      const float ffd = P[P_FFD_FAC] / us_i;
+      f1_oc = fminf(fmaxf(oi * f1mean + (1.f - oi) * ffd, T.fr[1]),
+                    T.fr[nfre - 1]);
+      ooval = oi;
+      ustar = us_i;
+    }
+    const float tau = aird * fmaxf(ustar * ustar, P[P_EPSUS]);
+    const float tauxd = tau * sinf(wdwave), tauyd = tau * cosf(wdwave);
+    const float tauocxd = tauxd - ooval * xstr;
+    const float tauocyd = tauyd - ooval * ystr;
+    const float tauo = sqrtf(tauocxd * tauocxd + tauocyd * tauocyd);
+    const float xn = aird * fmaxf(ustar * ustar * ustar, P[P_EPSUS3]);
+    const float phioc = ooval * (philf - phiwa)
+        + (1.f - ooval) * P[P_PHIOC_ICE] * xn;
+    const float phieps = fminf(fmaxf(phioc / xn, P[P_PHIEPSMIN]),
+                               P[P_PHIEPSMAX]);
+    o[O_TAUXD] = tauxd;
+    o[O_TAUYD] = tauyd;
+    o[O_TAUOCXD] = tauocxd;
+    o[O_TAUOCYD] = tauocyd;
+    o[O_TAUOC] = fminf(fmaxf(tauo / tau, P[P_TAUOCMIN]), P[P_TAUOCMAX]);
+    o[O_PHIOCD] = phieps * xn;
+    o[O_PHIEPS] = phieps;
+    o[O_PHIAW] = ooval * phiwa / xn + (1.f - ooval) * P[P_PHIAW_ICE];
+    o[O_EM_OC] = em_oc;
+    o[O_F1_OC] = f1_oc;
+    o[O_PHIWA] = phiwa;
+    o[O_MIJ] = (float)mij;
+
+    // second FKMEAN (fkmean.F90:60-100) and FEMEANWS on the updated bins
+    colsum(W.fl, W.tm, nang, nfre, lane);
+    float e2 = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return T.dfim[m] * W.tm[m]; });
+    float fm1 = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return T.dfimofr[m] * W.tm[m]; });
+    float f1 = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return T.dfimfr[m] * W.tm[m]; });
+    float ak = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return T.dfim[m] / sqrtf(W.wav[m]) * W.tm[m]; });
+    float xk = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return sqrtf(W.wav[m]) * T.dfim[m] * W.tm[m]; });
+    const float tl = W.tm[nfre - 1];
+    e2 = e2 + P[P_DELT25] * tl;
+    o[O_EMEAN] = e2;
+    o[O_FMEAN] = e2 / (fm1 + P[P_DELT2] * tl);
+    o[O_F1MEAN] = (f1 + P[P_COEF1] * tl) / e2;
+    const float ar = e2 / (ak + P[P_COEFA] * tl);
+    o[O_AKMEAN] = ar * ar;
+    const float xr = (xk + P[P_COEFX] * tl) / e2;
+    o[O_XKMEAN] = xr * xr;
+    for (int m = 0; m < nfre; ++m) {
+      float w = 0.f;
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + 32 * q;
+        if (k < nang && ((xbits[q] >> m) & 1ull)) w += W.fl[k * nfre + m];
+      }
+      w = warp_sum(w);
+      if (lane == 0) W.ws[m] = w;
+    }
+    __syncwarp();
+    float emws = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
+        + P[P_EPSMIN];
+    float fmws = msum(nfre, lane, [&](int m) {
+      return T.dfimofr[m] * W.ws[m]; }) + P[P_EPSMIN];
+    emws = emws + P[P_DELT25] * W.ws[nfre - 1];
+    fmws = fmws + P[P_DELT2] * W.ws[nfre - 1];
+    const bool small = emws < P[P_WSEMEAN_MIN];
+    o[O_EMEANWS] = emws;
+    o[O_FMEANWS] = emws / fmws;
+    o[O_WSEMEAN] = small ? P[P_WSEMEAN_MIN] : emws;
+    o[O_WSFMEAN] = small ? 2.f * T.fr[nfre - 1] : emws / fmws;
+    __syncwarp();
+  }
 
   // ---- IMPHFTAIL (imphftail.F90:40-55) + SETICE (setice.F90:38-60)
   const float t_mij = 1.f / (W.xk2cg[mij] * W.wav[mij]);
@@ -680,35 +925,114 @@ implsch_minimal_kernel(float* __restrict__ f_srl, float* __restrict__ tail,
     __syncwarp();
   }
 
+  // ---- STOKESTRN (stokesdrift.F90:95-145), STOKFAC from (k, d)
+  if (FULL) {
+    const int nodd = nfre - 1 + nfre % 2;
+    for (int m = lane; m < nodd; m += 32) {
+      const float om = T.zpifr[m], xk = W.wav[m];
+      const float akd = xk * depth;
+      const float sh = P[P_TWOG] * (xk * xk)
+          / (om * tanhf(2.f * fminf(akd, 10.f)));
+      const float dp = P[P_TWOGM1] * (om * om * om);
+      W.tm[m] = (akd <= 10.f ? sh : dp) * T.dfimsim[m];
+    }
+    __syncwarp();
+    float us = 0.f, vs = 0.f, ut = 0.f, vt = 0.f;
+    for (int b = lane; b < nb; b += 32) {
+      const int k = b / nfre, m = b - k * nfre;
+      if (m >= nodd) continue;
+      const float f3 = W.tm[m] * W.fl[b];
+      us += f3 * T.sinth[k];
+      vs += f3 * T.costh[k];
+      if (m == nodd - 1) {
+        ut += T.sinth[k] * W.fl[b];
+        vt += T.costh[k] * W.fl[b];
+      }
+    }
+    us = warp_sum(us) + P[P_STOKES_C] * warp_sum(ut);
+    vs = warp_sum(vs) + P[P_STOKES_C] * warp_sum(vt);
+    if (P[P_LWAMRSETCI] != 0.f && cicover > P[P_CITHRSH_STOKES]) {
+      const float fac = 0.016f * wswave * (1.f - cicover);
+      us = fac * sinf(wdwave);
+      vs = fac * cosf(wdwave);
+    }
+    o[O_USTOKES] = fminf(fmaxf(us, -P[P_STMAX]), P[P_STMAX]);
+    o[O_VSTOKES] = fminf(fmaxf(vs, -P[P_STMAX]), P[P_STMAX]);
+    o[O_STRNMS] = 0.f;
+  }
+
   // ---- store
+  float* fdst = Lo.fout + p * Lo.f_ps;
+  float* tdst = nt ? Lo.tout + p * (long)(nang * nt) : nullptr;
   for (int b = lane; b < nb; b += 32) {
     const int k = b / nfre, m = b - k * nfre;
-    if (m < nfr) frow[k * nfr + m] = W.fl[b];
-    else trow[k * nt + (m - nfr)] = W.fl[b];
+    if (m < nfr) fdst[fidx(k, m)] = W.fl[b];
+    else tdst[k * nt + (m - nfr)] = W.fl[b];
   }
   if (lane == 0) {
-    out6[0 * (long)nsrl + p] = ufric;
-    out6[1 * (long)nsrl + p] = tauw;
-    out6[2 * (long)nsrl + p] = tauwdir;
-    out6[3 * (long)nsrl + p] = z0m;
-    out6[4 * (long)nsrl + p] = z0b;
-    out6[5 * (long)nsrl + p] = chrnck;
+    out[O_UFRIC * (long)nrows + p] = ufric;
+    out[O_TAUW * (long)nrows + p] = tauw;
+    out[O_TAUWDIR * (long)nrows + p] = tauwdir;
+    out[O_Z0M * (long)nrows + p] = z0m;
+    out[O_Z0B * (long)nrows + p] = z0b;
+    out[O_CHRNCK * (long)nrows + p] = chrnck;
+    if (FULL) {
+#pragma unroll
+      for (int i = O_MIJ; i < NOUT_FULL; ++i) out[i * (long)nrows + p] = o[i];
+    }
   }
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + 32 * q;
+      if (k >= nang) continue;
+      for (int m = 0; m < nfre; ++m)
+        xllws[(long)(k * nfre + m) * nrows + p] =
+            (float)((xbits[q] >> m) & 1ull);
+    }
+  }
+}
+
+template <bool FULL, bool COMPACT>
+int launch(const Layout& Lo, const float* env2d, const float* scal,
+           float* out, float* xllws, const Tabs& T, int nrows,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)WARPS * work_floats(T.nang, T.nfre, T.mlsthg,
+                                                  FULL) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        implsch_kernel<FULL, COMPACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (nrows + WARPS - 1) / WARPS;
+  implsch_kernel<FULL, COMPACT><<<blocks, 32 * WARPS, smem, stream>>>(
+      Lo, env2d, scal, out, xllws, T, nrows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Host entry, bound from Python with ctypes.  ``tab``/``itab`` hold the
-// parameter block and tables laid out by implsch_cuda.pack_tables.
-// Returns the CUDA error code of the launch (0 = launched).
-extern "C" int implsch_minimal_launch(
-    float* f_srl, float* tail, const float* env2d, const float* scal,
-    float* out6, const float* tab, const int* itab, int nsrl, int nang,
-    int nfre, int nfr, int mlsthg, int niab, void* stream) {
-  if (nang > 32 * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre)
+// parameter block and tables laid out by implsch_cuda.pack_tables; the
+// layout arguments are those of ``Layout`` above.  ``out`` takes 6 rows
+// (minimal) or NOUT_FULL rows and ``xllws`` the (nang, nfre, nrows) mask
+// (full).  ``nred`` is the configuration's nfre_red, the top of the
+// SDIWBK/SBOTTOM range, whatever the layout.  Returns the CUDA error code
+// of the launch (0 = launched).
+extern "C" int implsch_launch(
+    int full, const float* fin, float* fout, long f_ps, long f_bs,
+    const float* tin, float* tout, const float* env2d, const float* scal,
+    float* out, float* xllws, const float* tab, const int* itab, int nrows,
+    int nang, int nfre, int nfr, int nred, int mlsthg, int niab,
+    void* stream) {
+  if (nang > 32 * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre
+      || nred < 1 || nred > nfre || (full && nfre > 64)
+      || (nfr < nfre && (!tin || !tout)))
     return (int)cudaErrorInvalidValue;
   Tabs T;
-  T.nang = nang; T.nfre = nfre; T.mlsthg = mlsthg; T.niab = niab;
+  T.nang = nang; T.nfre = nfre; T.nred = nred; T.mlsthg = mlsthg;
+  T.niab = niab;
   const float* t = tab;
   T.par = t; t += NPAR;
   const float* ft[NFREQTAB];
@@ -716,6 +1040,7 @@ extern "C" int implsch_minimal_launch(
   T.fr = ft[T_FR]; T.dfim = ft[T_DFIM]; T.dfimofr = ft[T_DFIMOFR];
   T.dfimfr = ft[T_DFIMFR]; T.zpifr = ft[T_ZPIFR]; T.fr5 = ft[T_FR5];
   T.cofrm4 = ft[T_COFRM4]; T.rhowg = ft[T_RHOWG]; T.flmax = ft[T_FLMAX];
+  T.dfimsim = ft[T_DFIMSIM];
   T.th = t; t += nang;
   T.sinth = t; t += nang;
   T.costh = t; t += nang;
@@ -737,16 +1062,11 @@ extern "C" int implsch_minimal_launch(
   T.ikp1 = it; it += mlsthg;
   T.shifts = it;
 
-  const size_t smem = (size_t)WARPS * work_floats(nang, nfre, mlsthg)
-      * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        implsch_minimal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (nsrl + WARPS - 1) / WARPS;
-  implsch_minimal_kernel<<<blocks, 32 * WARPS, smem, (cudaStream_t)stream>>>(
-      f_srl, tail, env2d, scal, out6, T, nsrl, nfr);
-  return (int)cudaGetLastError();
+  const Layout Lo{fin, fout, f_ps, f_bs, tin, tout, nfr};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (f_bs != 1)
+    return full ? launch<true, true>(Lo, env2d, scal, out, xllws, T, nrows, s)
+                : launch<false, true>(Lo, env2d, scal, out, xllws, T, nrows, s);
+  return full ? launch<true, false>(Lo, env2d, scal, out, xllws, T, nrows, s)
+              : launch<false, false>(Lo, env2d, scal, out, xllws, T, nrows, s);
 }

@@ -1,4 +1,4 @@
-"""Explicit device selection: ``cpu`` or ``cuda[:i]``, never implied."""
+"""Device selection: the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -6,11 +6,13 @@ import torch
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:
-    """The torch device asked for by name; ``None`` means the CPU.
+    """The torch device asked for by name; ``None`` means the card
+    (``cuda``).
 
     A CUDA device that is not present raises instead of degrading to
-    the CPU: a run that asked for the card must run on it."""
-    dev = torch.device("cpu" if device is None else device)
+    the CPU: a run that asked for the card must run on it.  The CPU runs
+    only when asked for by name, as the tests do."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available")

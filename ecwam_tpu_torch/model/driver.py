@@ -3,10 +3,12 @@
 Port of ``ecwam_tpu/model/driver.py: FastWaveModel`` — the production
 stepping mode: the spectrum stays in the segmented row layout between
 steps, each ``idelpro`` runs the CTU advection (kernel A) and each
-``idelt`` the minimal-mode IMPLSCH physics (kernel B)
-(wamodel.F90:228-649, wamintgr.F90:94-186), with 14-character date
-bookkeeping (incdate.F90) via ``datetime``.  Output dates (full-mode
-physics) and current refraction are not ported yet.
+``idelt`` the IMPLSCH physics (kernel B): minimal mode between output
+dates, and at output dates (``advance(..., full_phys=True)``) full mode
+chunked over rows with the windsea/swell separation, which fills
+``state`` (wamodel.F90:228-649, wamintgr.F90:94-186).  Dates are
+14-character strings (incdate.F90) kept as ``datetime``.  Current
+refraction is not ported yet.
 """
 
 from __future__ import annotations
@@ -87,6 +89,7 @@ class FastWaveModel:
             stress = self._to_device(stress)
         (self._env2d, self._denv, self._frc6,
          self._stress6) = fp.build_phys_srl(self.frc, stress)
+        self.state = {}
         self.timers = StepTimers()
         self._phys_elapsed = 0.0
 
@@ -128,11 +131,15 @@ class FastWaveModel:
         return self
 
     # -- stepping ---------------------------------------------------------
-    def advance(self, n_steps: int = 1, wind_every: int | None = None):
+    def advance(self, n_steps: int = 1, wind_every: int | None = None,
+                full_phys: bool = False):
         """Advance ``n_steps`` advection steps of ``idelpro`` seconds;
         physics runs whenever the accumulated time reaches ``idelt``
         (wamintgr.F90:117-146).  ``wind_every``: swap forcing every N
-        steps (NEWWIND incl. the TAUW cap); None keeps the forcing."""
+        steps (NEWWIND incl. the TAUW cap); None keeps the forcing.
+        ``full_phys``: these physics steps are output dates — full mode,
+        chunked, and ``state`` takes their diagnostics at the canonical
+        points."""
         s, dev = self.setup, self.setup.device
         for i in range(n_steps):
             if wind_every and i > 0 and i % wind_every == 0:
@@ -144,9 +151,15 @@ class FastWaveModel:
             self._phys_elapsed += s.idelpro
             if self._phys_elapsed >= s.idelt - 1e-6:
                 t0 = time.perf_counter()
-                self._f_srl, self._stress6, self._tail = self.fp.phys_srl(
-                    self._f_srl, self._stress6, self._frc6, self._denv,
-                    self._env2d, self._tail)
+                args = (self._f_srl, self._stress6, self._frc6, self._denv,
+                        self._env2d, self._tail)
+                if full_phys:
+                    (self._f_srl, self._stress6, self._tail,
+                     state) = self.fp.phys_srl_full_chunked(*args)
+                    self.state = self._extract(state)
+                else:
+                    self._f_srl, self._stress6, self._tail = \
+                        self.fp.phys_srl(*args)
                 self._phys_elapsed = 0.0
                 synchronize(dev)
                 self.timers.phys += time.perf_counter() - t0
@@ -177,6 +190,23 @@ class FastWaveModel:
             rows = f[:, tb.nfre_red:].permute(2, 0, 1).reshape(-1, fp.LT)
             rows = torch.cat([rows, rows.new_zeros((1, fp.LT))])
             self._tail = rows[fp.tabs["srl_src"]].contiguous()
+
+    def fl1_chunk(self, start: int, count: int) -> torch.Tensor:
+        """Compact spectrum (nang, nfre, count) of the canonical points
+        [start, start + count) without forming the whole compact field."""
+        fp, tb = self.fp, self.setup.tb
+        idx = fp.from_srl_pad[start:start + count]
+        n = idx.shape[0]
+        out = self._f_srl[idx].reshape(n, tb.nang, tb.nfre_red)
+        if self._tail is not None:
+            out = torch.cat([out, self._tail[idx].reshape(
+                n, tb.nang, tb.nfre - tb.nfre_red)], dim=2)
+        return out.permute(1, 2, 0)
+
+    def _extract(self, state: dict) -> dict:
+        """SRL-ordered per-point rows (nested dicts too) → (n_pad,)."""
+        return {k: (self._extract(v) if isinstance(v, dict)
+                    else self.fp.extract_state(v)) for k, v in state.items()}
 
     @property
     def stress(self) -> dict:

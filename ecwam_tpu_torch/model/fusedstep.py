@@ -1,11 +1,14 @@
 """Fused propagation + SRL-resident physics steps.
 
-Port of ``ecwam_tpu/model/fusedstep.py: FusedPropagation`` for irefra
-0/1 and the minimal physics mode.  The spectrum lives in the segmented
-row layout (SRL, :mod:`ecwam_tpu_torch.ops.propagation_fused`); each
-advection step refreshes the row-wrap slots and runs one all-band CTU
+Port of ``ecwam_tpu/model/fusedstep.py: FusedPropagation`` and
+``full_chunked_rows`` for irefra 0/1.  The spectrum lives in the
+segmented row layout (SRL, :mod:`ecwam_tpu_torch.ops.propagation_fused`);
+each advection step refreshes the row-wrap slots and runs one all-band CTU
 pass plus the extra fast-wave sub-band passes (propag_wam.F90:247-313),
-and each physics step runs the fused IMPLSCH chain on every SRL row.
+and each physics step runs the fused IMPLSCH chain on every SRL row: in
+minimal mode between output dates, and at output dates in full mode,
+chunked over rows, with each chunk's windsea mask consumed at once by
+the windsea/swell separation.
 
 Both operators go through their kernel wrappers
 (:func:`ecwam_tpu_torch.ops.propagation_cuda.advect`,
@@ -20,11 +23,70 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecwam_tpu.model import preset as preset_mod
+from ecwam_tpu_torch.io import products as products_mod
+from ecwam_tpu_torch.model import preset as preset_mod
 from ecwam_tpu_torch.ops import propagation as prop
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
 from ecwam_tpu_torch.ops import propagation_fused as pfz
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+
+
+# windsea/swell separation keys precomputed by the chunked full step
+SEP_KEYS = ("eswell", "fswell", "thswell", "p1swell", "p2swell",
+            "sprdswell", "esea", "fsea", "thwisea", "p1sea", "p2sea",
+            "sprdsea")
+
+
+def full_chunked_rows(cfg, tb, f_srl, tail, scal_all, env2d, *,
+                      nang: int, nfre_red: int, chunk: int = 65536,
+                      plain: bool = False, tables_dev: dict | None = None):
+    """Full-mode physics over SRL rows in chunks of ``chunk`` rows, in
+    place: each chunk's windsea mask xllws (nang, nfre, rows) goes
+    straight into the windsea/swell separation
+    (:func:`ecwam_tpu_torch.io.products.sepwisw`) and is dropped, so a
+    whole-field mask (2.4 GB at O320) never exists.
+
+    Runs kernel B in full mode (:func:`implsch_cuda.implsch_srl`), or its
+    plain version with ``plain=True`` (and for CPU tensors).  Returns
+    (f_srl, tail, state): the SCAL_OUT_FULL rows (mij as int64) plus
+    ``sep``, a dict of the SEP_KEYS rows.
+    """
+    nfre = tb.nfre
+    nsrl = f_srl.shape[0]
+    i_uf = ipk.SCAL_OUT_FULL.index("ufric")
+    state_rows = f_srl.new_empty((len(ipk.SCAL_OUT_FULL), nsrl))
+    sep_rows = f_srl.new_empty((len(SEP_KEYS), nsrl))
+    for s in range(0, nsrl, chunk):
+        rows = slice(s, min(nsrl, s + chunk))
+        f_c = f_srl[rows]
+        t_c = tail[rows] if tail is not None else None
+        scal_c = scal_all[:, rows].contiguous()
+        env_c = env2d[:, rows].contiguous()
+        if plain:
+            f_new, so, t_new, xllws = ipk.implsch_srl_plain(
+                cfg, f_c, env_c, scal_c, t_c, nang=nang, nfre_red=nfre_red,
+                full=True)
+        else:
+            f_new, so, t_new, xllws = ipk.implsch_srl(
+                cfg, f_c, env_c, scal_c, t_c, nang=nang, nfre_red=nfre_red,
+                full=True, tables_dev=tables_dev)
+        if f_new is not f_c:                   # the plain version's copy
+            f_c.copy_(f_new)
+            if t_c is not None:
+                t_c.copy_(t_new)
+        cc = f_c.shape[0]
+        fl = f_c.reshape(cc, nang, nfre_red).permute(1, 2, 0)
+        if t_c is not None:
+            fl = torch.cat([fl, t_c.reshape(cc, nang, nfre - nfre_red)
+                            .permute(1, 2, 0)], dim=1)
+        sep = products_mod.sepwisw(fl, xllws, env_c[nfre:2 * nfre],
+                                   so[i_uf], scal_c[0], scal_c[1], tb)
+        del xllws
+        sep_rows[:, rows] = torch.stack([sep[k] for k in SEP_KEYS])
+        state_rows[:, rows] = so
+    state = ipk.unpack_scal_out(state_rows, full=True)
+    state["sep"] = {k: sep_rows[i] for i, k in enumerate(SEP_KEYS)}
+    return f_srl, tail, state
 
 
 class FusedPropagation:
@@ -124,9 +186,10 @@ class FusedPropagation:
         straight into the SRL layout on the device.
 
         The per-point JONSWAP and spreading vectors come from
-        ``ecwam_tpu.model.preset`` on the host (float64, (nsrl, nfre) and
-        (nsrl, nang)); their outer product — the full spectrum — is formed
-        on the device in float64, chunked over rows, and cast.  The result
+        :mod:`ecwam_tpu_torch.model.preset` on the host (float64,
+        (nsrl, nfre) and (nsrl, nang)); their outer product — the full
+        spectrum — is formed on the device in float64, chunked over rows,
+        and cast.  The result
         equals the reference's host MSTART gathered into the SRL.
 
         Returns (f_srl, tail) with ``tail`` None when nfre_red == nfre.
@@ -153,24 +216,45 @@ class FusedPropagation:
                 tail[rows] = spec[:, :, nred:].reshape(-1, self.LT)
         return f_srl, tail
 
+    def _tables(self, f_srl):
+        """The kernel's device tables, packed once (the same for both
+        modes)."""
+        if f_srl.device.type == "cuda" and self.phys_tables is None:
+            self.phys_tables = ipk.pack_tables(self.setup.phys, f_srl.device)
+        return self.phys_tables
+
     def phys_srl(self, f_srl, stress6, frc6, denv, env2d, tail=None):
         """One minimal-mode physics step on SRL-resident state (the
-        counterpart of ``phys_srl_pallas(full=False)``); runs on all SRL
-        rows (wrap duplicates compute identical results, pads are finite
-        garbage that the advection valid-mask never reads).
+        counterpart of ``phys_srl_pallas``); runs on all SRL rows (wrap
+        duplicates compute identical results, pads are finite garbage that
+        the advection valid-mask never reads).  Output dates take
+        :meth:`phys_srl_full_chunked`.
 
         Returns (f_srl, stress6, tail)."""
         cfg = ipk.minimal_config(self.setup.phys)
         scal = torch.cat([frc6, denv, stress6])
+        kw = dict(nang=self.nang, nfre_red=self.nfre_red)
         if self.plain:
-            return ipk.implsch_srl_plain(cfg, f_srl, env2d, scal, tail,
-                                         nang=self.nang,
-                                         nfre_red=self.nfre_red)
-        if f_srl.device.type == "cuda" and self.phys_tables is None:
-            self.phys_tables = ipk.pack_tables(cfg, f_srl.device)
+            return ipk.implsch_srl_plain(cfg, f_srl, env2d, scal, tail, **kw)
         return ipk.implsch_srl(cfg, f_srl, env2d, scal, tail,
-                               nang=self.nang, nfre_red=self.nfre_red,
-                               tables_dev=self.phys_tables)
+                               tables_dev=self._tables(f_srl), **kw)
+
+    def phys_srl_full_chunked(self, f_srl, stress6, frc6, denv, env2d,
+                              tail=None, *, chunk: int = 65536):
+        """The output-date physics step: full mode chunked over SRL rows
+        (:func:`full_chunked_rows`), updating ``f_srl``/``tail`` in place.
+
+        Returns (f_srl, stress6, tail, state) with ``state`` carrying the
+        SCAL_OUT_FULL rows plus ``sep`` (the windsea/swell rows); the
+        per-bin swell spectrum is not kept."""
+        scal = torch.cat([frc6, denv, stress6])
+        f_srl, tail, state = full_chunked_rows(
+            self.setup.phys, self.setup.tb, f_srl, tail, scal, env2d,
+            nang=self.nang, nfre_red=self.nfre_red, chunk=chunk,
+            plain=self.plain, tables_dev=self._tables(f_srl))
+        stress6 = torch.stack([state[k].to(f_srl.dtype)
+                               for k in ipk.STRESS_KEYS])
+        return f_srl, stress6, tail, state
 
     def extract_state(self, rows):
         """Gather canonical points of SRL-ordered per-point rows

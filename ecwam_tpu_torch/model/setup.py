@@ -22,12 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ecwam_tpu.core import dispersion
-from ecwam_tpu.core import physparams as pp
-from ecwam_tpu.core.grid import (WaveGrid, SeaPointBlock, aqua_bathymetry,
+from ecwam_tpu_torch.core import dispersion
+from ecwam_tpu_torch.core import physparams as pp
+from ecwam_tpu_torch.core.grid import (WaveGrid, SeaPointBlock, aqua_bathymetry,
                                  build_sea_point_block, octahedral_grid,
                                  regular_grid)
-from ecwam_tpu.core.spectral import SpectralTables, build_spectral_tables
+from ecwam_tpu_torch.core.spectral import SpectralTables, build_spectral_tables
 from ecwam_tpu_torch.device import resolve
 from ecwam_tpu_torch.ops import propagation as prop
 from ecwam_tpu_torch.ops import propagation_fused as pfz
@@ -150,8 +150,8 @@ def build_model(
 ) -> ModelSetup:
     """Build a complete single-domain model for the fused SRL path.
 
-    ``device`` names where the env tensors live (``"cpu"`` or
-    ``"cuda"``); the numpy tables stay on the host.  Current refraction
+    ``device`` names where the env tensors live: ``"cuda"`` (the
+    default, None) or ``"cpu"``; the numpy tables stay on the host.  Current refraction
     (irefra 2/3) and the dense/OTF weight modes are not ported.
     """
     if weights_mode != "fused":

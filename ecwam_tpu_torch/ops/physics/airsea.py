@@ -15,8 +15,8 @@ import math
 
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import physparams as pp
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import physparams as pp
 
 EPS1 = 0.00001            # tauw/u*² margin (yowtabl.F90:34)
 NITER = 18

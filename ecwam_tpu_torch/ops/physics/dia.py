@@ -22,8 +22,8 @@ import math
 import numpy as np
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core.dispersion import BATHYMAX
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core.dispersion import BATHYMAX
 
 ALAMD = 0.25             # DIA lambda (nlweigt.F90:69)
 CON = 3000.0             # numerical constant (nlweigt.F90:70)

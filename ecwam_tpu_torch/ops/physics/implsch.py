@@ -6,10 +6,10 @@ version that the CUDA kernel of :mod:`.implsch_cuda` is held against.
 
 The chain: depth limit → means → 2×SINFLX → SDISSIP → SNONLIN → SDIWBK →
 SBOTTOM → implicit update with growth limiter → means → IMPHFTAIL →
-SETICE.  Ported for the between-output-date (minimal) mode with
-iphys=1 and isnonlin 0/1; the output-date diagnostics (fluxes, Stokes
-drift), iphys=0, isnonlin=2, the sea-ice source terms, LCISCAL and the
-gravity-capillary closure raise NotImplementedError.
+SETICE, and in full mode (the output dates) WNFLUXES and STOKESTRN.
+Ported for iphys=1 and isnonlin 0/1; iphys=0, isnonlin=2, the sea-ice
+source terms, LCISCAL and the gravity-capillary closure raise
+NotImplementedError.
 
 Layout: fl1 (nang, nfre, npts).
 """
@@ -22,20 +22,34 @@ from typing import Any
 import numpy as np
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import physparams as pp
-from ecwam_tpu.ops.physics import tables as tables_mod
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import physparams as pp
+from ecwam_tpu_torch.ops.physics import tables as tables_mod
 from ecwam_tpu_torch.ops.physics import airsea as airsea_mod
 from ecwam_tpu_torch.ops.physics import const
 from ecwam_tpu_torch.ops.physics import dia as dia_mod
+from ecwam_tpu_torch.ops.physics import fluxes as fluxes_mod
 from ecwam_tpu_torch.ops.physics import means as means_mod
 from ecwam_tpu_torch.ops.physics import sdissip as sdissip_mod
 from ecwam_tpu_torch.ops.physics import shallow as shallow_mod
 from ecwam_tpu_torch.ops.physics import sinput as sinput_mod
+from ecwam_tpu_torch.ops.physics import stokes as stokes_mod
 from ecwam_tpu_torch.ops.physics import stress as stress_mod
 from ecwam_tpu_torch.ops.physics.tail_ice import FLMIN, imphftail, setice
 
 XIMP = 1.0               # implicitness factor (yowstat.F90:94)
+
+
+def derive_stokfac(wavnum, depth, tb):
+    """STOKFAC from (k, d) (initdpthflds.F90 fills it from the same
+    dispersion formulas), so the per-frequency row block need not be
+    stored."""
+    om = const(tb.zpifr, wavnum)[:, None]
+    akd = wavnum * depth[None, :]
+    akd_s = torch.clamp(akd, max=10.0)
+    sh = 2.0 * c.G * wavnum**2 / (om * torch.tanh(2.0 * akd_s))
+    dp = (2.0 / c.G) * om**3
+    return torch.where(akd <= 10.0, sh, dp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +100,6 @@ def check_ported(cfg: PhysicsConfig) -> None:
     """Raise for the physics options this port does not cover yet."""
     p = cfg.params
     missing = [name for name, on in (
-        ("full-mode diagnostics (lcflx/lstokes/lstrn)",
-         cfg.lcflx or cfg.lstokes or cfg.lstrn),
         ("iphys=0", p.iphys != 1),
         ("isnonlin=2", cfg.isnonlin not in (0, 1)),
         ("llgcbz0/llnormagam/llcapchnk",
@@ -127,7 +139,7 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
     ngst = 1 if icall < ncall else 2
     llsneg = icall >= ncall
     llphiwa = icall >= ncall
-    fld, sl, spos, xllws = sinput_mod.sinput_ard(
+    fld, sl, spos, xllws, margin = sinput_mod.sinput_ard(
         fl1, env["wavnum"], env["cinv"], env["xk2cg"],
         frc["wdwave"], frc["wswave"], ufric, z0m,
         coswdif, sinwdif2, raorw, frc["wstar"], rnfac,
@@ -145,7 +157,7 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
     return dict(
         fl1=fl1, ufric=ufric, tauw=tauw, tauwdir=tauwdir,
         z0m=z0m, z0b=z0b, chrnck=chrnck,
-        fld=fld, sl=sl, spos=spos, xllws=xllws,
+        fld=fld, sl=sl, spos=spos, xllws=xllws, xllws_margin=margin,
         mij=mij, rhowgdfth=rhowgdfth, fmeanws=fmeanws, phiwa=phiwa,
         frcut=frcut,
         coswdif=coswdif, raorw=raorw)
@@ -153,17 +165,22 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
 
 def implsch(cfg: PhysicsConfig, fl1, env, frc,
             ufric, tauw, tauwdir, z0m, z0b, chrnck):
-    """One physics step of Δt=idelt (implsch.F90:120-360), minimal mode.
+    """One physics step of Δt=idelt (implsch.F90:120-360).
 
     Returns (fl1_new, state_dict) where state_dict carries the updated
-    stress fields, the mean-parameter diagnostics and ``frcut_tie``: the
-    distance of FRCUTINDEX's argument from its rounding tie (x.5), the
-    smaller over the two SINFLX calls.  Where it is tiny the cut, and
-    with it the stress, flips on a last-bit change of the inputs.
+    stress fields, the mean-parameter diagnostics, the windsea mask
+    ``xllws``, ``frcut_tie`` — the distance of FRCUTINDEX's argument from
+    its rounding tie (x.5), the smaller over the two SINFLX calls; where
+    it is tiny the cut, and with it the stress, flips on a last-bit
+    change of the inputs — ``xllws_margin``, the signed distance of each
+    mask bin from the mask's edge in the second SINFLX call (see
+    :func:`.sinput.sinput_ard`) — and, with ``cfg.lcflx``/``cfg.lstokes``
+    (full mode), the WNFLUXES and STOKESTRN fields.
     """
     check_ported(cfg)
     tb = cfg.tables
     delt = cfg.idelt
+    deltm = 1.0 / delt
     delt5 = XIMP * delt
 
     if cfg.lbiwbk:
@@ -188,13 +205,19 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         z0m, z0b, chrnck = st["z0m"], st["z0b"], st["chrnck"]
     fld, sl = st["fld"], st["sl"]
     mij, xllws, fmeanws = st["mij"], st["xllws"], st["fmeanws"]
+    xllws_margin = st["xllws_margin"]
 
     fld, sl = sdissip_mod.sdissip_ard(
         fl1, fld, sl, env["wavnum"], env["xk2cg"], ufric, st["coswdif"],
         st["raorw"], tb, cfg.params, cfg.sat_indices, cfg.sat_weights)
+    # the flux-relevant source contribution (implsch.F90:281-306)
+    ssource = sl if (cfg.lcflx and not cfg.lwvflx_snl) else None
     fld, sl = dia_mod.snonlin(
         fl1, fld, sl, env["wavnum"], env["depth"], akmean, tb, cfg.dia,
         isnonlin=cfg.isnonlin)
+    if cfg.lcflx and cfg.lwvflx_snl:
+        # modulated by the implicit factor (implsch.F90:297-305)
+        ssource = sl / torch.clamp(1.0 - delt5 * fld, min=1.0)
     fld, sl = shallow_mod.sdiwbk(
         fl1, fld, sl, env["depth"], env["emaxdpt"], emean, f1mean,
         cfg.nfre_red, lbiwbk=cfg.lbiwbk)
@@ -210,7 +233,19 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
     flhab = torch.minimum(torch.abs(gtemp2), temp)
     fl1 = fl1 + torch.sign(gtemp2) * flhab
     fl1 = torch.maximum(fl1, flm[:, None, :])
-    fl1 = torch.minimum(fl1, const(_flmax(tb, cfg.params), fl1)[None, :, None])
+    flmax = const(_flmax(tb, cfg.params), fl1)[None, :, None]
+    if ssource is not None:
+        # the cap's contribution enters the flux source (implsch.F90:375,390)
+        ssource = ssource + deltm * torch.clamp(flmax - fl1, max=0.0)
+    fl1 = torch.minimum(fl1, flmax)
+
+    flux_diag = {}
+    if cfg.lcflx:
+        flux_diag = fluxes_mod.wnfluxes(
+            ssource, env["cinv"], st["rhowgdfth"], frc["cicover"],
+            st["phiwa"], emean, f1mean, frc["wswave"], frc["wdwave"],
+            ufric, frc["aird"], tb, cfg.params,
+            licerun=cfg.licerun, lwamrsetci=cfg.lwamrsetci)
 
     emean, fmean, f1mean, akmean, xkmean = means_mod.fkmean(
         fl1, env["wavnum"], tb)
@@ -232,7 +267,20 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         chrnck=chrnck, mij=mij, xllws=xllws, phiwa=st["phiwa"],
         emean=emean, fmean=fmean, f1mean=f1mean, akmean=akmean,
         xkmean=xkmean, emeanws=emeanws, fmeanws=fmeanws,
-        wsemean=wsemean, wsfmean=wsfmean, frcut_tie=torch.minimum(*ties))
+        wsemean=wsemean, wsfmean=wsfmean, frcut_tie=torch.minimum(*ties),
+        xllws_margin=xllws_margin,
+        **flux_diag)
+    if cfg.lstokes:
+        cithick = frc.get("cithick", torch.zeros_like(frc["cicover"]))
+        stokfac = env.get("stokfac")
+        if stokfac is None:
+            stokfac = derive_stokfac(env["wavnum"], env["depth"], tb)
+        state.update(stokes_mod.stokestrn(
+            fl1, env["wavnum"], stokfac, env["depth"],
+            frc["wswave"], frc["wdwave"], frc["cicover"], cithick, tb,
+            licerun=cfg.licerun, lwamrsetci=cfg.lwamrsetci,
+            lstrn=cfg.lstrn))
+        state.setdefault("strnms", torch.zeros_like(ufric))
     return fl1, state
 
 

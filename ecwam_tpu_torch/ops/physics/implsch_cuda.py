@@ -1,18 +1,26 @@
-"""Fused IMPLSCH physics on SRL rows: CUDA kernel + plain version.
+"""Fused IMPLSCH physics: CUDA kernel + plain version, two layouts.
 
-Kernel B of the port (``csrc/implsch.cu``), the counterpart of
-``ecwam_tpu/ops/physics/implsch_pallas.py: implsch_pallas_srl`` in its
-minimal (between-output-date) mode.  :func:`implsch_srl` launches the
-kernel for CUDA tensors and runs :func:`implsch_srl_plain` (the plain
-PyTorch chain of :mod:`.implsch` on the same rows) for CPU tensors.
+Kernels B and C of the port, one CUDA source (``csrc/implsch.cu``):
+  * :func:`implsch_srl`, the counterpart of
+    ``ecwam_tpu/ops/physics/implsch_pallas.py: implsch_pallas_srl``, on
+    SRL rows, in minimal (between output dates) or full mode;
+  * :func:`implsch_compact`, the counterpart of ``implsch_pallas`` there,
+    on the compact (nang, nfre, n) spectrum — the same kernel through a
+    point stride and a bin stride.
+Each launches the kernel for CUDA tensors and runs its plain version
+(:func:`implsch_srl_plain`, :func:`implsch_compact_plain`: the plain
+PyTorch chain of :mod:`.implsch`) for CPU tensors.
 
-Layouts (SRL row order, no lane pad):
+Layouts (point index fastest in every row block, no lane pad):
   f_srl (nsrl, nang·nfre_red)  k-major advected spectrum rows
   tail  (nsrl, nang·(nfre−nfre_red)) k-major diagnostic tail rows, or
         None when nfre == nfre_red
-  env2d (3·nfre, nsrl)          [wavnum; cinv; xk2cg] row blocks
-  scal  (14, nsrl)              SCAL_IN rows
-Returns (f_srl, stress6 (6, nsrl) in STRESS_KEYS order, tail).
+  fl1   (nang, nfre, n)         the compact spectrum
+  env2d (3·nfre, n)             [wavnum; cinv; xk2cg] row blocks
+  scal  (14, n)                 SCAL_IN rows
+Minimal mode returns the 6 STRESS_KEYS rows; full mode (the output-date
+diagnostics, ``cfg`` with lcflx and lstokes) the 30 SCAL_OUT_FULL rows and
+the windsea mask xllws (nang, nfre, n) as float 0/1.
 """
 
 from __future__ import annotations
@@ -24,15 +32,17 @@ import math
 import numpy as np
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import physparams as pp
-from ecwam_tpu.core import spectral as sp
-from ecwam_tpu.core.dispersion import BATHYMAX
-from ecwam_tpu.ops.physics import tables
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import physparams as pp
+from ecwam_tpu_torch.core import spectral as sp
+from ecwam_tpu_torch.core.dispersion import BATHYMAX
+from ecwam_tpu_torch.ops.physics import tables
 from ecwam_tpu_torch import _build
 from ecwam_tpu_torch.ops.physics import dia as dia_mod
+from ecwam_tpu_torch.ops.physics import fluxes as fluxes_mod
 from ecwam_tpu_torch.ops.physics import implsch as impl
 from ecwam_tpu_torch.ops.physics import sdissip as sdissip_mod
+from ecwam_tpu_torch.ops.physics import stokes as stokes_mod
 from ecwam_tpu_torch.ops.physics.airsea import EPS1, WSPMIN_DEFAULT
 from ecwam_tpu_torch.ops.physics.shallow import DEPTHTRS
 from ecwam_tpu_torch.ops.physics.stress import CITHRSH_TAIL
@@ -46,6 +56,17 @@ N_FRC = 6                     # leading forcing rows
 STRESS_KEYS = ("ufric", "tauw", "tauwdir", "z0m", "z0b", "chrnck")
 # per-frequency env fields → row blocks of the (3·nfre, n) matrix
 ENV_FIELDS = ("wavnum", "cinv", "xk2cg")
+
+# minimal-mode outputs: exactly the state that feeds the next step
+SCAL_OUT_MIN = STRESS_KEYS
+# full-mode diagnostics (implsch state keys, io/products.py consumers);
+# mij rides as float in the packed rows (cast back by unpack_scal_out)
+SCAL_OUT_FULL = STRESS_KEYS + (
+    "mij", "phiwa", "emean", "fmean", "f1mean", "akmean", "xkmean",
+    "emeanws", "fmeanws", "wsemean", "wsfmean",
+    "tauxd", "tauyd", "tauocxd", "tauocyd", "tauoc",
+    "phiocd", "phieps", "phiaw", "em_oc", "f1_oc",
+    "ustokes", "vstokes", "strnms")
 
 # scalar parameter block of the kernel, in the order of csrc/implsch.cu's
 # Par enum (P_<NAME>)
@@ -61,7 +82,14 @@ PAR_NAMES = (
     "one_m_ssdsc6",
     "flmin", "cithrsh", "cithrsh_tail", "bathymax", "dkmax", "depthtrs",
     "rowaterm1", "zpi4gm2", "sbot_c", "abmin", "delabm1", "enh_min",
-    "enh_max")
+    "enh_max",
+    # full mode only
+    "deltm", "zpi4gm1", "coefa", "coefx", "wsemean_min",
+    "lwamrsetci", "zcithrs", "cithrsh_inv", "zmaxexp", "efd_fac", "ffd_fac",
+    "efd_min", "efd_max", "cdb_c1", "cdb_c2", "cdb_p1", "cdb_p2", "cdb_max",
+    "epsu10", "epsus3", "tauocmin", "tauocmax", "phiepsmin", "phiepsmax",
+    "phioc_ice", "phiaw_ice", "twog", "twogm1", "stokes_c", "stmax",
+    "cithrsh_stokes")
 
 
 def minimal_config(cfg: impl.PhysicsConfig) -> impl.PhysicsConfig:
@@ -72,7 +100,25 @@ def minimal_config(cfg: impl.PhysicsConfig) -> impl.PhysicsConfig:
     return dataclasses.replace(cfg, lcflx=False, lstokes=False, lstrn=False)
 
 
-def kernel_supports(cfg: impl.PhysicsConfig) -> None:
+def unpack_scal_out(so, *, full: bool) -> dict:
+    """(NSO, n) packed output rows → state dict (mij back to int64)."""
+    keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
+    out = {k: so[i] for i, k in enumerate(keys)}
+    if "mij" in out:
+        out["mij"] = out["mij"].to(torch.int64)
+    return out
+
+
+def pack_scal_out(state: dict, *, full: bool):
+    """A chain's state dict → (NSO, n) rows; keys the configuration does
+    not compute are zero, as in the TPU kernel."""
+    keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
+    like = state["ufric"]
+    return torch.stack([state[k].to(like.dtype) if k in state
+                        else torch.zeros_like(like) for k in keys])
+
+
+def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False) -> None:
     """Raise for configurations the kernel does not take."""
     impl.check_ported(cfg)
     if cfg.isnonlin != 1:
@@ -84,6 +130,11 @@ def kernel_supports(cfg: impl.PhysicsConfig) -> None:
         raise NotImplementedError("the physics kernel takes nang <= 64")
     if WSPMIN_DEFAULT != 1.0:
         raise NotImplementedError("the physics kernel assumes WSPMIN=1")
+    if full and not (cfg.lcflx and cfg.lstokes and cfg.lwvflx_snl
+                     and not cfg.lstrn and cfg.tables.nfre <= 64):
+        raise NotImplementedError(
+            "the full-mode kernel computes lcflx, lstokes and lwvflx_snl, "
+            "without lstrn, for nfre <= 64")
 
 
 def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
@@ -115,19 +166,34 @@ def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
         rowaterm1=c.ROWATERM1, zpi4gm2=c.ZPI4GM2,
         sbot_c=-2.0 * 0.038 * c.GM1, abmin=tables.ABMIN,
         delabm1=tables.IAB / (tables.ABMAX - tables.ABMIN),
-        enh_min=dia_mod.ENH_MIN, enh_max=dia_mod.ENH_MAX)
+        enh_min=dia_mod.ENH_MIN, enh_max=dia_mod.ENH_MAX,
+        deltm=1.0 / cfg.idelt, zpi4gm1=c.ZPI4GM1,
+        coefa=sp.FRTAIL * tb.delth * math.sqrt(c.G) / c.ZPI,
+        coefx=sp.WP1TAIL * tb.delth * fr[-1] ** 2 * c.ZPI / math.sqrt(c.G),
+        wsemean_min=c.WSEMEAN_MIN, lwamrsetci=float(cfg.lwamrsetci),
+        efd_min=fluxes_mod.EFD_MIN, efd_max=fluxes_mod.EFD_MAX,
+        cdb_c1=fluxes_mod._C1, cdb_c2=fluxes_mod._C2, cdb_p1=fluxes_mod._P1,
+        cdb_p2=fluxes_mod._P2, cdb_max=fluxes_mod._CDMAX,
+        epsu10=c.EPSU10, epsus3=c.EPSUS * math.sqrt(c.EPSUS),
+        tauocmin=c.TAUOCMIN, tauocmax=c.TAUOCMAX, phiepsmin=c.PHIEPSMIN,
+        phiepsmax=c.PHIEPSMAX, phioc_ice=fluxes_mod.PHIOC_ICE,
+        phiaw_ice=fluxes_mod.PHIAW_ICE, twog=2.0 * c.G, twogm1=2.0 / c.G,
+        stokes_c=stokes_mod.stokes_const(tb), stmax=stokes_mod.STMAX,
+        cithrsh_stokes=0.3, **fluxes_mod.ice_constants(p))
     return np.array([v[k] for k in PAR_NAMES], np.float64)
 
 
 def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
     """The kernel's parameter block and tables as two device arrays, in
-    the layout csrc/implsch.cu's ``implsch_minimal_launch`` unpacks."""
+    the layout csrc/implsch.cu's ``implsch_launch`` unpacks (the same for
+    both modes and layouts)."""
     tb, dia = cfg.tables, cfg.dia
     if int(tables.JTOT_TAUHF) != 19:
         raise ValueError("the physics kernel integrates JTOT=19 nodes")
     swellft = tables.tabu_swellft()
     ftabs = [tb.fr, tb.dfim, tb.dfimofr, tb.dfimfr, tb.zpifr, tb.fr5,
-             tb.cofrm4, tb.rhowg_dfim, impl._flmax(tb, cfg.params)]
+             tb.cofrm4, tb.rhowg_dfim, impl._flmax(tb, cfg.params),
+             tb.dfim_sim]
     wmat = sdissip_mod.saturation_matrix(tb.nang, cfg.sat_indices,
                                          cfg.sat_weights)
     ftab = np.concatenate(
@@ -146,6 +212,20 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
         mlsthg=int(dia.mlsthg), niab=int(swellft.shape[0]))
 
 
+
+
+def _unpack_inputs(cfg, env2d, scal):
+    """(env, frc, stress tuple in STRESS_KEYS order) of the plain chain
+    from the packed env and scalar rows."""
+    nfre = cfg.tables.nfre
+    si = {k: scal[i] for i, k in enumerate(SCAL_IN)}
+    env = {k: env2d[i * nfre:(i + 1) * nfre] for i, k in
+           enumerate(ENV_FIELDS)}
+    env["depth"], env["emaxdpt"] = si["depth"], si["emaxdpt"]
+    frc = {k: si[k] for k in SCAL_IN[:N_FRC]}
+    return env, frc, tuple(si[k] for k in STRESS_KEYS)
+
+
 def srl_inputs(cfg, f_srl, env2d, scal, tail, *, nang: int,
                nfre_red: int):
     """SRL-row inputs → the arguments of :func:`.implsch.implsch`:
@@ -157,17 +237,20 @@ def srl_inputs(cfg, f_srl, env2d, scal, tail, *, nang: int,
     if tail is not None:
         fl = torch.cat([fl, tail.reshape(nsrl, nang, nfre - nfre_red)
                         .permute(1, 2, 0)], dim=1)
-    si = {k: scal[i] for i, k in enumerate(SCAL_IN)}
-    env = {k: env2d[i * nfre:(i + 1) * nfre] for i, k in
-           enumerate(ENV_FIELDS)}
-    env["depth"], env["emaxdpt"] = si["depth"], si["emaxdpt"]
-    frc = {k: si[k] for k in SCAL_IN[:N_FRC]}
-    return fl, env, frc, tuple(si[k] for k in STRESS_KEYS)
+    return (fl,) + _unpack_inputs(cfg, env2d, scal)
+
+
+def _outputs(state, full: bool):
+    if full:
+        return pack_scal_out(state, full=True), state["xllws"]
+    return torch.stack([state[k] for k in STRESS_KEYS]), None
 
 
 def implsch_srl_plain(cfg, f_srl, env2d, scal, tail, *, nang: int,
-                      nfre_red: int):
-    """The plain PyTorch chain (:func:`.implsch.implsch`) on SRL rows."""
+                      nfre_red: int, full: bool = False):
+    """The plain PyTorch chain (:func:`.implsch.implsch`) on SRL rows:
+    (f_srl, stress6, tail), or in full mode (f_srl, scal_out (30, nsrl),
+    tail, xllws (nang, nfre, nsrl))."""
     nsrl = f_srl.shape[0]
     fl, env, frc, stress = srl_inputs(cfg, f_srl, env2d, scal, tail,
                                       nang=nang, nfre_red=nfre_red)
@@ -176,7 +259,17 @@ def implsch_srl_plain(cfg, f_srl, env2d, scal, tail, *, nang: int,
     f_new = rows[:, :, :nfre_red].reshape(nsrl, -1).contiguous()
     t_new = (rows[:, :, nfre_red:].reshape(nsrl, -1).contiguous()
              if tail is not None else None)
-    return f_new, torch.stack([state[k] for k in STRESS_KEYS]), t_new
+    so, xllws = _outputs(state, full)
+    return (f_new, so, t_new) + ((xllws,) if full else ())
+
+
+def implsch_compact_plain(cfg, fl1, env2d, scal, *, full: bool = False):
+    """The plain PyTorch chain on the compact (nang, nfre, n) spectrum:
+    (fl1, stress6), or in full mode (fl1, scal_out (30, n), xllws)."""
+    env, frc, stress = _unpack_inputs(cfg, env2d, scal)
+    out, state = impl.implsch(cfg, fl1, env, frc, *stress)
+    so, xllws = _outputs(state, full)
+    return (out, so) + ((xllws,) if full else ())
 
 
 def frcut_tie(cfg, f_srl, env2d, scal, tail, *, nang: int, nfre_red: int):
@@ -185,6 +278,15 @@ def frcut_tie(cfg, f_srl, env2d, scal, tail, *, nang: int, nfre_red: int):
     fl, env, frc, stress = srl_inputs(cfg, f_srl, env2d, scal, tail,
                                       nang=nang, nfre_red=nfre_red)
     return impl.implsch(cfg, fl, env, frc, *stress)[1]["frcut_tie"]
+
+
+def xllws_margin(cfg, fl1, env2d, scal):
+    """Per bin of the compact (nang, nfre, n) spectrum, the plain chain's
+    signed distance of the windsea-mask test from its edge
+    (``xllws_margin`` of :func:`.implsch.implsch`; the bit is set where it
+    is positive)."""
+    env, frc, stress = _unpack_inputs(cfg, env2d, scal)
+    return impl.implsch(cfg, fl1, env, frc, *stress)[1]["xllws_margin"]
 
 
 def _check(name, t, shape, device):
@@ -198,54 +300,105 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
+def _no_kernel(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no physics kernel for device {t.device}")
+
+
 def _lib():
-    fn = _build.load("implsch").implsch_minimal_launch
+    fn = _build.load("implsch").implsch_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_long] * 2 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def implsch_srl(cfg, f_srl, env2d, scal, tail=None, *, nang: int,
-                nfre_red: int, tables_dev: dict | None = None):
-    """One minimal-mode physics step on SRL rows (see the module
-    docstring).  On CUDA the kernel updates ``f_srl`` and ``tail`` in
-    place (as the TPU kernel aliases them) and returns them;
-    ``tables_dev`` is :func:`pack_tables`' result, built here if None."""
-    if f_srl.device.type == "cpu":
-        return implsch_srl_plain(cfg, f_srl, env2d, scal, tail, nang=nang,
-                                 nfre_red=nfre_red)
-    if f_srl.device.type != "cuda":
-        raise ValueError(f"no physics kernel for device {f_srl.device}")
-    kernel_supports(cfg)
+def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
+            nrows: int, nang: int, nfr: int, tables_dev):
+    """Check the common inputs, allocate the outputs and launch
+    ``implsch_launch``; returns (out rows, xllws or None)."""
+    kernel_supports(cfg, full)
+    dev = fin.device
     nfre = cfg.tables.nfre
-    if (nfre > nfre_red) != (tail is not None):
-        raise ValueError("tail block required iff nfre > nfre_red")
-    dev = f_srl.device
-    nsrl = f_srl.shape[0]
-    _check("f_srl", f_srl, (nsrl, nang * nfre_red), dev)
-    if tail is not None:
-        _check("tail", tail, (nsrl, nang * (nfre - nfre_red)), dev)
-    _check("env2d", env2d, (len(ENV_FIELDS) * nfre, nsrl), dev)
-    _check("scal", scal, (len(SCAL_IN), nsrl), dev)
+    _check("env2d", env2d, (len(ENV_FIELDS) * nfre, nrows), dev)
+    _check("scal", scal, (len(SCAL_IN), nrows), dev)
     if tables_dev is None:
         tables_dev = pack_tables(cfg, dev)
     if tables_dev["tab"].device != dev:
         raise ValueError("physics tables on another device")
-    out6 = torch.empty((len(STRESS_KEYS), nsrl), dtype=torch.float32,
-                       device=dev)
+    keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
+    out = torch.empty((len(keys), nrows), dtype=torch.float32, device=dev)
+    xllws = (torch.empty((nang, nfre, nrows), dtype=torch.float32,
+                         device=dev) if full else None)
     with torch.cuda.device(dev):
         err = _lib()(
-            f_srl.data_ptr(), tail.data_ptr() if tail is not None else None,
-            env2d.data_ptr(), scal.data_ptr(), out6.data_ptr(),
+            int(full), fin.data_ptr(), fout.data_ptr(), f_ps, f_bs,
+            tin.data_ptr() if tin is not None else None,
+            tout.data_ptr() if tout is not None else None,
+            env2d.data_ptr(), scal.data_ptr(), out.data_ptr(),
+            xllws.data_ptr() if full else None,
             tables_dev["tab"].data_ptr(), tables_dev["itab"].data_ptr(),
-            nsrl, nang, nfre, nfre_red, tables_dev["mlsthg"],
+            nrows, nang, nfre, nfr, cfg.nfre_red, tables_dev["mlsthg"],
             tables_dev["niab"], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"implsch kernel launch failed: CUDA error {err}")
+    return out, xllws
+
+
+def implsch_srl(cfg, f_srl, env2d, scal, tail=None, *, nang: int,
+                nfre_red: int, full: bool = False,
+                tables_dev: dict | None = None):
+    """One physics step on SRL rows (see the module docstring).  On CUDA
+    the kernel updates ``f_srl`` and ``tail`` in place (as the TPU kernel
+    aliases them) and returns them with the output rows (and xllws in
+    full mode); ``tables_dev`` is :func:`pack_tables`' result, built here
+    if None.  Counts its launches in ``implsch_srl.launches`` (minimal)
+    and ``implsch_srl.full_launches``."""
+    if f_srl.device.type == "cpu":
+        return implsch_srl_plain(cfg, f_srl, env2d, scal, tail, nang=nang,
+                                 nfre_red=nfre_red, full=full)
+    _no_kernel(f_srl)
+    nfre = cfg.tables.nfre
+    if (nfre > nfre_red) != (tail is not None):
+        raise ValueError("tail block required iff nfre > nfre_red")
+    dev, nsrl = f_srl.device, f_srl.shape[0]
+    _check("f_srl", f_srl, (nsrl, nang * nfre_red), dev)
+    if tail is not None:
+        _check("tail", tail, (nsrl, nang * (nfre - nfre_red)), dev)
+    out, xllws = _launch(cfg, full, f_srl, f_srl, nang * nfre_red, 1, tail,
+                         tail, env2d, scal, nrows=nsrl, nang=nang,
+                         nfr=nfre_red, tables_dev=tables_dev)
+    if full:
+        implsch_srl.full_launches += 1
+        return f_srl, out, tail, xllws
     implsch_srl.launches += 1
-    return f_srl, out6, tail
+    return f_srl, out, tail
 
 
 implsch_srl.launches = 0
+implsch_srl.full_launches = 0
+
+
+def implsch_compact(cfg, fl1, env2d, scal, *, full: bool = False,
+                    tables_dev: dict | None = None):
+    """One physics step on the compact (nang, nfre, n) spectrum, the
+    counterpart of ``implsch_pallas``: (fl1_new, stress6) or in full mode
+    (fl1_new, scal_out (30, n), xllws).  On CUDA the same kernel as
+    :func:`implsch_srl` reads bin (k, m) of point p at (k·nfre + m)·n + p
+    and writes a new spectrum; on the CPU the plain version runs."""
+    if fl1.device.type == "cpu":
+        return implsch_compact_plain(cfg, fl1, env2d, scal, full=full)
+    _no_kernel(fl1)
+    nang, nfre, n = cfg.tables.nang, cfg.tables.nfre, fl1.shape[-1]
+    _check("fl1", fl1, (nang, nfre, n), fl1.device)
+    fout = torch.empty_like(fl1)
+    out, xllws = _launch(cfg, full, fl1, fout, 1, n, None, None, env2d,
+                         scal, nrows=n, nang=nang, nfr=nfre,
+                         tables_dev=tables_dev)
+    implsch_compact.launches += 1
+    return (fout, out) + ((xllws,) if full else ())
+
+
+implsch_compact.launches = 0

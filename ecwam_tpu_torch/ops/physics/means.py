@@ -1,9 +1,10 @@
 """Spectral moment / mean-parameter computations.
 
 Port of ``ecwam_tpu/ops/physics/means.py`` (SEMEAN semean.F90:60-85,
-FEMEANWS femeanws.F90:52-100, FKMEAN fkmean.F90:60-100, SDEPTHLIM
-sdepthlim.F90:32-46).  Layout: ``fl1[nang, nfre, npts]``; per-frequency
-env fields ``(nfre, npts)``; outputs ``(npts,)``.
+FEMEAN femean.F90:55-110, FEMEANWS femeanws.F90:52-100, FKMEAN
+fkmean.F90:60-100, SDEPTHLIM sdepthlim.F90:32-46).  Layout:
+``fl1[nang, nfre, npts]``; per-frequency env fields ``(nfre, npts)``;
+outputs ``(npts,)``.
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ import math
 
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import spectral as sp
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import spectral as sp
 from ecwam_tpu_torch.ops.physics import const
 
 
@@ -26,6 +27,22 @@ def semean(fl1, tables, llepsmin: bool = True):
     if llepsmin:
         em = em + c.EPSMIN
     return em
+
+
+def femean(fl1, tables):
+    """Energy EM and mean frequency FM (femean.F90:55-110).
+
+    Each spectral bin is floored at EPSMIN before summing, and the result
+    FM is floored at fr[0] — both reference behaviors.
+    """
+    dfim = const(tables.dfim, fl1)[:, None]
+    dfimofr = const(tables.dfimofr, fl1)[:, None]
+    temp = torch.sum(torch.clamp(fl1, min=c.EPSMIN), dim=0)
+    em = torch.sum(dfim * temp, dim=0)
+    fm = torch.sum(dfimofr * temp, dim=0)
+    em = em + sp.WETAIL * tables.fr[-1] * tables.delth * temp[-1]
+    fm = fm + sp.FRTAIL * tables.delth * temp[-1]
+    return em, torch.clamp(em / fm, min=float(tables.fr[0]))
 
 
 def femeanws(fl1, xllws, tables):

@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import physparams as pp
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import physparams as pp
 from ecwam_tpu_torch.ops.physics import const
 
 

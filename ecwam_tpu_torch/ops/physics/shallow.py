@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core.dispersion import BATHYMAX
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core.dispersion import BATHYMAX
 
 DEPTHTRS = 50.0          # breaking only where depth < 50 m (sdiwbk.F90)
 

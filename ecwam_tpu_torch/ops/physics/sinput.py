@@ -7,17 +7,20 @@ frequency loop, and the negative (swell damping) part.  The Janssen
 input (iphys=0) is not ported yet.
 
 Layout: fl1 (nang, nfre, npts); per-frequency env (nfre, npts); scalars
-(npts,).  Returns (fld, sl, spos, xllws) with fld = ∂S/∂F diagonal,
-sl = S_in, spos = positive part only, xllws = windsea mask.
+(npts,).  Returns (fld, sl, spos, xllws, margin) with fld = ∂S/∂F
+diagonal, sl = S_in, spos = positive part only, xllws = windsea mask, and
+margin the mask test's distance from its edge: over the gusts, the
+largest min(cos − 0.01, −zlog), so that xllws = (margin > 0).  Where
+|margin| is tiny a last-bit change of the inputs may flip a mask bin.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import physparams as pp
-from ecwam_tpu.ops.physics import tables
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import physparams as pp
+from ecwam_tpu_torch.ops.physics import tables
 from ecwam_tpu_torch.ops.physics import const
 from ecwam_tpu_torch.ops.physics.airsea import wsigstar
 
@@ -110,6 +113,7 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
     sl = torch.empty_like(fl1)
     spos = torch.empty_like(fl1)
     xllws = torch.empty_like(fl1)
+    margin = torch.empty_like(fl1)
     for m in range(nfre):
         fl1_m = fl1[:, m, :]                          # (nang, npts)
         zcn = zcn_all[m]
@@ -118,6 +122,7 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
             dstab1 = dstab1_all[m]
             temp1 = temp1_all[m]
         xllws_m = torch.zeros_like(fl1_m)
+        margin_m = torch.full_like(fl1_m, -torch.inf)
         spos_sum = torch.zeros_like(fl1_m)
         fld_sum = torch.zeros_like(fl1_m)
         for igst in range(ngst):
@@ -151,6 +156,8 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
                 active, torch.exp(zlog) * zlog2x * zlog2x * cnsn[None, :],
                 torch.zeros_like(zlog))
             xllws_m = torch.maximum(xllws_m, active.to(fl1.dtype))
+            margin_m = torch.maximum(margin_m,
+                                     torch.minimum(coslp - 0.01, -zlog))
 
             if llsneg:
                 dstab2 = temp1[None, :] * (
@@ -173,4 +180,5 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
         fld[:, m] = avg_gst * fld_sum
         sl[:, m] = fld[:, m] * fl1_m
         xllws[:, m] = xllws_m
-    return fld, sl, spos, xllws
+        margin[:, m] = margin_m
+    return fld, sl, spos, xllws, margin

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core import physparams as pp
-from ecwam_tpu.core import spectral as sp
-from ecwam_tpu.ops.physics import tables
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import physparams as pp
+from ecwam_tpu_torch.core import spectral as sp
+from ecwam_tpu_torch.ops.physics import tables
 from ecwam_tpu_torch.ops.physics import const
 from ecwam_tpu_torch.ops.physics.airsea import EPS1
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ecwam_tpu.core import constants as c
+from ecwam_tpu_torch.core import constants as c
 
 FLMIN = 0.00001          # minimum spectral energy (yowice.F90:22)
 CITHRSH = 0.3            # ice mask threshold, LMASKICE=T (userin.F90:958)

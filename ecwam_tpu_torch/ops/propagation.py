@@ -12,8 +12,8 @@ import dataclasses
 
 import numpy as np
 
-from ecwam_tpu.core import constants as c
-from ecwam_tpu.core.grid import WaveGrid, SeaPointBlock
+from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core.grid import WaveGrid, SeaPointBlock
 
 
 @dataclasses.dataclass(frozen=True)

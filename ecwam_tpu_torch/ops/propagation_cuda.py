@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ecwam_tpu.core import constants as c
+from ecwam_tpu_torch.core import constants as c
 from ecwam_tpu_torch import _build
 from ecwam_tpu_torch.ops import propagation_fused as pfz
 

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ecwam_tpu.core import constants as c
+from ecwam_tpu_torch.core import constants as c
 
 # obs slot order in the packed obs table
 OBS_FIELDS = ("latS", "latN", "lonW", "lonE",

@@ -1,0 +1,67 @@
+"""Time kernel B in minimal mode on every SRL row of the O320 state.
+
+    python3 ecwam_tpu_torch/tools/time_physics.py               # this tree
+    python3 ecwam_tpu_torch/tools/time_physics.py --ab OTHER    # A/B
+
+Run from a repository root on a machine with one CUDA card.  The state is
+``chip_smoke.o320_model``'s after two steps (one physics step); the kernel
+is timed with CUDA events over ``--reps`` launches on fresh copies.  With
+``--ab OTHER`` (the root of another checkout, e.g. the parent commit
+unpacked with ``git archive``) the two trees run in turns, each in its own
+process, OTHER, this, this, OTHER, so that both are measured on one card.
+Prints one JSON line per run with the card's name and power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def run(root: str, reps: int) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    import chip_smoke as cs
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    dev = torch.device("cuda")
+    ms, model = cs.o320_model(dev)
+    model.advance(2)
+    fp = model.fp
+    cfg = ipk.minimal_config(ms.phys)
+    tabs = ipk.pack_tables(cfg, dev)
+    scal = torch.cat([model._frc6, model._denv, model._stress6])
+
+    def fresh():
+        return (model._f_srl.clone(), model._env2d, scal,
+                model._tail.clone())
+    ms_all = cs.cuda_ms(lambda a: ipk.implsch_srl(
+        cfg, *a, nang=fp.nang, nfre_red=fp.nfre_red, tables_dev=tabs),
+        reps, fresh)
+    return dict(root=root, card=cs.card_line(),
+                rows=int(model._f_srl.shape[0]), reps=reps,
+                minimal_all_rows_ms=ms_all)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--ab", metavar="OTHER")
+    a = ap.parse_args()
+    if a.ab:
+        other = os.path.abspath(a.ab)
+        for root in (other, HERE, HERE, other):
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--root", root, "--reps", str(a.reps)],
+                           check=True, cwd=root, timeout=600)
+        return
+    print(json.dumps(run(a.root, a.reps)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,7 @@ from test_torch_gpu import ADVECT_CONFIGS, advect_kw, jonswap
 def _advect_both(name, jdt, tdt):
     kw = advect_kw(name)
     ms_j = jsetup.build_model(dtype=jdt, weights_mode="fused", **kw)
-    ms_t = tsetup.build_model(dtype=tdt, **kw)
+    ms_t = tsetup.build_model(dtype=tdt, device="cpu", **kw)
     f = jonswap(ms_j.n_pad, ms_j.tb)
     fx = JFused(ms_j, backend="xla")
     want = fx.from_srl(
@@ -51,7 +51,7 @@ def test_advect_srl_matches_reference_f32(name):
 def test_compact_advect_keeps_unadvected_tail():
     ms = tsetup.build_model(grid_name="6.0", nang=12, nfre=10, nfre_red=8,
                             idelpro=900.0, idelt=900.0, pad_to=64,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     fp = FusedPropagation(ms)
     f = torch.as_tensor(jonswap(ms.n_pad, ms.tb))
     out = fp.advect(f)

@@ -43,7 +43,7 @@ def test_fast_path_matches_wamintgr_oracle(config):
               nfre_red=nfre_red, pad_to=8, obstructions=obstr, iphys=1,
               idelpro=900.0, idelt=1800.0, delpro_lf=450.0, ifrelfmax=3,
               irefra=1)
-    ms_t = tsetup.build_model(**kw)
+    ms_t = tsetup.build_model(device="cpu", **kw)
     m = tdrv.FastWaveModel(ms_t, provider(forcing_at, 900.0), START)
     stress0 = {k: v.numpy().astype(np.float64) for k, v in m.stress.items()}
     fl1_0 = m.fl1.numpy().astype(np.float64)

@@ -10,9 +10,13 @@ start that the port's CPU tests share; the golden configuration is
 ``ecwam_tpu_torch.model.cases``.
 
 Tolerances, kernel against plain, both float32 on the card, each relative
-to the field's maximum (PERF.md gives the readings they come from):
+to the field's maximum (PERF.md gives the readings they come from; the
+same limits as chip_smoke.py):
   advection                max|k−p| ≤ ADVECT_TOL
-  physics, one step        spectrum ≤ PHYS_TOL; stress rows ≤ STRESS_TOL
+  physics, one step        spectrum ≤ PHYS_TOL; stress rows ≤ STRESS_TOL;
+                           full-mode rows ≤ FULL_ROW_TOL; windsea-mask
+                           bins differ only within MASK_WIDTH of the
+                           mask's edge (float64), ≤ XLLWS_SHARE of all
   4-step golden trajectory fl1 ≤ TRAJ_TOL; stress ≤ TRAJ_STRESS_TOL
 """
 
@@ -20,10 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from ecwam_tpu.core import grid as grid_mod
-from ecwam_tpu.model import preset
+from ecwam_tpu_torch import device as tdevice
+from ecwam_tpu_torch.core import grid as grid_mod
+from ecwam_tpu_torch.model import preset
 from ecwam_tpu_torch.model import setup as tsetup
-from ecwam_tpu_torch.model.cases import (golden_kernel_vs_plain, golden_kw,
+from ecwam_tpu_torch.model.cases import (compact_kernel_vs_plain,
+                                         full_kernel_vs_plain,
+                                         golden_kernel_vs_plain, golden_kw,
                                          physics_kernel_vs_plain, shallow_kw)
 from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
@@ -32,6 +39,9 @@ from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 ADVECT_TOL = 1e-5
 PHYS_TOL = 2e-5
 STRESS_TOL = 1e-5
+FULL_ROW_TOL = 1e-4
+XLLWS_SHARE = 1e-6
+MASK_WIDTH = 1e-4
 TRAJ_TOL = 2.5e-4
 TRAJ_STRESS_TOL = 5e-3
 
@@ -111,6 +121,36 @@ def test_physics_kernel_matches_plain_on_card(cuda, name):
     inside the ladder)."""
     spec, stress = physics_kernel_vs_plain(PHYSICS_CONFIGS[name](), cuda)
     assert spec <= PHYS_TOL and stress <= STRESS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PHYSICS_CONFIGS))
+def test_full_mode_kernel_matches_plain_on_card(cuda, name):
+    """Full mode (output dates): the spectrum, the 30 SCAL_OUT_FULL rows
+    and the windsea mask."""
+    r = full_kernel_vs_plain(PHYSICS_CONFIGS[name](), cuda, width=MASK_WIDTH)
+    assert r["spec"] <= PHYS_TOL
+    for key, e in r["rows"].items():
+        assert e <= FULL_ROW_TOL, key
+    assert r["off_edge"] == 0
+    assert r["xllws"] <= XLLWS_SHARE * r["bins"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full", [False, True])
+def test_compact_kernel_matches_plain_on_card(cuda, full):
+    """Kernel C, the compact (nang, nfre, n) entry, in both modes."""
+    r = compact_kernel_vs_plain(golden_kw(), cuda, full=full,
+                                width=MASK_WIDTH)
+    assert r["spec"] <= PHYS_TOL
+    assert r["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
+    assert r["off_edge"] == 0
+    assert r["xllws"] <= XLLWS_SHARE * r["bins"]
+
+
+@pytest.mark.gpu
+def test_device_default_is_the_card(cuda):
+    assert tdevice.resolve(None) == torch.device("cuda")
 
 
 @pytest.mark.gpu

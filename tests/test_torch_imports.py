@@ -1,8 +1,10 @@
 """The port imports without JAX, and its kernel plumbing fails loudly.
 
-``ecwam_tpu_torch`` must never import ``jax`` (not even through an
-``ecwam_tpu`` module), and on a machine without ``nvcc`` a kernel build
-must raise instead of degrading to the plain version.
+``ecwam_tpu_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor
+any module of the JAX package ``ecwam_tpu`` (the port keeps its own copies
+of the numpy modules it needs); its entry points run on the card unless
+the CPU is asked for; and on a machine without ``nvcc`` or a card a kernel
+build or launch must raise instead of degrading to the plain version.
 """
 
 import os
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from ecwam_tpu_torch import _build
+from ecwam_tpu_torch.device import resolve
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 
@@ -28,24 +31,50 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_blocked():
+    """... and with the JAX package blocked too."""
     mods = _modules()
     assert "ecwam_tpu_torch.model.driver" in mods
     code = ("import sys, importlib; sys.modules['jax'] = None\n"
+            "sys.modules['ecwam_tpu'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "assert 'jax' not in [k for k, v in sys.modules.items() "
-            "if v is not None]\n")
+            "import chip_smoke\n"
+            "bad = [k for k, v in sys.modules.items() if v is not None and "
+            "(k.split('.')[0] in ('jax', 'ecwam_tpu'))]\n"
+            "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 
 
-def test_no_source_imports_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    assert not pat.search(fh.read()), f
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_imports_jax():
+    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    for path in _sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_no_source_imports_the_jax_package():
+    pat = re.compile(r"^\s*(from|import) ecwam_tpu([ .]|$)", re.M)
+    for path in _sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_device_default_is_the_card():
+    if torch.cuda.is_available():
+        assert resolve(None) == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve(None)
+    assert resolve("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("source,enum,names", [
@@ -77,4 +106,15 @@ def test_wrappers_refuse_devices_without_a_kernel():
         pcu.advect(meta, {}, {}, nang=12, nf=1, S=128, EW=4, irefra=0)
     with pytest.raises(ValueError, match="no physics kernel"):
         ipk.implsch_srl(None, meta, None, None, nang=12, nfre_red=1)
+
+
+def test_full_mode_wrappers_refuse_devices_without_a_kernel():
+    meta = torch.empty((384, 12), device="meta")
+    with pytest.raises(ValueError, match="no physics kernel"):
+        ipk.implsch_srl(None, meta, None, None, nang=12, nfre_red=1,
+                        full=True)
+    for full in (False, True):
+        with pytest.raises(ValueError, match="no physics kernel"):
+            ipk.implsch_compact(None, torch.empty((12, 1, 8), device="meta"),
+                                None, None, full=full)
 

@@ -112,8 +112,9 @@ def _case(name, p):
     if name.startswith("sinput"):
         ngst = 1 if name.endswith("1") else 2
         args, kw = _sinput_args(p, ngst, ngst == 2)
+        # the port's fifth output, the mask's margin, has no counterpart
         return (lambda *a: j_sinput.sinput_ard(*a, tb, par, **kw),
-                lambda *a: t_sinput.sinput_ard(*a, tb, par, **kw), args)
+                lambda *a: t_sinput.sinput_ard(*a, tb, par, **kw)[:4], args)
     if name == "frcutindex":
         fm = np.asarray(j_means.fkmean(_j(p.fl), _j(e["wavnum"]), tb)[1])
         fmws = np.asarray(j_means.femeanws(_j(p.fl), _j(p.xllws), tb)[1])
@@ -217,8 +218,10 @@ def test_implsch_minimal_matches_reference_f64(prob):
     scale = np.abs(np.asarray(out_j)).max()
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-8,
                                atol=1e-14 * scale)
-    # the port adds one diagnostic: the cut argument's distance from a tie
-    assert set(st_t) == set(st_j) | {"frcut_tie"}
+    # the port adds two diagnostics: the cut argument's distance from a
+    # tie and the windsea mask's margin, positive exactly on the mask
+    assert set(st_t) == set(st_j) | {"frcut_tie", "xllws_margin"}
+    assert torch.equal(st_t["xllws"] != 0.0, st_t["xllws_margin"] > 0.0)
     for k, v in st_j.items():
         np.testing.assert_allclose(st_t[k].numpy(), np.asarray(v),
                                    rtol=1e-8, atol=1e-14, err_msg=k)
@@ -228,9 +231,15 @@ def test_implsch_minimal_matches_reference_f64(prob):
 
 
 def test_unported_physics_options_raise(prob):
-    cfg = t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0)
-    with pytest.raises(NotImplementedError, match="full-mode"):
+    from ecwam_tpu_torch.core import physparams as t_pp
+    cfg = t_impl.make_physics_config(
+        prob.tb, t_pp.set_phys_params(iphys=0, nang=prob.tb.nang),
+        idelt=900.0)
+    with pytest.raises(NotImplementedError, match="iphys=0"):
         t_impl.check_ported(cfg)
+    # full mode is ported: the default configuration passes
+    t_impl.check_ported(t_impl.make_physics_config(prob.tb, prob.params,
+                                                   idelt=900.0))
     with pytest.raises(NotImplementedError, match="isnonlin"):
         t_ipk.kernel_supports(t_ipk.minimal_config(
             t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,

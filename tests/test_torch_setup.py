@@ -32,7 +32,7 @@ CONFIGS = {
 def _both(name):
     kw = CONFIGS[name]()
     ms_j = jsetup.build_model(dtype=jnp.float64, weights_mode="fused", **kw)
-    ms_t = tsetup.build_model(dtype=torch.float64, **kw)
+    ms_t = tsetup.build_model(dtype=torch.float64, device="cpu", **kw)
     return ms_j, ms_t
 
 
@@ -59,7 +59,9 @@ def _compare_tables(ms_j, ms_t):
     pj, pt = ms_j.phys, ms_t.phys
     for f in ("sat_indices", "sat_weights", "wtauhf"):
         _same(getattr(pj, f), getattr(pt, f), f"phys.{f}")
-    assert pj.x0tauhf == pt.x0tauhf and pj.params == pt.params
+    # the port's own copy of the PhysParams class: compare field by field
+    assert pj.x0tauhf == pt.x0tauhf
+    assert dataclasses.asdict(pj.params) == dataclasses.asdict(pt.params)
     for f in dataclasses.fields(pj.dia):
         _same(getattr(pj.dia, f.name), getattr(pt.dia, f.name),
               f"dia.{f.name}")
@@ -90,7 +92,8 @@ def _arrays(ms_j):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_setup_from_arrays_carries_reference_tables(name):
     ms_j, _ = _both(name)
-    ms_t = tsetup.setup_from_arrays(dtype=torch.float64, **_arrays(ms_j))
+    ms_t = tsetup.setup_from_arrays(dtype=torch.float64, device="cpu",
+                                    **_arrays(ms_j))
     _compare_tables(ms_j, ms_t)
     # identical, not merely close: the tables were handed over
     np.testing.assert_array_equal(ms_t.fused.taps_dn, ms_j.fused.taps_dn)
@@ -99,7 +102,8 @@ def test_setup_from_arrays_carries_reference_tables(name):
 
 
 def test_pad_point_field_replicates_point_zero():
-    ms = tsetup.build_model(grid_name="12.0", nang=12, nfre=8, pad_to=64)
+    ms = tsetup.build_model(grid_name="12.0", nang=12, nfre=8, pad_to=64,
+                            device="cpu")
     v = np.arange(ms.n_real, dtype=np.float64) + 1.0
     out = tsetup.pad_point_field(ms, v)
     assert out.shape == (ms.n_pad,)
@@ -109,7 +113,8 @@ def test_pad_point_field_replicates_point_zero():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tsetup.build_model(grid_name="12.0", nang=12, nfre=8, irefra=3)
+        tsetup.build_model(grid_name="12.0", nang=12, nfre=8, irefra=3,
+                           device="cpu")
     with pytest.raises(NotImplementedError):
         tsetup.build_model(grid_name="12.0", nang=12, nfre=8,
-                           weights_mode="cached")
+                           weights_mode="cached", device="cpu")
