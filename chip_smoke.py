@@ -33,7 +33,19 @@ Phases (any failure raises and the script exits non-zero):
      kernel's share of device time and the device's busy share, and one
      profiled output-date physics step split into the full-mode kernel and
      the rest (windsea/swell separation, chunk copies);
-  5. one JSON line with each kernel's launches, errors, times and bound;
+  5. ECMWF's operational options (``cases.py``'s CY49R1/CY50R1 physics and
+     current refraction): the golden configuration with the trajectory
+     oracle's currents (irefra 3), 4 steps through the kernels and through
+     the plain versions; kernel A with currents against plain on the
+     currents grids (a pass, a sub-band pass, and the CFL retry mask,
+     which must be equal); one physics step of the shallow grid with the
+     cycle-50 options and polar ice, kernel against plain in both modes
+     and through kernel C; then, once the default O320 model is freed,
+     ``cases.o320_options`` (irefra 2, CY50R1, polar ice, currents): 4
+     steps and an output date through the kernels with their launch
+     counts, kernel A and kernel B against plain as in phase 3, and the
+     timing and profile of phase 4;
+  6. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -55,11 +67,17 @@ gives the sound readings and those of deliberately broken kernels):
                                   through TAUT_Z0's 1/√(1−τw/τ))
   golden statistics.log           average, minimum, maximum within
                                   GOLDEN_RTOL of the committed values
+  kernel A's CFL retry mask       equal to the plain version's
 Physics rows whose FRCUTINDEX argument lies within TIE_WIDTH of a
 rounding tie (x.5, in float64) are held out of the physics tolerances:
 the cut index, and with it the stress, may round the other way in either
 float32 version.  At most TIE_SHARE of the sea rows may be such ties, and
-every other row must meet the tolerances.
+every other row must meet the tolerances.  Likewise, under the
+gravity-capillary closure, rows whose decision margin (``gc_margin`` of
+the plain chain in float64: a TAUT_Z0_GC convergence test, its x1 ≥ pmax
+test, or an NS_GC index step, see ``airsea.taut_z0_gc``) lies within
+GC_WIDTH of its edge are held out, at most GC_SHARE of the sea rows (on a
+small grid, at most one row).
 """
 
 import json
@@ -79,6 +97,8 @@ TRAJ_STRESS_TOL = 5e-3
 GOLDEN_RTOL = 2e-5
 TIE_WIDTH = 1e-5
 TIE_SHARE = 1e-3
+GC_WIDTH = 1e-4
+GC_SHARE = 1e-3
 PHYS_ROWS = 32768
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
@@ -132,7 +152,8 @@ def bound(byte_count, ops):
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea):
+def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea,
+                gc_terms=0.0):
     """Float32 operations of the IMPLSCH chain on one row, counted by stage
     from csrc/implsch.cu.  Each add, subtract, multiply, min, max or
     compare is one operation (an FMA two, as the peak rate counts it);
@@ -142,7 +163,15 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea):
     run's data needs it: ``above_cut`` is the mean number of frequencies
     above the cut (IMPHFTAIL), ``shallow`` the share of rows shallower than
     BATHYMAX (SBOTTOM), ``windsea`` the share of bins in the windsea mask
-    (the second FEMEANWS); the sea-ice branches are left out."""
+    (the second FEMEANWS), ``gc_terms`` the mean number of gc wavenumbers
+    from the cut-off up (NWAV − NS, STRESS_GC); the sea-ice branches of the
+    default chain are left out.  The cycle-49/50 options add, per
+    configuration flag: HALPHAP, TAUT_Z0_GC's two loops of NITER steps
+    (the kernel, like the reference, runs all of them), STRESS_GC's
+    wavenumber sum in each first-loop step and the TAU_PHI_HF cut-off
+    (LLGCBZ0); the growth normalisation in SINPUT and in the tail
+    integrals (LLNORMAGAM); CHNKMIN (LLCAPCHNK); the per-bin SDICE3 and
+    LCISCAL terms with the group speed per frequency."""
     import numpy as np
     f, dia, jtot, niter = cfg.tables.nfre, cfg.dia, 19, 18
     a, nb, ml = nang, nang * f, int(cfg.dia.mlsthg)
@@ -179,7 +208,37 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea):
         ops += 17 * nb + 3 * f + (14 * f + 40) + (nb + 14 * f + 21)
         ops += windsea * nb + 4 * f + 10
         ops += 12 * nodd + 5 * a * nodd + 4 * a + 10
+    p = cfg.params
+    if p.llgcbz0:
+        # HALPHAP (call 1): the downwind sums, four moments, the scalars
+        ops += 7 * nb + 9 * f + 30
+        # per call: first guess, then NITER first-loop steps (STRESS_GC:
+        # 25 a wavenumber from the cut-off, 30 scalar; the step, 25) and
+        # NITER second-loop steps (40), the fallbacks (30); the TAU_PHI_HF
+        # cut-off (NS_GC and the log, 12)
+        ops += 2 * (40 + niter * (25 * gc_terms + 55) + niter * 40 + 30
+                    + 12)
+    if p.llnormagam:
+        # SINPUT: per gust and frequency two direction sums (4 a bin), the
+        # factor (8) and its product (1 a bin): call 1 one gust, call 2 two
+        ops += 3 * f * (5 * a + 8)
+        # the tail integrals: two sums at the cut, 6 a node (both calls,
+        # the PHIHF integral in full mode)
+        ops += 2 * (4 * a + 6 + 6 * jtot * (2 if full else 1))
+    if p.llcapchnk:
+        ops += 2 * 10
+    if cfg.lciwa3 or cfg.lciscal:
+        # the group speed per frequency (15) and 6 a bin
+        ops += 15 * f + 6 * nb
     return ops
+
+
+def gc_terms(ufric) -> float:
+    """The mean number of gravity-capillary wavenumbers STRESS_GC sums
+    (from the cut-off NS_GC(u*) up) at these friction velocities."""
+    from ecwam_tpu_torch.ops.physics import gc as gc_mod
+    g = gc_mod.gc_tables()
+    return float((g.nwav - gc_mod.ns_gc(ufric.double(), g)).double().mean())
 
 
 def o320_model(dev):
@@ -256,17 +315,29 @@ def slice_check(ms, model, dev, full, above_cut):
         off_row |= err[nst:].amax(0) > FULL_ROW_TOL
     off = torch.nonzero(sea & off_row).flatten()
     tie = torch.zeros_like(sea)
-    if 0 < off.numel() <= TIE_SHARE * int(sea.sum()):
-        dist = ipk.frcut_tie(cfg, *(x.double().cpu() for x in (
-            args[0][off], args[1][:, off], args[2][:, off], args[3][off])),
-            nang=fp.nang, nfre_red=fp.nfre_red)
-        tie[off[dist.to(dev) < TIE_WIDTH]] = True
-    keep = sea & ~tie
+    gc = torch.zeros_like(sea)
+    gc_m = torch.zeros(0, dtype=torch.float64, device=dev)
+    n_sea = int(sea.sum())
+    if 0 < off.numel() <= (TIE_SHARE + GC_SHARE) * n_sea:
+        ins = [x.double() for x in (args[0][off], args[1][:, off],
+                                    args[2][:, off], args[3][off])]
+        dist = ipk.frcut_tie(cfg, *ins, nang=fp.nang, nfre_red=fp.nfre_red)
+        tie[off[dist < TIE_WIDTH]] = True
+        if cfg.params.llgcbz0:
+            # a TAUT_Z0_GC loop that may leave at another iteration (or a
+            # cut-off index step) in either float32 version
+            gc_m = ipk.gc_margin(cfg, *ins, nang=fp.nang,
+                                 nfre_red=fp.nfre_red)
+            gc[off[(gc_m < GC_WIDTH) & (dist >= TIE_WIDTH)]] = True
+    keep = sea & ~tie & ~gc
     spec = [rel_max(got[0][keep], want[0][keep]),
             rel_max(got[2][keep], want[2][keep])]
-    r = dict(n_sea=int(sea.sum()), n_tie=int(tie.sum()),
-             n_off=off.numel() - int(tie.sum()),
+    held_m = gc_m[gc[off]] if gc.any() else gc_m[:0]
+    r = dict(n_sea=n_sea, n_tie=int(tie.sum()), n_gc=int(gc.sum()),
+             n_off=off.numel() - int(tie.sum()) - int(gc.sum()),
              tie_stress=float(s_row[tie].max()) if tie.any() else 0.0,
+             gc_stress=float(s_row[gc].max()) if gc.any() else 0.0,
+             gc_margin=float(held_m.max()) if held_m.numel() else 0.0,
              spec_rel=max(s[0] for s in spec),
              spec_abs=max(s[1] for s in spec),
              stress_rel=float(s_row[keep].max()))
@@ -287,7 +358,8 @@ def slice_check(ms, model, dev, full, above_cut):
     depth = ipk.SCAL_IN.index("depth")
     windsea = float(got[3][..., sea].mean()) if full else 0.0
     data = dict(above_cut=above_cut, windsea=windsea,
-                shallow=float((args[2][depth] < BATHYMAX).double().mean()))
+                shallow=float((args[2][depth] < BATHYMAX).double().mean()),
+                gc_terms=gc_terms(got[1][0][sea]))
     r["ops"] = PHYS_ROWS * implsch_ops(cfg, fp.nang, full, **data)
 
     # kernel C on the same rows in the compact layout
@@ -328,6 +400,7 @@ def slice_check(ms, model, dev, full, above_cut):
         r["all_rows_ms"] = cuda_ms(lambda _: run_kernel(all_rows), 3)
     keys = ipk.SCAL_OUT_FULL if full else ipk.SCAL_OUT_MIN
     data["shallow"] = float((scal[depth] < BATHYMAX).double().mean())
+    data["gc_terms"] = gc_terms(model._stress6[0])
     r["all_rows_bound"] = bound(
         nbytes(*all_rows, *all_rows[::3]) + 4 * ft.nsrl * (
             len(keys) + (ms.tb.nang * ms.tb.nfre if full else 0)),
@@ -337,6 +410,7 @@ def slice_check(ms, model, dev, full, above_cut):
 
 def check_slice(r, full, name):
     ok = (r["n_off"] == 0 and r["n_tie"] <= TIE_SHARE * r["n_sea"]
+          and r["n_gc"] <= GC_SHARE * r["n_sea"]
           and r["spec_rel"] <= PHYS_TOL and r["stress_rel"] <= STRESS_TOL)
     if full:
         ok = ok and (max(v for k, v in r["rows"].items()) <= FULL_ROW_TOL
@@ -358,6 +432,11 @@ def profile(fn, names):
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        # one small launch first, so that the tracer is running before the
+        # measured work starts (a window's first kernels once went
+        # unrecorded, PERF.md)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -369,6 +448,216 @@ def profile(fn, names):
         ev = [e for e in kern if match(e.name)]
         split[label] = (sum(e.device_time for e in ev) / 1e3, len(ev))
     return wall, split, sum(e.device_time for e in kern) / 1e3
+
+
+def advect_check(model, ft, irefra):
+    """Kernel A against its plain version, one all-band pass over the
+    whole domain of ``model``'s state: (relative error, absolute error,
+    kernel ms, plain ms, bytes a pass)."""
+    import torch
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops import propagation_fused as pfz
+    fp = model.fp
+    f0 = pfz.refresh_wraps(model._f_srl.clone(), fp.tabs)
+    kw = dict(nang=fp.nang, nf=fp.nfre_red, S=ft.S, EW=ft.EW, irefra=irefra)
+    got = pcu.advect(f0, fp.tabs, fp.lc, **kw)
+    want = pcu.advect_plain(f0, fp.tabs, fp.lc, **kw)
+    a_rel, a_abs = rel_max(got, want)
+    a_ms = cuda_ms(lambda _: pcu.advect(f0, fp.tabs, fp.lc, **kw), 10)
+    a_plain = cuda_ms(lambda _: pcu.advect_plain(f0, fp.tabs, fp.lc, **kw),
+                      2)
+    a_bytes = nbytes(f0, got, fp.lc["rows"], fp.tabs["dn_base"],
+                     fp.tabs["up_base"], fp.tabs.get("pf"),
+                     fp.tabs.get("grads"), fp.tabs.get("uv"),
+                     *(fp.tabs[k] for k in pcu._F32_TABLES))
+    del got, want, f0
+    torch.cuda.empty_cache()
+    return a_rel, a_abs, a_ms, a_plain, a_bytes
+
+
+def options_phase(dev) -> dict:
+    """Phase 5 (see the module docstring); returns the readings of the
+    kernels line's option entries."""
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch.model import cases
+    from ecwam_tpu_torch.model.fusedstep import FusedPropagation
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+
+    # the golden configuration with the oracle's currents
+    err, launched = cases.golden_kernel_vs_plain(
+        dev, kw=cases.golden_kw(irefra=3, currents=True))
+    log(f"golden currents (irefra 3) 4 steps, kernels vs plain (tolerance "
+        f"fl1 {TRAJ_TOL}, stress {TRAJ_STRESS_TOL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; launches {launched}")
+    if launched != dict(kernels=(8, 2), plain=(0, 0)):
+        raise AssertionError(f"golden currents launches {launched}")
+    if not (err.pop("fl1") <= TRAJ_TOL
+            and max(err.values()) <= TRAJ_STRESS_TOL):
+        raise AssertionError("golden currents: kernels disagree with plain")
+
+    # kernel A with currents, and the CFL retry mask
+    for name, kw in (("currents irefra 3, CFL retry",
+                      cases.currents_kw(3, cfl=True)),
+                     ("currents irefra 2, sub-band passes",
+                      cases.currents_kw(2, fast=True)),
+                     ("golden currents", cases.golden_kw(3, currents=True))):
+        a = cases.advect_kernel_vs_plain(kw, dev)
+        log(f"advect {name}, kernel vs plain: pass {a['main']:.3e}, "
+            f"sub-band pass {a['sub']} (tol {ADVECT_TOL}); CFL retry masks "
+            f"{a['cfl_masked']} rows, {a['cfl_differ']} differ from plain; "
+            f"CHECKCFL kernel {a['diag']}, plain {a['diag_plain']}")
+        if not (a["main"] <= ADVECT_TOL and (a["sub"] or 0.0) <= ADVECT_TOL
+                and a["cfl_differ"] == 0
+                and a["diag"]["n_violations"]
+                == a["diag_plain"]["n_violations"]):
+            raise AssertionError(f"advect {name}: kernel disagrees")
+
+    # kernel B and C with the options on the small grids
+    for name, kw, frc in (("shallow cy50r1", cases.shallow_kw(True),
+                           cases.shallow_ice),
+                          ("golden cy49r1", dict(cases.golden_kw(),
+                                                 **cases.CY49R1),
+                           cases.storm)):
+        gc = dict(gc_width=GC_WIDTH, off_tol=STRESS_TOL)
+        spec, stress, held = cases.physics_kernel_vs_plain(
+            kw, dev, forcing=frc, **gc)
+        f = cases.full_kernel_vs_plain(kw, dev, width=MASK_WIDTH,
+                                       forcing=frc, **gc)
+        cap = max(1.0, GC_SHARE * f["n"])
+        worst = max(f["rows"], key=f["rows"].get)
+        log(f"{name} physics step, kernel vs plain: minimal spectrum "
+            f"{spec:.3e}, stress {stress:.3e}; full spectrum {f['spec']:.3e},"
+            f" worst row {worst} {f['rows'][worst]:.3e}; xllws "
+            f"{f['xllws']} bins on the edge, {f['off_edge']} off it; rows "
+            f"held on a gc edge {held} / {f['held']} of {f['n']} (width "
+            f"{GC_WIDTH})")
+        ok = (spec <= PHYS_TOL and stress <= STRESS_TOL
+              and f["spec"] <= PHYS_TOL and f["rows"][worst] <= FULL_ROW_TOL
+              and f["off_edge"] == 0
+              and f["xllws"] <= XLLWS_SHARE * f["bins"]
+              and max(held, f["held"]) <= cap)
+        for full in (False, True):
+            c = cases.compact_kernel_vs_plain(kw, dev, full=full,
+                                              width=MASK_WIDTH, forcing=frc,
+                                              **gc)
+            log(f"{name} compact entry {'full' if full else 'minimal'}: "
+                f"spectrum {c['spec']:.3e}, rows {c['rows']:.3e}, xllws "
+                f"off the edge {c['off_edge']}, held {c['held']}")
+            ok = ok and (c["spec"] <= PHYS_TOL and c["off_edge"] == 0
+                         and c["rows"] <= (FULL_ROW_TOL if full
+                                           else STRESS_TOL)
+                         and c["held"] <= cap)
+        if not ok:
+            raise AssertionError(f"{name}: physics kernel disagrees")
+
+    # O320 with the options: the main path through the kernels
+    t0 = time.perf_counter()
+    ms, model = cases.o320_options(dev)
+    ft, fp = ms.fused, model.fp
+    cur = ms.env["ucur"][:ms.n_real] ** 2 + ms.env["vcur"][:ms.n_real] ** 2
+    log(f"O320 options build {time.perf_counter() - t0:.1f} s: irefra "
+        f"{ms.irefra}, peak current {float(cur.max().sqrt()):.3f} m/s, "
+        f"CFL retry masks {int(fp.cfl_bad.sum())} of {ft.nsrl} rows; "
+        f"CHECKCFL {fp.cfl_diagnostics()}")
+    plain = FusedPropagation(ms, plain=True)
+    differ = int((plain.cfl_bad != fp.cfl_bad).sum())
+    log(f"O320 options CFL retry mask, kernel vs plain: {differ} rows "
+        "differ")
+    if differ:
+        raise AssertionError("O320 options: CFL retry masks differ")
+    del plain
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pcu.advect.launches = 0
+    ipk.implsch_srl.launches = 0
+    steps = []
+    for _ in range(4):
+        t_p, t_f = model.timers.propag, model.timers.phys
+        model.advance(1)
+        steps.append((model.timers.propag - t_p, model.timers.phys - t_f))
+    model.advance(1)
+    ipk.implsch_srl.full_launches = 0
+    t_f = model.timers.phys
+    model.advance(1, full_phys=True)
+    t_full = model.timers.phys - t_f
+    launches = dict(advect=pcu.advect.launches,
+                    implsch=ipk.implsch_srl.launches,
+                    implsch_full=ipk.implsch_srl.full_launches)
+    n = ms.n_real
+    norms = {k: (float(v[:n].mean()), float(v[:n].min()), float(v[:n].max()))
+             for k, v in (("swh", torch.as_tensor(model.swh())),
+                          ("esea", model.state["sep"]["esea"]),
+                          ("ufric", model.state["ufric"]))}
+    log("O320 options steps (t_propag s, t_phys s): "
+        + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in steps)
+        + f"; output date t_phys {t_full:.4f} s; launches {launches}; "
+        f"peak allocation {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+        f" norms (avg, min, max) "
+        + ", ".join(f"{k} {v}" for k, v in norms.items()))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"O320 options bypassed a kernel: {launches}")
+    if not all(np.isfinite(v).all() and v[1] > 0 for k, v in norms.items()
+               if k != "esea"):
+        raise AssertionError("O320 options norms not finite and positive")
+    above_cut = ms.tb.nfre - 1 - float(model.state["mij"][:n].double().mean())
+
+    a = advect_check(model, ft, ms.irefra)
+    log(f"advect currents (O320, irefra {ms.irefra}): kernel {a[2]:.3f} ms,"
+        f" plain {a[3]:.3f} ms, max|k-p| {a[1]:.3e} = {a[0]:.3e} of max "
+        f"(tol {ADVECT_TOL}); {a[4] / 1e9:.3f} GB a pass")
+    if not a[0] <= ADVECT_TOL:
+        raise AssertionError("O320 options: advection kernel disagrees")
+    sl = {}
+    for full in (False, True):
+        mode = "full" if full else "minimal"
+        r = sl[mode] = slice_check(ms, model, dev, full, above_cut)
+        log(f"implsch {mode} options ({PHYS_ROWS} rows): kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; spectrum "
+            f"{r['spec_rel']:.3e} of max, stress {r['stress_rel']:.3e}"
+            + (f", worst row {max(r['rows'].values()):.3e}" if full else "")
+            + f"; {r['n_tie']} FRCUTINDEX ties, {r['n_gc']} of "
+            f"{r['n_sea']} rows on a gc edge (stress off by up to "
+            f"{r['gc_stress']:.3e}, largest margin {r['gc_margin']:.3e}), "
+            f"{r['n_off']} other rows off"
+            + (f"; kernel on all rows {r['all_rows_ms']:.3f} ms"
+               if not full else "")
+            + f"; bound on all rows {r['all_rows_bound'][0]:.3f} ms "
+            f"({r['all_rows_bound'][1]}); compact: spectrum "
+            f"{r['compact']['spec_rel']:.3e}, same as SRL "
+            f"{r['compact']['same_as_srl']}")
+        check_slice(r, full, f"implsch {mode} options")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.advance(8)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 8
+    names = dict(advect=lambda s: "advect" in s,
+                 implsch=lambda s: "implsch_kernel<false" in s,
+                 implsch_full=lambda s: "implsch_kernel<true" in s)
+    a0 = pcu.advect.launches
+    wall, split, busy = profile(lambda: model.advance(4), names)
+    log(f"O320 options steady state: mean step {step_s * 1e3:.3f} ms over 8 "
+        f"steps; profiled 4 steps ({pcu.advect.launches - a0} advection "
+        f"launches by the wrapper's count): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} %); "
+        + ", ".join(f"{k} {t:.3f} ms in {n_} launches"
+                    for k, (t, n_) in split.items()))
+    model.advance(1)
+    a0 = pcu.advect.launches
+    wall, split, busy = profile(lambda: model.advance(1, full_phys=True),
+                                names)
+    log(f"O320 options profiled output date ({pcu.advect.launches - a0} "
+        f"advection launches by the wrapper's count): wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms; "
+        + ", ".join(f"{k} {t:.3f} ms in {n_} launches"
+                    for k, (t, n_) in split.items()))
+    return dict(launches=launches, advect=a, minimal=sl["minimal"],
+                full=sl["full"])
 
 
 def main():
@@ -418,7 +707,7 @@ def main():
         raise AssertionError("golden trajectory: kernels disagree with plain")
     for name, kw in (("golden", cases.golden_kw()),
                      ("shallow", cases.shallow_kw())):
-        spec, stress = cases.physics_kernel_vs_plain(kw, dev)
+        spec, stress, _ = cases.physics_kernel_vs_plain(kw, dev)
         log(f"{name} physics step, kernel vs plain: spectrum {spec:.3e} "
             f"(tol {PHYS_TOL}), stress {stress:.3e} (tol {STRESS_TOL})")
         if not (spec <= PHYS_TOL and stress <= STRESS_TOL):
@@ -511,26 +800,13 @@ def main():
     above_cut = ms.tb.nfre - 1 - float(model.state["mij"][:n].double().mean())
 
     # kernel A vs plain, one all-band pass over the whole domain
-    fp = model.fp
-    f0 = pfz.refresh_wraps(model._f_srl.clone(), fp.tabs)
-    kw = dict(nang=fp.nang, nf=fp.nfre_red, S=ft.S, EW=ft.EW,
-              irefra=ms.irefra)
-    got = pcu.advect(f0, fp.tabs, fp.lc, **kw)
-    want = pcu.advect_plain(f0, fp.tabs, fp.lc, **kw)
-    a_rel, a_abs = rel_max(got, want)
-    a_ms = cuda_ms(lambda _: pcu.advect(f0, fp.tabs, fp.lc, **kw), 10)
-    a_plain = cuda_ms(lambda _: pcu.advect_plain(f0, fp.tabs, fp.lc, **kw),
-                      2)
-    a_bytes = nbytes(f0, got, fp.lc["rows"], fp.tabs["dn_base"],
-                     fp.tabs["up_base"], fp.tabs.get("pf"),
-                     fp.tabs.get("grads"),
-                     *(fp.tabs[k] for k in pcu._F32_TABLES))
+    a_rel, a_abs, a_ms, a_plain, a_bytes = advect_check(model, ft,
+                                                        ms.irefra)
     log(f"advect: kernel {a_ms:.3f} ms, plain {a_plain:.3f} ms, "
         f"max|k-p| {a_abs:.3e} = {a_rel:.3e} of max (tol {ADVECT_TOL}); "
         f"{a_bytes / 1e9:.3f} GB a pass")
     if not a_rel <= ADVECT_TOL:
         raise AssertionError("advection kernel disagrees with plain")
-    del got, want, f0
 
     # kernels B and C vs plain on a 32,768-row slice of the same state
     sl = {}
@@ -616,7 +892,13 @@ def main():
         + f"; outside the kernels (windsea/swell split, chunk copies) "
         f"{rest:.3f} ms")
 
-    # ---- 5. report ---------------------------------------------------------
+    # ---- 5. the operational options (the default O320 model freed first)
+    del model, ms, ft
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    op = options_phase(dev)
+
+    # ---- 6. report ---------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)
@@ -643,8 +925,23 @@ def main():
               launches["implsch_compact"],
               fu["compact"]["spec_abs"], fu["compact"]["ms"],
               fu["compact"]["plain_ms"], fu["compact"]["bytes"], fu["ops"])]
+    oa, omn, ofu = op["advect"], op["minimal"], op["full"]
+    kernels += [
+        entry("advect_currents", "ecwam_tpu_torch/csrc/advect.cu",
+              "ecwam_tpu/ops/propagation_pallas.py:564",
+              op["launches"]["advect"], oa[1], oa[2], oa[3], oa[4], 0),
+        entry("implsch_minimal_options", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+              op["launches"]["implsch"], omn["spec_abs"], omn["ms"],
+              omn["plain_ms"], omn["bytes"], omn["ops"]),
+        entry("implsch_full_options", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+              op["launches"]["implsch_full"], ofu["spec_abs"], ofu["ms"],
+              ofu["plain_ms"], ofu["bytes"], ofu["ops"])]
     kernels[0]["max_rel_err"] = a_rel
-    for e, r in zip(kernels[1:], (mn, fu, fu["compact"])):
+    kernels[4]["max_rel_err"] = oa[0]
+    for e, r in zip(kernels[1:4] + kernels[5:],
+                    (mn, fu, fu["compact"], omn, ofu)):
         e["max_rel_err"] = r["spec_rel"]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -28,6 +28,25 @@
 // (nang, nfre, nrows); each lane keeps its directions' mask bits in a 64-bit
 // register word (nfre <= 64), and writes them point-fastest across warps.
 //
+// ECMWF's cycle-49/50 options (template flag OPTS, a separate
+// instantiation so that the default configuration's code is untouched;
+// the options themselves are bits of the uniform ``opts`` argument):
+//  * LLGCBZ0, the gravity-capillary roughness closure: HALPHAP on the
+//    first call, and TAUT_Z0_GC's two fixed-point loops of NITER steps,
+//    each step summing STRESS_GC over the NWAV = 82 gc wavenumbers.  That
+//    sum is split over the warp's lanes (3 wavenumbers a lane) and closed
+//    with a warp sum; the loop control stays scalar and redundant, as
+//    elsewhere.  TAU_PHI_HF's stress integral stops at the gc cut-off and
+//    the TAUW cap is dropped;
+//  * LLNORMAGAM: per gust and frequency the direction sums Σ gam0·F and
+//    Σ gam0·F·sin² normalise the growth rate (SINPUT), and the tail
+//    integrals take the same normalisation;
+//  * LLCAPCHNK: the wind-capped Charnock parameter (CHNKMIN) and, with
+//    LLNORMAGAM, the growth factor RNFAC;
+//  * LCISCAL and SDICE3 (LCIWA3): per-bin scaling of the sources by the
+//    open-water fraction and the h^1.25·f^4.5 ice attenuation, with the
+//    group speed derived from (k, d).
+//
 // What bounds it: arithmetic and transcendentals.  Its only bulk traffic
 // is one read and one write of each spectrum row (≈2·nang·nfre·4 bytes);
 // everything else is a few hundred bytes of per-row env/forcing.  The
@@ -74,12 +93,27 @@ enum Par {
   P_EPSU10, P_EPSUS3, P_TAUOCMIN, P_TAUOCMAX, P_PHIEPSMIN, P_PHIEPSMAX,
   P_PHIOC_ICE, P_PHIAW_ICE, P_TWOG, P_TWOGM1, P_STOKES_C, P_STMAX,
   P_CITHRSH_STOKES,
+  // the cycle-49/50 options
+  P_ALPHA, P_CHNKMIN_U, P_ANG_GC_A, P_ANG_GC_B, P_ANG_GC_C, P_BMAXOKAP,
+  P_RN1_RN, P_DTHRN_A, P_DTHRN_U, P_GAMNCONST, P_ALPHAPMAX, P_XNLEV,
+  P_RNUKAPPAM1, P_SQRTGOSURFT, P_XKM0, P_XLOGKRATIOM1, P_ACDLIN, P_BCDLIN,
+  P_ALPHAMAX, P_CONSTN, P_CDICE2, P_LOGFR_LAST, P_FR_NM3, P_HALP_TAIL,
+  P_G4PI,
   NPAR
 };
 
+// option bits of ``opts``, in the order of implsch_cuda.OPT_FLAGS
+enum Opt { OPT_LLGCBZ0 = 1, OPT_LLNORMAGAM = 2, OPT_LLCAPCHNK = 4,
+           OPT_LCIWA3 = 8, OPT_LCISCAL = 16 };
+
+// gravity-capillary tables (NWAV each), in the order of
+// implsch_cuda.GC_TABLES
+enum GcTab { G_LOGXK, G_CM, G_OM3GMKM, G_XKMSQRTVGOC2, G_DELKCC_OMXKM3,
+             G_C2OSQRTVG, G_DNS_OMXKM3, G_OMEGA, NGCTAB };
+
 // per-frequency tables following the parameters, in this order
 enum FreqTab { T_FR, T_DFIM, T_DFIMOFR, T_DFIMFR, T_ZPIFR, T_FR5, T_COFRM4,
-               T_RHOWG, T_FLMAX, T_DFIMSIM, NFREQTAB };
+               T_RHOWG, T_FLMAX, T_DFIMSIM, T_FR45, NFREQTAB };
 
 // rows of the full-mode output block, in the order of
 // implsch_cuda.SCAL_OUT_FULL (the first 6 are the minimal mode's)
@@ -104,14 +138,15 @@ struct Tabs {
   const float* fr; const float* dfim; const float* dfimofr;
   const float* dfimfr; const float* zpifr; const float* fr5;
   const float* cofrm4; const float* rhowg; const float* flmax;
-  const float* dfimsim;
+  const float* dfimsim; const float* fr45;
   const float* th; const float* sinth; const float* costh;
   const float* wmat; const float* swellft; const float* wtauhf;
+  const float* gc;
   const float* af11; const float* rnl; const float* xk_ext;
   const int* ic; const int* ip; const int* ip1; const int* im;
   const int* im1; const int* ikm; const int* ikm1; const int* ikp;
   const int* ikp1; const int* shifts;
-  int nang, nfre, nred, mlsthg, niab;
+  int nang, nfre, nred, mlsthg, niab, nwav, opts;
 };
 
 // sum over the warp, the same value (lane 0's) on every lane
@@ -143,13 +178,26 @@ __device__ __forceinline__ float sgn(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
 }
 
-// TAUT_Z0, non-LLGCBZ0 branch (taut_z0.F90:230-290)
-__device__ void taut_z0(const float* P, float utop, float udir, float tauw,
-                        float tauwdir, float ug, int iusfg, float& ustar,
-                        float& z0, float& z0b, float& chrnck) {
+// CHNKMIN, the minimum Charnock parameter for very high winds
+// (chnkmin.F90:28)
+__device__ __forceinline__ float chnkmin(const float* P, float u10) {
+  return P[P_ALPHAMIN] + (P[P_ALPHA] - P[P_ALPHAMIN]) * 0.5f
+      * (1.f - tanhf(u10 - P[P_CHNKMIN_U]));
+}
+
+// TAUT_Z0, non-LLGCBZ0 branch (taut_z0.F90:230-290); OPTS adds LLCAPCHNK
+template <bool OPTS>
+__device__ void taut_z0(const float* P, int opts, float utop, float udir,
+                        float tauw, float tauwdir, float ug, int iusfg,
+                        float& ustar, float& z0, float& z0b, float& chrnck) {
   const float tauwact = fmaxf(tauw * cosf(udir - tauwdir), P[P_EPSMIN]);
   const float tauweff = tauwact * P[P_EPS1P];
-  const float alphaog = P[P_ALPHAOG];
+  float alphaog = P[P_ALPHAOG], xmin = 0.f;
+  if (OPTS && (opts & OPT_LLCAPCHNK)) {
+    const float cmin = chnkmin(P, utop);
+    xmin = 0.15f * (P[P_ALPHA] - cmin);
+    alphaog = cmin * P[P_GM1];
+  }
   const float xkutop = P[P_XKAPPA] * utop;
   const float ustold = iusfg == 1
       ? ug : utop * sqrtf(fminf(P[P_ACD] + P[P_BCD] * utop, P[P_CDMAX]));
@@ -158,7 +206,7 @@ __device__ void taut_z0(const float* P, float utop, float udir, float tauw,
   float ustm1 = 1.f / fmaxf(us, P[P_EPSUS]);
   float z0ch = 0.f;
   for (int it = 0; it < NITER; ++it) {
-    const float x = fmaxf(tauwact / tauold, 0.f);
+    const float x = fmaxf(tauwact / tauold, xmin);
     z0ch = alphaog * tauold / sqrtf(1.f - x);
     const float z0vis = P[P_RNUM] * ustm1;
     const float z0tot = z0ch + z0vis;
@@ -178,9 +226,22 @@ __device__ void taut_z0(const float* P, float utop, float udir, float tauw,
   chrnck = fmaxf(P[P_G] * z0ch * (ustm1 * ustm1), P[P_ALPHAMIN]);
 }
 
-// WSIGSTAR (wsigstar.F90:48-86), non-LLGCBZ0/LLNORMAGAM branch
-__device__ float wsigstar(const float* P, float ufric, float z0m,
-                          float wstar) {
+// WSIGSTAR (wsigstar.F90:48-86); OPTS adds the LLGCBZ0/LLNORMAGAM branch
+template <bool OPTS>
+__device__ float wsigstar(const float* P, int opts, float wswave,
+                          float ufric, float z0m, float wstar) {
+  const float w3 = wstar * wstar * wstar;
+  if (OPTS && (opts & (OPT_LLGCBZ0 | OPT_LLNORMAGAM))) {
+    const float u10m1 = 1.f / fmaxf(wswave, 1.f);
+    const float z0vis = P[P_RNUM] / fmaxf(ufric, P[P_EPSUS]);
+    float zchar = P[P_G] * (z0m - z0vis) / fmaxf(ufric * ufric, P[P_EPSUS]);
+    zchar = fminf(fmaxf(zchar, P[P_ALPHAMIN]), P[P_ALPHAMAX]);
+    const float bcd = P[P_BCDLIN] * sqrtf(zchar);
+    const float c_d = P[P_ACDLIN] + bcd * wswave;
+    const float sig_conv = 1.f + 0.5f * wswave / c_d * bcd;
+    return fminf(0.9f, sig_conv * u10m1
+                           * powf(P[P_HALF_KAPPA] * w3, 1.f / 3.f));
+  }
   const float u10 = fmaxf(ufric / P[P_XKAPPA] * (P[P_LN10] - logf(z0m)),
                           1.f);
   const float u10m1 = 1.f / u10;
@@ -189,9 +250,191 @@ __device__ float wsigstar(const float* P, float ufric, float z0m,
   const float c_d = (P[P_C1CD] + c2u10p1) * u10p2;
   const float dc_ddu = (P[P_P2C1] + P[P_P12] * c2u10p1) * u10p2 * u10m1;
   const float sig_conv = 1.f + 0.5f * u10 / c_d * dc_ddu;
-  const float w3 = wstar * wstar * wstar;
   return fminf(0.9f, sig_conv * u10m1
                          * powf(P[P_HALF_KAPPA] * w3, 1.f / 3.f));
+}
+
+// NS_GC, the 0-based gc cut-off index for u* (ns_gc.F90:21-23)
+__device__ __forceinline__ int ns_gc(const Tabs& T, float ustar) {
+  const float* P = T.par;
+  const float xks = P[P_SQRTGOSURFT] / (1.48f + 2.05f * ustar);
+  const int ns0 = (int)floorf(logf(fmaxf(xks * P[P_XKM0], 1.f))
+                              * P[P_XLOGKRATIOM1]);
+  return min(ns0, T.nwav - 2);
+}
+
+// STRESS_GC (stress_gc.F90:63-103): the gc-range wave stress for
+// (ustar, z0).  The sum over the NWAV wavenumbers is split over the
+// lanes; every lane returns the same value
+__device__ float stress_gc(const Tabs& T, int lane, float ang, float ustar,
+                           float z0, float z0min, float halp, float rnfac) {
+  const float* P = T.par;
+  const float* G = T.gc;
+  const int nw = T.nwav;
+  const int ns = ns_gc(T, ustar);
+  const float c2_ns = G[G_C2OSQRTVG * nw + ns];
+  const float tauwcg_min = (ustar * (z0min / z0)) * (ustar * (z0min / z0));
+  const float u4 = (ustar * ustar) * (ustar * ustar);
+  const float logxl = logf(1.f + 0.25f * tanhf(4.f * u4));
+  const float zabhrc = ang * P[P_CONST1] * halp * c2_ns;
+  const float cn = (T.opts & OPT_LLNORMAGAM)
+      ? rnfac * P[P_BMAXOKAP] * halp * c2_ns / fmaxf(ustar, P[P_EPSUS]) : 0.f;
+  const float logz0 = logf(z0);
+  float part = 0.f;
+  for (int i = lane; i < nw; i += 32) {
+    if (i < ns) continue;
+    const float x = ustar * G[G_CM * nw + i];
+    const float xlog = G[G_LOGXK * nw + i] + logz0
+        + P[P_XKAPPA] / (x + P[P_ZALP]);
+    const float zlog = fminf(xlog - logxl, 0.f);
+    const float zlog2x = zlog * zlog * x;
+    const float gam_w = zlog2x * zlog2x * expf(xlog) * G[G_OM3GMKM * nw + i];
+    const float zn = cn * G[G_XKMSQRTVGOC2 * nw + i] * gam_w;
+    const float g = gam_w * ((1.f + P[P_RN1_RN] * zn) / (1.f + zn));
+    part += g * (i == ns ? G[G_DNS_OMXKM3 * nw + i]
+                         : G[G_DELKCC_OMXKM3 * nw + i]);
+  }
+  return fmaxf(zabhrc * warp_sum(part), tauwcg_min);
+}
+
+// the empirical neutral drag curve CDM (taut_z0 cdm.func.h)
+__device__ __forceinline__ float cdm(float u) {
+  return fmaxf(fminf(0.0006f + 0.00008f * u,
+                     0.001f + 0.0018f * expf(-0.05f * (u - 33.f))), 0.001f);
+}
+
+// TAUT_Z0, LLGCBZ0 branch (taut_z0.F90:146-281): the under-relaxed
+// fixed-point solve of u*² = τw + τvisc + τgc, then the Newton solve for
+// z0 and the Charnock parameter, with the reference's convergence exits,
+// no-convergence fallbacks and the x1 ≥ pmax skip
+__device__ void taut_z0_gc(const Tabs& T, int lane, float utop, float udir,
+                           float tauw, float tauwdir, float ug, float halp,
+                           float rnfac, int iusfg, float& ustar, float& z0,
+                           float& z0b, float& chrnck) {
+  const float* P = T.par;
+  const float z0min = 1.0e-6f, pmax = 0.99f;
+  const float pce = iusfg == 1 ? 0.001f : 0.005f;
+  const float cosdiff = cosf(udir - tauwdir);
+  const float tauwact = fmaxf(tauw * cosdiff, P[P_EPSMIN]);
+  const float alphaog = (T.opts & OPT_LLCAPCHNK) ? chnkmin(P, utop) * P[P_GM1]
+                                               : 0.f;
+  const float usmax = fmaxf(-0.21339f + utop * (0.093698f + utop
+      * (-0.0020944f + 5.5091e-5f * utop)), 0.03f);
+  const float tauweff = fminf(tauwact * P[P_EPS1P], usmax * usmax);
+  float us;
+  if (iusfg == 0) {
+    const float ugs = fmaxf(ug, P[P_EPSUS]);
+    const float x = fminf(tauwact / (ugs * ugs), pmax);
+    float zchar = fminf(P[P_ALPHAOG] * (ug * ug) / sqrtf(1.f - x),
+                        0.05f * expf(-0.05f * (utop - 35.f)));
+    zchar = fminf(zchar, P[P_ALPHAMAX]);
+    const float cdfg = utop < 1.f ? 0.002f
+        : (cosdiff > 0.9f ? P[P_ACDLIN] + P[P_BCDLIN] * sqrtf(zchar) * utop
+                          : cdm(utop));
+    us = utop * sqrtf(cdfg);
+  } else {
+    us = ug;
+  }
+  const float w1 = 0.85f - 0.05f * (tanhf(10.f * (utop - 5.f)) + 1.f);
+  const float xkutop = P[P_XKAPPA] * utop;
+  auto z0_of = [&](float u, float lo) {
+    return fmaxf(P[P_XNLEV] / (expf(fminf(xkutop / u, 50.f)) - 1.f), lo);
+  };
+
+  // first stage: u* from the stress balance
+  float ustold = us, tauold = us * us, ust = us, tauunr = 0.f;
+  bool done = false;
+  for (int it = 0; it < NITER; ++it) {
+    const float z0n = z0_of(ustold, z0min);
+    const float tauv = P[P_RNUKAPPAM1] * ustold / z0n;
+    const float ang = P[P_ANG_GC_A] + P[P_ANG_GC_B]
+        * tanhf(P[P_ANG_GC_C] * tauold);
+    const float tauunr_n = stress_gc(T, lane, ang, ustold, z0n, z0min, halp,
+                                     rnfac);
+    const float taunew = tauweff + tauv + tauunr_n;
+    const float ustmix = w1 * ustold + (1.f - w1) * sqrtf(taunew);
+    const bool done_new = done || fabsf(ustmix - ustold) < pce * ustmix;
+    if (!done) {
+      ust = ustmix;
+      tauunr = tauunr_n;
+    }
+    if (!done_new) {
+      tauold = ustmix * ustmix;
+      ustold = ustmix;
+    }
+    done = done_new;
+  }
+  const float tauold1 = tauold;
+  const float x1 = tauweff / tauold1;
+  const bool fallback = !done && x1 >= pmax;
+  const float ust_fb = utop * sqrtf(cdm(utop));
+  const float z0minrst = ust_fb * ust_fb * P[P_ALPHAOG];
+  if (fallback) {
+    us = ust_fb;
+    z0 = z0_of(ust_fb, z0minrst);
+    z0b = z0minrst;
+  } else {
+    us = ust;
+    z0 = z0_of(ust, z0min);
+    z0b = z0 * sqrtf(tauunr / tauold1);
+  }
+  if (!(x1 < pmax)) {                          // no second stage
+    const float um1 = 1.f / fmaxf(us, P[P_EPSUS]);
+    chrnck = fmaxf(P[P_G] * (z0 - P[P_RNUM] * um1) * (um1 * um1),
+                   P[P_ALPHAMIN]);
+    ustar = us;
+    return;
+  }
+
+  // second stage: Newton solve for z0 and the Charnock parameter
+  const float tau0 = fmaxf(us * us, tauweff);
+  const float alpog = fmaxf(fminf(z0b / tau0, P[P_ALPHAMAX]), alphaog);
+  float ust2 = us, z02 = z0, z0b2 = z0b, xk = 0.f;
+  ustold = us;
+  tauold = tau0;
+  done = false;
+  for (int it = 0; it < NITER; ++it) {
+    const float x = fminf(tauweff / tauold, pmax);
+    const float ustm1 = 1.f / fmaxf(ustold, P[P_EPSUS]);
+    const float z0vis = P[P_RNUM] * ustm1;
+    const float h = 0.5f * z0vis / (1.f - x);
+    const float z0b_n = alpog * tauold;
+    const float z0_n = h + sqrtf(h * h + z0b_n * z0b_n / (1.f - x));
+    const float xologz0 = 1.f / logf(P[P_XNLEV] / z0_n + 1.f);
+    const float f = ustold - xkutop * xologz0;
+    const float zz = 2.f * ustm1 * (3.f * (z0b_n * z0b_n)
+        + 0.5f * z0vis * z0_n - z0_n * z0_n)
+        / (2.f * (z0_n * z0_n) * (1.f - x) - z0vis * z0_n);
+    const float delf = 1.f - xkutop * (xologz0 * xologz0) * zz;
+    float ust_n = delf != 0.f ? ustold - f / delf : ustold;
+    const float taunew = fmaxf(ust_n * ust_n, tauweff);
+    ust_n = sqrtf(taunew);
+    const bool done_new = done || fabsf(taunew - tauold) < pce * tauold;
+    if (!done) {
+      ust2 = ust_n;
+      z02 = z0_n;
+      z0b2 = z0b_n;
+      xk = x;
+    }
+    if (!done_new) {
+      tauold = taunew;
+      ustold = ust_n;
+    }
+    done = done_new;
+  }
+  if (done) {
+    const float um1 = 1.f / fmaxf(ust2, P[P_EPSUS]);
+    chrnck = fmaxf(P[P_G] * (z0b2 / sqrtf(1.f - xk)) * (um1 * um1),
+                   P[P_ALPHAMIN]);
+    ustar = ust2;
+    z0 = z02;
+    z0b = z0b2;
+  } else {                                     // restore (taut_z0.F90:266)
+    const float um1 = 1.f / fmaxf(us, P[P_EPSUS]);
+    chrnck = fmaxf(P[P_G] * (z0 - P[P_RNUM] * um1) * (um1 * um1),
+                   P[P_ALPHAMIN]);
+    ustar = us;
+  }
 }
 
 // swell friction factor, linear in log10(a_b/z0) (sinput_ard.F90:187-194)
@@ -240,22 +483,62 @@ __host__ __device__ __forceinline__ int work_floats(int nang, int nfre,
   return 3 * nang * nfre + (full ? 11 : 7) * nfre + 7 * nang + mlsthg;
 }
 
+// HALPHAP (halphap.F90:54-99): half the Phillips parameter of the
+// downwind half of the spectrum; uses W.tm and W.ws as scratch
+__device__ float halphap(const Tabs& T, const Work& W, int lane) {
+  const float* P = T.par;
+  const int nang = T.nang, nfre = T.nfre;
+  for (int m = lane; m < nfre; m += 32) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = 0; k < nang; ++k) {
+      const float c = W.cosw[k];
+      const float wd = 0.5f + 0.5f * (c > 0.f ? 1.f : (c < 0.f ? -1.f : 0.f));
+      const float v = W.fl[k * nfre + m] * wd;
+      s1 += v;
+      s2 += fmaxf(v, P[P_EPSMIN]);
+    }
+    W.tm[m] = s1;
+    W.ws[m] = s2;
+  }
+  __syncwarp();
+  const float xmss = msum(nfre, lane, [&](int m) {
+    return (T.dfim[m] * (W.wav[m] * W.wav[m])) * W.tm[m]; });
+  const float em = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
+      + P[P_DELT25] * W.ws[nfre - 1];
+  const float fs = msum(nfre, lane, [&](int m) {
+    return T.dfimofr[m] * W.ws[m]; }) + P[P_DELT2] * W.ws[nfre - 1];
+  const float fm = fmaxf(em / fs, T.fr[0]);
+  const float tail = P[P_HALP_TAIL] * (W.tm[nfre - 1] * P[P_DELTH]);
+  const float spec = xmss / fmaxf(P[P_LOGFR_LAST]
+                                  - logf(fmaxf(fm, P[P_EPSMIN])),
+                                  P[P_EPSMIN]);
+  const bool ok = em > 0.f && fm < P[P_FR_NM3] && spec <= P[P_ALPHAPMAX];
+  __syncwarp();
+  return 0.5f * fminf(ok ? spec : tail, P[P_ALPHAPMAX]);
+}
+
 // SINPUT ARD (sinput_ard.F90:88-434): fld and sl in full, and per
 // frequency ws = Σ_k xllws·F (FEMEANWS), sx/sy = Σ_k spos·sin/cos (STRESSO).
 // FULL also keeps sp = Σ_k spos per frequency, the xllws bits of the lane's
 // directions (bit m of xbits[q]) and phw = Σ (sl − spos)·ρwgΔfΔθ, the
 // first term of PHIWA (stresso.F90:71-78)
-template <bool FULL>
+// OPTS adds LLNORMAGAM: the growth rate of each gust and frequency is
+// normalised by its direction sums Σ gam0·F and Σ gam0·F·sin² (with
+// cstrnfac = constn·rnfac/raorw)
+template <bool FULL, bool OPTS>
 __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
                            bool llsneg, float wswave, float wdwave,
                            float ufric, float z0m, float raorw, float wstar,
-                           unsigned long long* xbits, float& phw) {
+                           float rnfac, unsigned long long* xbits,
+                           float& phw) {
   const float* P = T.par;
   const int nang = T.nang, nfre = T.nfre;
   const float avg = ngst > 1 ? 0.5f : 1.f;
+  const bool normagam = OPTS && (T.opts & OPT_LLNORMAGAM);
+  const float cstrnfac = P[P_CONSTN] * rnfac / raorw;
   float ustp0[2];
   if (ngst > 1) {
-    const float sig_n = wsigstar(P, ufric, z0m, wstar);
+    const float sig_n = wsigstar<OPTS>(P, T.opts, wswave, ufric, z0m, wstar);
     ustp0[0] = ufric * (1.f + sig_n);
     ustp0[1] = ufric * (1.f - sig_n);
   } else {
@@ -316,27 +599,72 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
       const float ucn = ustp * cim;
       const float ucnzalpd = P[P_XKAPPA] / (ucn + P[P_ZALP]);
       float px = 0.f, py = 0.f;
+      if (!OPTS) {
 #pragma unroll
-      for (int q = 0; q < KPL; ++q) {
-        const int k = lane + 32 * q;
-        if (k >= nang) continue;
-        const float coslp = r2 > 0.f
-            ? (T.sinth[k] * tx + T.costh[k] * ty) * (um1 * um1) : T.costh[k];
-        const float x = coslp * ucn;
-        const float zlog = zcn + ucnzalpd / (coslp > 0.01f ? coslp : 1.f);
-        const bool active = coslp > 0.01f && zlog < 0.f;
-        const float zlog2x = zlog * zlog * x;
-        const float gam0 = active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
-        if (active) xll[q] = 1.f;
-        const float dstab = llsneg
-            ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD] * coslp)
-                                                    * ustp))
-            : 0.f;
-        const float slp = gam0 * W.fl[k * nfre + m];
-        px += slp * T.sinth[k];
-        py += slp * T.costh[k];
-        sposacc[q] += slp;
-        fldacc[q] += gam0 + dstab;
+        for (int q = 0; q < KPL; ++q) {
+          const int k = lane + 32 * q;
+          if (k >= nang) continue;
+          const float coslp = r2 > 0.f
+              ? (T.sinth[k] * tx + T.costh[k] * ty) * (um1 * um1) : T.costh[k];
+          const float x = coslp * ucn;
+          const float zlog = zcn + ucnzalpd / (coslp > 0.01f ? coslp : 1.f);
+          const bool active = coslp > 0.01f && zlog < 0.f;
+          const float zlog2x = zlog * zlog * x;
+          const float gam0 = active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
+          if (active) xll[q] = 1.f;
+          const float dstab = llsneg
+              ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD] * coslp)
+                                                      * ustp))
+              : 0.f;
+          const float slp = gam0 * W.fl[k * nfre + m];
+          px += slp * T.sinth[k];
+          py += slp * T.costh[k];
+          sposacc[q] += slp;
+          fldacc[q] += gam0 + dstab;
+        }
+      } else {
+        // the growth rates first, then their normalisation, then the sums
+        float gam[KPL], cl[KPL];
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const int k = lane + 32 * q;
+          gam[q] = cl[q] = 0.f;
+          if (k >= nang) continue;
+          const float coslp = r2 > 0.f
+              ? (T.sinth[k] * tx + T.costh[k] * ty) * (um1 * um1) : T.costh[k];
+          const float x = coslp * ucn;
+          const float zlog = zcn + ucnzalpd / (coslp > 0.01f ? coslp : 1.f);
+          const bool active = coslp > 0.01f && zlog < 0.f;
+          const float zlog2x = zlog * zlog * x;
+          gam[q] = active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
+          cl[q] = coslp;
+          xll[q] = fmaxf(xll[q], active ? 1.f : 0.f);
+          const float gf = gam[q] * W.fl[k * nfre + m];
+          s1 += gf;
+          s2 += gf * W.sin2[k];
+        }
+        if (normagam) {
+          const float sumf = warp_sum(s1), sumfsin2 = warp_sum(s2);
+          const float znz = cstrnfac * W.xk2cg[m] * um1;
+          const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
+#pragma unroll
+          for (int q = 0; q < KPL; ++q) gam[q] = gam[q] * gn;
+        }
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const int k = lane + 32 * q;
+          if (k >= nang) continue;
+          const float dstab = llsneg
+              ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD] * cl[q])
+                                                      * ustp))
+              : 0.f;
+          const float slp = gam[q] * W.fl[k * nfre + m];
+          px += slp * T.sinth[k];
+          py += slp * T.costh[k];
+          sposacc[q] += slp;
+          fldacc[q] += gam[q] + dstab;
+        }
       }
       xs[g] = xs[g] + warp_sum(px) * constf;
       ys[g] = ys[g] + warp_sum(py) * constf;
@@ -381,11 +709,14 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
 // STRESSO + TAU_PHI_HF's stress integral (stresso.F90:63-160,
 // tau_phi_hf.F90:73-255): the total wave stress and its direction.  FULL
 // also completes PHIWA: phiwa comes in as sinput_ard's phw and leaves with
-// Σ ρwgΔfΔθ-to-the-cut · sp and the tail's energy flux PHIHF added
-template <bool FULL>
+// Σ ρwgΔfΔθ-to-the-cut · sp and the tail's energy flux PHIHF added.  OPTS
+// adds LLGCBZ0 (the stress integral stops at the gc cut-off; no TAUW cap)
+// and LLNORMAGAM (both integrals normalised as in SINPUT)
+template <bool FULL, bool OPTS>
 __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
                         float ufric, float z0m, float aird, float wdwave,
-                        float& tauw, float& tauwdir, float& phiwa) {
+                        float rnfac, float& tauw, float& tauwdir,
+                        float& phiwa) {
   const float* P = T.par;
   const int nang = T.nang, nfre = T.nfre;
   auto rhowgdfth = [&](int m) {
@@ -426,7 +757,30 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
     if (FULL) part2 += fc2;
   }
   const float f1dcos3 = P[P_DELTH] * warp_sum(part);
-  const float delz = fmaxf((0.f - zinf) / (float)(JTOT - 1), 0.f);
+  const float delz_phi = fmaxf((0.f - zinf) / (float)(JTOT - 1), 0.f);
+  float delz = delz_phi;
+  if (OPTS && (T.opts & OPT_LLGCBZ0)) {
+    const float oms = T.gc[G_OMEGA * T.nwav + ns_gc(T, ufric)];
+    const float zsup = fminf(logf(oms * sqrtz0og), 0.f);
+    delz = fmaxf((zsup - zinf) / (float)(JTOT - 1), 0.f);
+  }
+  // LLNORMAGAM: gamnorma = (1 + c1·znz)/(1 + c2·znz), znz = zbeta·u*·y
+  float c1 = 0.f, c2 = 0.f;
+  const bool normagam = OPTS && (T.opts & OPT_LLNORMAGAM);
+  if (normagam) {
+    float ps = 0.f, pt = 0.f;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + 32 * q;
+      if (k >= nang) continue;
+      const float f = W.fl[k * nfre + mij];
+      ps += f * W.sin2[k];
+      pt += f;
+    }
+    const float confg = P[P_GAMNCONST] * T.fr5[mij] * rnfac * sqrtgz0;
+    c1 = confg * (P[P_DELTH] * warp_sum(ps));
+    c2 = confg * (P[P_DELTH] * warp_sum(pt));
+  }
   float taul = ust * ust, ustc = ust, tauhf = 0.f;
   for (int j = 0; j < JTOT; ++j) {
     const float y = expf(zinf + (float)j * delz);
@@ -436,7 +790,11 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
                              0.f);
     const float z2 = zlog * zlog;
     const float zbeta = z2 * z2 * expf(zlog);
-    const float fnc2 = f1dcos3 * consttau * zbeta * taul * T.wtauhf[j] * delz;
+    float fnc2 = f1dcos3 * consttau * zbeta * taul * T.wtauhf[j] * delz;
+    if (normagam) {
+      const float znz = zbeta * ustc * y;
+      fnc2 = fnc2 * ((1.f + c1 * znz) / (1.f + c2 * znz));
+    }
     taul = fmaxf(taul - P[P_TAUWSHELTER] * fnc2, 0.f);
     ustc = sqrtf(taul);
     tauhf += fnc2;
@@ -447,14 +805,18 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
     const float f1dcos2 = P[P_DELTH] * warp_sum(part2);
     float taup = ust * ust, ustph = ust, acc = 0.f;
     for (int j = 0; j < JTOT; ++j) {
-      const float y = expf(zinf + (float)j * delz);
+      const float y = expf(zinf + (float)j * delz_phi);
       const float cm1 = y * sqrtgz0 * P[P_GM1];
       const float zx = ustph * cm1 + P[P_ZALP];
       const float zlog = fminf(xloggz0 + 2.f * logf(cm1) + P[P_XKAPPA] / zx,
                                0.f);
       const float z2 = zlog * zlog;
       const float zbeta = z2 * z2 * expf(zlog);
-      const float fnc2 = zbeta * taup * T.wtauhf[j] * delz;
+      float fnc2 = zbeta * taup * T.wtauhf[j] * delz_phi;
+      if (normagam) {
+        const float znz = zbeta * ustc * y;
+        fnc2 = fnc2 * ((1.f + c1 * znz) / (1.f + c2 * znz));
+      }
       taup = fmaxf(taup - P[P_TAUWSHELTER] * f1dcos3 * consttau * fnc2, 0.f);
       ustph = sqrtf(taup);
       acc += fnc2 / y;
@@ -463,7 +825,8 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
   }
   xst = xst + tauhf * sinf(usdirp);
   yst = yst + tauhf * cosf(usdirp);
-  tauw = fminf(sqrtf(xst * xst + yst * yst), u2 / P[P_EPS1P]);
+  tauw = sqrtf(xst * xst + yst * yst);
+  if (!(OPTS && (T.opts & OPT_LLGCBZ0))) tauw = fminf(tauw, u2 / P[P_EPS1P]);
   tauwdir = atan2f(xst, yst);
 }
 
@@ -588,7 +951,7 @@ struct Layout {
   const float* tin; float* tout; int nfr;
 };
 
-template <bool FULL, bool COMPACT>
+template <bool FULL, bool COMPACT, bool OPTS>
 __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
 implsch_kernel(Layout Lo, const float* __restrict__ env2d,
                const float* __restrict__ scal, float* __restrict__ out,
@@ -641,7 +1004,8 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   }
   auto sc = [&](int i) { return scal[(long)i * nrows + p]; };
   const float wswave = sc(0), wdwave = sc(1), aird = sc(2), wstar = sc(3);
-  const float cicover = sc(4), depth = sc(6), emaxdpt = sc(7);
+  const float cicover = sc(4), cithick = sc(5), depth = sc(6);
+  const float emaxdpt = sc(7);
   float ufric = sc(8), tauw = sc(9), tauwdir = sc(10), z0m = sc(11);
   float z0b = sc(12), chrnck = sc(13);
   __syncwarp();
@@ -681,10 +1045,14 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   }
   __syncwarp();
   const float raorw = fmaxf(aird, 1.f) * P[P_ROWATERM1];
+  const int opts = OPTS ? T.opts : 0;
+  // RNFAC (sinflx.F90:92-98)
+  const float rnfac = (opts & OPT_LLNORMAGAM) && (opts & OPT_LLCAPCHNK)
+      ? 1.f + P[P_DTHRN_A] * (1.f + tanhf(wswave - P[P_DTHRN_U])) : 1.f;
 
   // ---- 2×SINFLX (sinflx.F90:190-260)
   int mij = nfre - 1;
-  float fmeanws = 0.f, phiwa = 0.f;
+  float fmeanws = 0.f, phiwa = 0.f, halp = 0.f;
   unsigned long long xbits[KPL];
   for (int icall = 1; icall <= 2; ++icall) {
     if (icall == 1) {
@@ -693,11 +1061,17 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
         W.fl[b] = fmaxf(W.fl[b], W.flm[k]);
       }
       __syncwarp();
+      if (opts & OPT_LLGCBZ0) halp = halphap(T, W, lane);
     }
-    taut_z0(P, wswave, wdwave, tauw, tauwdir, ufric, icall == 1 ? 0 : 1,
-            ufric, z0m, z0b, chrnck);
-    sinput_ard<FULL>(T, W, lane, icall == 1 ? 1 : 2, icall == 2, wswave,
-                     wdwave, ufric, z0m, raorw, wstar, xbits, phiwa);
+    if (opts & OPT_LLGCBZ0)
+      taut_z0_gc(T, lane, wswave, wdwave, tauw, tauwdir, ufric, halp, rnfac,
+                 icall == 1 ? 0 : 1, ufric, z0m, z0b, chrnck);
+    else
+      taut_z0<OPTS>(P, opts, wswave, wdwave, tauw, tauwdir, ufric,
+                    icall == 1 ? 0 : 1, ufric, z0m, z0b, chrnck);
+    sinput_ard<FULL, OPTS>(T, W, lane, icall == 1 ? 1 : 2, icall == 2, wswave,
+                           wdwave, ufric, z0m, raorw, wstar, rnfac, xbits,
+                           phiwa);
     // FEMEANWS (femeanws.F90:52-100)
     float emws = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
         + P[P_EPSMIN];
@@ -713,8 +1087,8 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     mij1 = min(max(mij1, 1), nfre);
     if (!(cicover <= P[P_CITHRSH_TAIL])) mij1 = nfre;
     mij = mij1 - 1;
-    stresso<FULL>(T, W, lane, mij, ufric, z0m, aird, wdwave, tauw, tauwdir,
-                  phiwa);
+    stresso<FULL, OPTS>(T, W, lane, mij, ufric, z0m, aird, wdwave, rnfac,
+                        tauw, tauwdir, phiwa);
   }
 
   sdissip_ard(T, W, lane);
@@ -756,20 +1130,62 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     if (depth < P[P_DEPTHTRS]) sds = 2.f * alph * fminf(q_out, 1.f) * f1mean;
   }
   const bool bottom = depth < P[P_BATHYMAX];
-  for (int b = lane; b < nb; b += 32) {
-    const int m = b % nfre;
-    if (m >= T.nred) continue;
-    const float f = W.fl[b];
-    float s = W.sl[b] + (-sds) * f;
-    float d = W.fld[b] + (-sds);
-    if (bottom) {
-      const float sbo = P[P_SBOT_C] * W.wav[m]
-          / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
-      s = s + sbo * f;
-      d = d + sbo;
+  if (!OPTS) {
+    for (int b = lane; b < nb; b += 32) {
+      const int m = b % nfre;
+      if (m >= T.nred) continue;
+      const float f = W.fl[b];
+      float s = W.sl[b] + (-sds) * f;
+      float d = W.fld[b] + (-sds);
+      if (bottom) {
+        const float sbo = P[P_SBOT_C] * W.wav[m]
+            / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
+        s = s + sbo * f;
+        d = d + sbo;
+      }
+      W.sl[b] = s;
+      W.fld[b] = d;
     }
-    W.sl[b] = s;
-    W.fld[b] = d;
+  } else {
+    // SDIWBK, then LCISCAL and SDICE3 on every frequency
+    // (implsch.F90, sdice3.F90:55-95), then SBOTTOM
+    const float beta = 1.f - cicover;
+    const bool ciwa3 = opts & OPT_LCIWA3;
+    const float h125 = ciwa3 ? powf(cithick, 1.25f) : 0.f;
+    for (int b = lane; b < nb; b += 32) {
+      const int m = b % nfre;
+      const bool low = m < T.nred;
+      const float f = W.fl[b];
+      float s = W.sl[b], d = W.fld[b];
+      if (low) {
+        s = s + (-sds) * f;
+        d = d + (-sds);
+      }
+      if (opts & OPT_LCISCAL) {
+        s = beta * s;
+        d = beta * d;
+      }
+      if (ciwa3) {
+        // the group speed from (k, d), as implsch.derive_cgroup
+        const float xk = W.wav[m];
+        const float akd = xk * depth, akd_s = fminf(akd, 10.f);
+        const float cg = akd <= 10.f
+            ? 0.5f * sqrtf(P[P_G] * tanhf(akd_s) / xk)
+                  * (1.f + 2.f * akd_s / sinhf(2.f * akd_s))
+            : P[P_G4PI] / T.fr[m];
+        const float fldice = -(P[P_CDICE2] * h125 * T.fr45[m]) * cg;
+        s = s + cicover * (f * fldice);
+        d = d + cicover * fldice;
+      }
+      if (low && bottom) {
+        const float sbo = P[P_SBOT_C] * W.wav[m]
+            / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
+        s = s + sbo * f;
+        d = d + sbo;
+      }
+      W.sl[b] = s;
+      W.fld[b] = d;
+    }
   }
 
   // ---- semi-implicit update with growth limiter (implsch.F90:260-300);
@@ -993,7 +1409,7 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   }
 }
 
-template <bool FULL, bool COMPACT>
+template <bool FULL, bool COMPACT, bool OPTS>
 int launch(const Layout& Lo, const float* env2d, const float* scal,
            float* out, float* xllws, const Tabs& T, int nrows,
            cudaStream_t stream) {
@@ -1001,12 +1417,12 @@ int launch(const Layout& Lo, const float* env2d, const float* scal,
                                                   FULL) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        implsch_kernel<FULL, COMPACT>,
+        implsch_kernel<FULL, COMPACT, OPTS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (nrows + WARPS - 1) / WARPS;
-  implsch_kernel<FULL, COMPACT><<<blocks, 32 * WARPS, smem, stream>>>(
+  implsch_kernel<FULL, COMPACT, OPTS><<<blocks, 32 * WARPS, smem, stream>>>(
       Lo, env2d, scal, out, xllws, T, nrows);
   return (int)cudaGetLastError();
 }
@@ -1024,15 +1440,15 @@ extern "C" int implsch_launch(
     int full, const float* fin, float* fout, long f_ps, long f_bs,
     const float* tin, float* tout, const float* env2d, const float* scal,
     float* out, float* xllws, const float* tab, const int* itab, int nrows,
-    int nang, int nfre, int nfr, int nred, int mlsthg, int niab,
-    void* stream) {
+    int nang, int nfre, int nfr, int nred, int mlsthg, int niab, int nwav,
+    int opts, void* stream) {
   if (nang > 32 * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre
-      || nred < 1 || nred > nfre || (full && nfre > 64)
+      || nred < 1 || nred > nfre || (full && nfre > 64) || nwav < 2
       || (nfr < nfre && (!tin || !tout)))
     return (int)cudaErrorInvalidValue;
   Tabs T;
   T.nang = nang; T.nfre = nfre; T.nred = nred; T.mlsthg = mlsthg;
-  T.niab = niab;
+  T.niab = niab; T.nwav = nwav; T.opts = opts;
   const float* t = tab;
   T.par = t; t += NPAR;
   const float* ft[NFREQTAB];
@@ -1040,13 +1456,14 @@ extern "C" int implsch_launch(
   T.fr = ft[T_FR]; T.dfim = ft[T_DFIM]; T.dfimofr = ft[T_DFIMOFR];
   T.dfimfr = ft[T_DFIMFR]; T.zpifr = ft[T_ZPIFR]; T.fr5 = ft[T_FR5];
   T.cofrm4 = ft[T_COFRM4]; T.rhowg = ft[T_RHOWG]; T.flmax = ft[T_FLMAX];
-  T.dfimsim = ft[T_DFIMSIM];
+  T.dfimsim = ft[T_DFIMSIM]; T.fr45 = ft[T_FR45];
   T.th = t; t += nang;
   T.sinth = t; t += nang;
   T.costh = t; t += nang;
   T.wmat = t; t += nang * nang;
   T.swellft = t; t += niab;
   T.wtauhf = t; t += JTOT;
+  T.gc = t; t += NGCTAB * nwav;
   T.af11 = t; t += mlsthg;
   T.rnl = t; t += 25 * mlsthg;
   T.xk_ext = t;
@@ -1064,9 +1481,14 @@ extern "C" int implsch_launch(
 
   const Layout Lo{fin, fout, f_ps, f_bs, tin, tout, nfr};
   const cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(F, C, O) launch<F, C, O>(Lo, env2d, scal, out, xllws, T, nrows, s)
+  if (opts) {
+    if (f_bs != 1)
+      return full ? LAUNCH(true, true, true) : LAUNCH(false, true, true);
+    return full ? LAUNCH(true, false, true) : LAUNCH(false, false, true);
+  }
   if (f_bs != 1)
-    return full ? launch<true, true>(Lo, env2d, scal, out, xllws, T, nrows, s)
-                : launch<false, true>(Lo, env2d, scal, out, xllws, T, nrows, s);
-  return full ? launch<true, false>(Lo, env2d, scal, out, xllws, T, nrows, s)
-              : launch<false, false>(Lo, env2d, scal, out, xllws, T, nrows, s);
+    return full ? LAUNCH(true, true, false) : LAUNCH(false, true, false);
+  return full ? LAUNCH(true, false, false) : LAUNCH(false, false, false);
+#undef LAUNCH
 }

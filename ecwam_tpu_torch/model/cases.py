@@ -2,11 +2,13 @@
 
 The golden-trajectory configuration of ``tests/test_golden_trajectory.py``
 (the 12° ``t12`` grid with synthetic land, a shoal and obstructions,
-12×18 with 15 advected, irefra=1, ifrelfmax=3), its decaying-wind
-forcing (``tests/test_trajectory_oracle.py:_forcing``), its
-statistics.log trajectory (``tests/test_golden_trajectory.py``) and a
-shallow grid on which every shallow-water term is active, built from
-numpy so that ``chip_smoke.py`` and the port's tests use one definition.
+12×18 with 15 advected, irefra=1, ifrelfmax=3) and its variant with the
+trajectory oracle's currents (irefra 3), its decaying-wind forcing
+(``tests/test_trajectory_oracle.py:_forcing``), its statistics.log
+trajectory (``tests/test_golden_trajectory.py``), a shallow grid on which
+every shallow-water term is active (and its cycle-50 variant with polar
+sea ice), and the O320 configurations at full width, built from numpy so
+that ``chip_smoke.py`` and the port's tests use one definition.
 """
 
 from __future__ import annotations
@@ -21,15 +23,25 @@ from ecwam_tpu_torch.core import grid as grid_mod
 from ecwam_tpu_torch.core.spectral import build_spectral_tables
 from ecwam_tpu_torch.io import norms as norms_mod
 from ecwam_tpu_torch.model.driver import FastWaveModel, parse_date
+from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.model.setup import build_model
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
+from ecwam_tpu_torch.ops import propagation_fused as pfz
+from ecwam_tpu_torch.ops.physics import implsch as impl
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 
 START = "20230101000000"
+# ECMWF's operational physics options (tests/test_implsch_pallas.py:158-169
+# and BASELINE.md's etopo1_oper_an_fc_O48_cy49r1 / _cy50r1 cases)
+CY49R1 = dict(llgcbz0=True, llnormagam=True, llcapchnk=True)
+CY50R1 = dict(CY49R1, lciwa3=True, lciscal=True)
 
 
-def golden_kw() -> dict:
-    """``build_model`` keywords of the golden-trajectory configuration."""
+def golden_kw(irefra: int = 1, currents: bool = False) -> dict:
+    """``build_model`` keywords of the golden-trajectory configuration;
+    ``currents`` adds the trajectory oracle's surface currents
+    (tests/test_trajectory_oracle.py:74-79: 0.35·N(0, 1) m/s in u and v
+    from seed 3) for ``irefra`` 2 or 3."""
     nang, nfre, nfre_red = 12, 18, 15
     topo = bathy_mod.synthetic_topo(invres=2, features=[
         dict(kind="land", lon=(40.0, 44.0), lat=(0.0, 12.0), elev=300.0),
@@ -39,16 +51,62 @@ def golden_kw() -> dict:
     tb = build_spectral_tables(nang=nang, nfre=nfre, nfre_red=nfre_red)
     b, obs = bathy_mod.make_bathymetry(topo, wg, tb.fr, nfre_red=nfre_red)
     blk = grid_mod.build_sea_point_block(wg, b)
-    return dict(grid=wg, bathy=b, nang=nang, nfre=nfre, nfre_red=nfre_red,
-                pad_to=8, iphys=1, idelpro=900.0, idelt=1800.0,
-                delpro_lf=450.0, ifrelfmax=3, irefra=1,
-                obstructions=bathy_mod.obstructions_to_block(obs, blk))
+    kw = dict(grid=wg, bathy=b, nang=nang, nfre=nfre, nfre_red=nfre_red,
+              pad_to=8, iphys=1, idelpro=900.0, idelt=1800.0,
+              delpro_lf=450.0, ifrelfmax=3, irefra=irefra,
+              obstructions=bathy_mod.obstructions_to_block(obs, blk))
+    if currents:
+        rng = np.random.default_rng(3)
+        kw["currents"] = (0.35 * rng.standard_normal(blk.nsea),
+                          0.35 * rng.standard_normal(blk.nsea))
+    return kw
 
 
-def shallow_kw() -> dict:
+def currents_kw(irefra: int = 3, *, fast: bool = False,
+                cfl: bool = False) -> dict:
+    """tests/test_fused_pallas.py's current-refraction configuration: the
+    6° aqua grid, 12×25, idelpro 900 s, with uniform random currents of
+    ±0.2 m/s from seed 7; ``fast`` adds the fast-wave sub-band passes
+    (ifrelfmax 5, 450 s), and ``cfl`` makes the CFL current retry bite
+    (idelpro 9000 s and ±6 m/s currents, so that some points' outflow
+    sums leave [0, 1] with the current terms and stay inside without)."""
+    grid = grid_mod.regular_grid(6.0)
+    n = grid_mod.build_sea_point_block(
+        grid, grid_mod.aqua_bathymetry(grid)).nsea
+    rng = np.random.default_rng(7)
+    amp = 12.0 if cfl else 0.4
+    kw = dict(grid=grid, nang=12, nfre=25, idelpro=9000.0 if cfl else 900.0,
+              idelt=900.0, pad_to=64, irefra=irefra,
+              currents=(amp * (rng.random(n) - 0.5),
+                        amp * (rng.random(n) - 0.5)))
+    if fast:
+        kw.update(delpro_lf=450.0, ifrelfmax=5)
+    return kw
+
+
+def point_latlon(grid, blk):
+    """Latitude and longitude (degrees) of each sea point."""
+    lat = grid.lats[blk.kxlt]
+    lon = grid.amowep + blk.ixlg * grid.zdello[blk.kxlt]
+    return lat, lon
+
+
+def polar_ice(ms, lat0: float, width: float, thick_min: float,
+              thick_max: float) -> dict:
+    """Sea ice over the polar rows of ``ms``: cicover rises linearly from 0
+    at |φ| = lat0 to 1 at lat0 + width, cithick from thick_min to
+    thick_max with it; (n_real,) arrays."""
+    lat, _ = point_latlon(ms.grid, ms.blk)
+    ci = np.clip((np.abs(lat) - lat0) / width, 0.0, 1.0)
+    return dict(cicover=ci, cithick=thick_min + (thick_max - thick_min) * ci)
+
+
+def shallow_kw(options: bool = False) -> dict:
     """A 12° grid with a wavy 3–21 m bottom, 12×30 all advected: depth
     limiting, depth-induced breaking (SDIWBK) and bottom friction are
-    active, and the cut falls inside the ladder (IMPHFTAIL)."""
+    active, and the cut falls inside the ladder (IMPHFTAIL).  ``options``
+    adds the cycle-50r1 physics (:data:`CY50R1`); run it under
+    :func:`shallow_ice`."""
     grid = grid_mod.regular_grid(12.0)
     bathy = np.full((grid.ngy, grid.ngx), -999.0)
     lats = np.linspace(0, np.pi, grid.ngy)[:, None]
@@ -56,21 +114,76 @@ def shallow_kw() -> dict:
     depth = 12.0 + 9.0 * np.sin(3 * lats) * np.cos(2 * lons)
     for k in range(1, grid.ngy - 1):
         bathy[k, : grid.nlonrgg[k]] = depth[k, : grid.nlonrgg[k]]
-    return dict(grid=grid, bathy=bathy, nang=12, nfre=30, idelpro=900.0,
-                idelt=1800.0, pad_to=64)
+    kw = dict(grid=grid, bathy=bathy, nang=12, nfre=30, idelpro=900.0,
+              idelt=1800.0, pad_to=64)
+    return dict(kw, **CY50R1) if options else kw
 
 
-def golden_forcing(n: int, seed: int = 11, cicover=None):
-    """forcing_at(step): random 5–18 m/s winds decaying by 18 % a step,
-    so some points cross the 4 m/s TAUW-cap threshold."""
+def storm(ms) -> dict:
+    """:func:`golden_forcing` keywords for winds of 5–55 m/s (up to 35 m/s
+    by the third step): the capped Charnock parameter and RNFAC
+    (LLCAPCHNK, with LLNORMAGAM) differ from their defaults only above
+    about 25 m/s."""
+    return dict(wmax=55.0)
+
+
+def shallow_ice(ms) -> dict:
+    """The shallow grid's cycle-50 forcing: polar ice, cicover 0 → 1 from
+    |φ| = 48° to 84° and cithick 0.5 → 2 m, so that SDICE3, LCISCAL,
+    SETICE and the sea-ice flux branch are all active, under the
+    :func:`storm` winds."""
+    return dict(polar_ice(ms, 48.0, 36.0, 0.5, 2.0), **storm(ms))
+
+
+def o320_options(device):
+    """ECMWF's operational configuration at full width: O320 aqua planet,
+    36×36 with 29 advected, idelpro 450 s, idelt 900 s (as chip_smoke.py's
+    default O320 model), with current refraction (irefra 2) and the
+    cycle-50r1 physics (:data:`CY50R1`).  Forcing from ``default_rng(0)``:
+    winds 8–12 m/s in random directions; sea ice cicover = clip((|φ| −
+    60°)/15°, 0, 1) and cithick = 2·cicover m.  The surface current is an
+    equatorial jet plus a wave-3 eddy pattern (φ, λ the point's latitude
+    and longitude):
+
+        u = 0.9·exp(−(φ/8°)²) − 0.3·cos(3λ)·sin(2φ)    (m/s)
+        v = 0.3·sin(3λ)·cos(φ)
+
+    a peak speed near 0.95 m/s.  Returns the setup and a cold-started
+    ``FastWaveModel`` on ``device``."""
+    grid = grid_mod.octahedral_grid(320)
+    blk = grid_mod.build_sea_point_block(grid, grid_mod.aqua_bathymetry(grid))
+    lat, lon = point_latlon(grid, blk)
+    phi, lam = np.radians(lat), np.radians(lon)
+    u = (0.9 * np.exp(-(lat / 8.0) ** 2)
+         - 0.3 * np.cos(3 * lam) * np.sin(2 * phi))
+    v = 0.3 * np.sin(3 * lam) * np.cos(phi)
+    ms = build_model(grid=grid, nang=36, nfre=36, nfre_red=29,
+                     idelpro=450.0, idelt=900.0, pad_to=8192, irefra=2,
+                     currents=(u, v), device=device, **CY50R1)
+    rng = np.random.default_rng(0)
+    n = ms.n_real
+    ci = np.clip((np.abs(lat) - 60.0) / 15.0, 0.0, 1.0)
+    forcing = dict(wswave=8.0 + 4.0 * rng.random(n),
+                   wdwave=rng.random(n) * 2.0 * np.pi,
+                   aird=np.full(n, 1.225), wstar=np.zeros(n), cicover=ci,
+                   cithick=2.0 * ci)
+    return ms, FastWaveModel(ms, lambda date14: forcing, START)
+
+
+def golden_forcing(n: int, seed: int = 11, cicover=None, cithick=None,
+                   wmax: float = 18.0):
+    """forcing_at(step): random 5–``wmax`` m/s winds decaying by 18 % a
+    step, so some points cross the 4 m/s TAUW-cap threshold."""
     rng = np.random.default_rng(seed)
-    base = rng.uniform(5.0, 18.0, n)
+    base = rng.uniform(5.0, wmax, n)
     direc = rng.uniform(0.0, 2 * np.pi, n)
-    ice = np.zeros(n) if cicover is None else cicover
+    ice = dict(cicover=np.zeros(n) if cicover is None else cicover)
+    if cithick is not None:
+        ice["cithick"] = cithick
 
     def forcing_at(step):
         return dict(wswave=base * (1.0 - 0.18 * step), wdwave=direc,
-                    aird=np.full(n, 1.225), wstar=np.zeros(n), cicover=ice)
+                    aird=np.full(n, 1.225), wstar=np.zeros(n), **ice)
     return forcing_at
 
 
@@ -84,18 +197,25 @@ def provider(forcing_at, idelpro: float):
     return at
 
 
-def _physics_step(kw: dict, device, full: bool):
+def _physics_step(kw: dict, device, full: bool, forcing=None):
     """One physics step on every SRL row of ``build_model(**kw)``, after
-    two plain steps under the golden forcing with sea ice on a fifth of
-    the points (above and below the ice threshold), through the kernel
-    and through the plain version on ``device``: (kernel result, plain
-    result, ``margin_at`` of :func:`full_errors` on the step's inputs),
-    each result (f_srl, rows, tail[, xllws])."""
+    two plain steps under the golden forcing — with ``forcing(ms)``'s
+    keywords of :func:`golden_forcing`, or by default with sea ice on a
+    fifth of the points (above and below the ice threshold) — through
+    the kernel and through the plain
+    version on ``device``: (kernel result, plain result, ``margin_at`` of
+    :func:`full_errors` on the step's inputs, the per-row
+    gravity-capillary decision margin in float64 or None without
+    LLGCBZ0), each result (f_srl, rows, tail[, xllws])."""
     ms = build_model(device=device, **kw)
     n = ms.n_real
-    ice = np.where(np.arange(n) % 10 == 3, 0.5,
-                   np.where(np.arange(n) % 10 == 7, 0.2, 0.0))
-    m = FastWaveModel(ms, provider(golden_forcing(n, cicover=ice), 900.0),
+    if forcing is None:
+        f_kw = dict(cicover=np.where(
+            np.arange(n) % 10 == 3, 0.5,
+            np.where(np.arange(n) % 10 == 7, 0.2, 0.0)))
+    else:
+        f_kw = forcing(ms)
+    m = FastWaveModel(ms, provider(golden_forcing(n, **f_kw), 900.0),
                       START, plain=True)
     m.advance(2)
     scal = torch.cat([m._frc6, m._denv, m._stress6])
@@ -113,18 +233,82 @@ def _physics_step(kw: dict, device, full: bool):
         raise AssertionError("the physics step did not launch the kernel")
     if (got[2] is None) != (want[2] is None):
         raise AssertionError("kernel and plain disagree on the tail block")
-    return got, want, srl_margin(cfg, *fresh(), nang=ms.tb.nang,
-                                 nfre_red=ms.tb.nfre_red)
+    rows_kw = dict(nang=ms.tb.nang, nfre_red=ms.tb.nfre_red)
+    gc = (srl_gc_margin(cfg, *fresh(), **rows_kw)(None)
+          if cfg.params.llgcbz0 else None)
+    return got, want, srl_margin(cfg, *fresh(), **rows_kw), gc
 
 
-def spectrum_error(got, want) -> float:
-    """max|k−p| over max|p| of the spectrum and its tail block; raises
-    on a non-finite kernel value."""
+def srl_gc_margin(cfg, f_srl, env2d, scal, tail, *, nang: int,
+                  nfre_red: int):
+    """``at(rows)``: the plain chain's gravity-capillary decision margin
+    (:func:`implsch_cuda.gc_margin`) at the given SRL rows (all for None),
+    in float64 on the rows' device."""
+    def at(rows):
+        rows = slice(None) if rows is None else rows
+        t = None if tail is None else tail[rows].double()
+        return ipk.gc_margin(cfg, f_srl[rows].double(),
+                             env2d[:, rows].double(), scal[:, rows].double(),
+                             t, nang=nang, nfre_red=nfre_red)
+    return at
+
+
+def gc_held(gc, err, off_tol: float, width: float):
+    """Rows held out of the checks: those off the limit (``err`` (n,), a
+    row's largest error, above ``off_tol``) whose gravity-capillary
+    decision margin ``gc`` (float64, or None) lies within ``width`` of an
+    edge — a loop of TAUT_Z0_GC may leave at another iteration, or a
+    cut-off index step, in either float32 version."""
+    if gc is None:
+        return torch.zeros_like(err, dtype=torch.bool)
+    return (err > off_tol) & (gc.to(err.device) < width)
+
+
+def advect_kernel_vs_plain(kw: dict, device, seed: int = 0) -> dict:
+    """Kernel A against its plain version on ``build_model(**kw)``: one
+    all-band pass and (with fast waves) one sub-band pass on a JONSWAP
+    start under random 6–12 m/s winds from ``seed``, each as max|k−p| over
+    max|p|; the CFL current-retry mask (irefra 2/3) the kernel computed
+    for the setup against the plain version's, as the number of SRL rows
+    that differ and the number masked; and both CHECKCFL readings."""
+    ms = build_model(device=device, **kw)
+    n0 = pcu.advect.launches
+    fk = FusedPropagation(ms)
+    fpl = FusedPropagation(ms, plain=True)
+    if (ms.device.type == "cuda" and ms.irefra in (2, 3)
+            and pcu.advect.launches == n0):
+        raise AssertionError("the CFL retry did not launch the kernel")
+    rng = np.random.default_rng(seed)
+    n = ms.n_pad
+    f = pfz.refresh_wraps(fk.initial_srl(
+        6.0 + 6.0 * rng.random(n), 2.0 * np.pi * rng.random(n))[0], fk.tabs)
+    passes = [(fk.nfre_red, None, fk.lc)]
+    if fk.nsub > 1:
+        passes.append((fk.mlf_w, fk.mlf, fk.lc_lo))
+    err = []
+    for nf, nw, lc in passes:
+        a = dict(nang=fk.nang, nf=nf, nw=nw, S=ms.fused.S, EW=ms.fused.EW,
+                 irefra=ms.irefra)
+        got = pcu.advect(f, fk.tabs, lc, **a)
+        want = pcu.advect_plain(f, fk.tabs, lc, **a)
+        err.append(float((got - want).abs().max() / want.abs().max()))
+    r = dict(main=err[0], sub=err[1] if len(err) > 1 else None,
+             cfl_differ=int((fk.cfl_bad != fpl.cfl_bad).sum()),
+             cfl_masked=int(fk.cfl_bad.sum()),
+             diag=fk.cfl_diagnostics(), diag_plain=fpl.cfl_diagnostics())
+    return r
+
+
+def spectrum_error(got, want, keep=None) -> float:
+    """max|k−p| over max|p| of the spectrum and its tail block (rows in
+    ``keep`` only, if given); raises on a non-finite kernel value."""
     spec = 0.0
     for g, w in ((got[0], want[0]), (got[2], want[2])):
         if w is not None:
             if not bool(torch.isfinite(g).all()):
                 raise AssertionError("physics kernel: non-finite spectrum")
+            if keep is not None:
+                g, w = g[keep], w[keep]
             spec = max(spec, float((g - w).abs().max() / w.abs().max()))
     return spec
 
@@ -198,12 +382,27 @@ def compact_margin(cfg, fl1, env2d, scal):
         cfg, *(a[..., pts].double() for a in (fl1, env2d, scal)))
 
 
-def physics_kernel_vs_plain(kw: dict, device) -> tuple[float, float]:
+def point_errors(got, want) -> torch.Tensor:
+    """Per row (point), the largest |k−p| over each output field's
+    maximum."""
+    return ((got - want).abs()
+            / want.abs().amax(1, keepdim=True).clamp(min=1e-30)).amax(0)
+
+
+def physics_kernel_vs_plain(kw: dict, device, *, forcing=None,
+                            gc_width: float = 0.0,
+                            off_tol: float = 0.0) -> tuple:
     """One minimal-mode physics step (see :func:`_physics_step`): kernel
     against plain, (spectrum, stress) as max|k−p| over each field's
-    maximum."""
-    got, want, _ = _physics_step(kw, device, full=False)
-    return spectrum_error(got, want), float(row_errors(got[1], want[1]).max())
+    maximum, and the number of rows held out: above ``off_tol`` on a
+    gravity-capillary decision edge (:func:`gc_held` within
+    ``gc_width``)."""
+    got, want, _, gc = _physics_step(kw, device, full=False,
+                                     forcing=forcing)
+    keep = ~gc_held(gc, point_errors(got[1], want[1]), off_tol, gc_width)
+    return (spectrum_error(got, want, keep),
+            float(row_errors(got[1][:, keep], want[1][:, keep]).max()),
+            int((~keep).sum()))
 
 
 def compact_inputs(model: FastWaveModel):
@@ -218,15 +417,20 @@ def compact_inputs(model: FastWaveModel):
 
 
 def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
-                            width: float) -> dict:
+                            width: float, forcing=None,
+                            gc_width: float = 0.0,
+                            off_tol: float = 0.0) -> dict:
     """The compact entry (kernel C) against its plain version on the state
     of ``build_model(**kw)`` after two plain steps under the golden
-    forcing: the spectrum error, the largest output-row error, and the
-    xllws bins that differ on and off the mask's edge (:func:`full_errors`
-    with ``width``)."""
+    forcing (with ``forcing(ms)``'s keywords, if given): the spectrum
+    error, the
+    largest output-row error, and the xllws bins that differ on and off
+    the mask's edge (:func:`full_errors` with ``width``), over the points
+    off a gravity-capillary decision edge (:func:`gc_held`)."""
     ms = build_model(device=device, **kw)
-    m = FastWaveModel(ms, provider(golden_forcing(ms.n_real), 900.0),
-                      START, plain=True)
+    f_kw = forcing(ms) if forcing is not None else {}
+    m = FastWaveModel(ms, provider(golden_forcing(ms.n_real, **f_kw),
+                                   900.0), START, plain=True)
     m.advance(2)
     cfg = ms.phys if full else ipk.minimal_config(ms.phys)
     args = compact_inputs(m)
@@ -237,30 +441,54 @@ def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
     want = ipk.implsch_compact_plain(cfg, *args, full=full)
     if not bool(torch.isfinite(got[0]).all()):
         raise AssertionError("compact kernel: non-finite spectrum")
-    r = dict(spec=float((got[0] - want[0]).abs().max()
-                        / want[0].abs().max()), bins=got[0].numel(),
-             xllws=0, off_edge=0, margin=0.0)
+    n = got[0].shape[-1]
+    gc = None
+    if cfg.params.llgcbz0:
+        env, frc, stress = ipk._unpack_inputs(
+            cfg, args[1].double(), args[2].double())
+        gc = impl.implsch(cfg, args[0].double(), env, frc,
+                          *stress)[1]["gc_margin"]
+    keep = ~gc_held(gc, point_errors(got[1], want[1]), off_tol, gc_width)
+    r = dict(spec=float((got[0] - want[0])[..., keep].abs().max()
+                        / want[0][..., keep].abs().max()),
+             bins=got[0].numel(), xllws=0, off_edge=0, margin=0.0,
+             held=int((~keep).sum()), n=n)
     if full:
-        fe = full_errors(got[1], want[1], got[2], want[2],
-                         compact_margin(cfg, *args), width)
+        kept = torch.nonzero(keep).flatten()
+        margin = compact_margin(cfg, *args)
+        fe = full_errors(got[1][:, keep], want[1][:, keep],
+                         got[2][..., keep], want[2][..., keep],
+                         lambda pts: margin(kept[pts]), width)
         r.update(rows=float(fe["err"].max()), xllws=int(fe["edge"].sum()),
                  off_edge=int(fe["off"].sum()),
                  margin=float(fe["margin"].max()))
     else:
-        r["rows"] = float(row_errors(got[1], want[1]).max())
+        r["rows"] = float(row_errors(got[1][:, keep],
+                                     want[1][:, keep]).max())
     return r
 
 
-def full_kernel_vs_plain(kw: dict, device, *, width: float) -> dict:
+def full_kernel_vs_plain(kw: dict, device, *, width: float, forcing=None,
+                         gc_width: float = 0.0,
+                         off_tol: float = 0.0) -> dict:
     """One full-mode physics step (see :func:`_physics_step`): kernel
     against plain.  Returns the spectrum error, {row name: error} over the
     SCAL_OUT_FULL rows, and the xllws bins that differ on and off the
     mask's edge (:func:`full_errors` with ``width``) with the largest
-    |margin| among them."""
-    got, want, margin_at = _physics_step(kw, device, full=True)
-    fe = full_errors(got[1], want[1], got[3], want[3], margin_at, width)
+    |margin| among them, over the rows off a gravity-capillary decision
+    edge (:func:`gc_held`, rows above ``off_tol`` within ``gc_width``;
+    ``held`` counts them)."""
+    got, want, margin_at, gc = _physics_step(kw, device, full=True,
+                                             forcing=forcing)
+    n = got[0].shape[0]
+    keep = ~gc_held(gc, point_errors(got[1], want[1]), off_tol, gc_width)
+    kept = torch.nonzero(keep).flatten()
+    fe = full_errors(got[1][:, keep], want[1][:, keep], got[3][..., keep],
+                     want[3][..., keep], lambda pts: margin_at(kept[pts]),
+                     width)
     rows = fe["err"].amax(1)
-    return dict(spec=spectrum_error(got, want),
+    return dict(spec=spectrum_error(got, want, keep),
+                held=int((~keep).sum()), n=n,
                 rows={k: float(rows[i])
                       for i, k in enumerate(ipk.SCAL_OUT_FULL)},
                 xllws=int(fe["edge"].sum()), off_edge=int(fe["off"].sum()),
@@ -269,12 +497,14 @@ def full_kernel_vs_plain(kw: dict, device, *, width: float) -> dict:
                 bins=got[3].numel())
 
 
-def golden_kernel_vs_plain(device, nsteps: int = 4) -> tuple[dict, dict]:
-    """The golden configuration advanced ``nsteps`` steps (forcing swapped
-    every 2) through the kernels and through the plain versions, both on
-    ``device``.  Returns ({"fl1" and each stress field: max|k−p| over
-    max|p|}, {"kernels"/"plain": (advection, physics) launches})."""
-    ms = build_model(device=device, **golden_kw())
+def golden_kernel_vs_plain(device, nsteps: int = 4,
+                           kw: dict | None = None) -> tuple[dict, dict]:
+    """The golden configuration (or ``build_model(**kw)``) advanced
+    ``nsteps`` steps (forcing swapped every 2) through the kernels and
+    through the plain versions, both on ``device``.  Returns ({"fl1" and
+    each stress field: max|k−p| over max|p|}, {"kernels"/"plain":
+    (advection, physics) launches})."""
+    ms = build_model(device=device, **(kw or golden_kw()))
     forcing_at = golden_forcing(ms.n_real)
     runs, launched = {}, {}
     for plain in (False, True):

@@ -7,8 +7,9 @@ steps, each ``idelpro`` runs the CTU advection (kernel A) and each
 dates, and at output dates (``advance(..., full_phys=True)``) full mode
 chunked over rows with the windsea/swell separation, which fills
 ``state`` (wamodel.F90:228-649, wamintgr.F90:94-186).  Dates are
-14-character strings (incdate.F90) kept as ``datetime``.  Current
-refraction is not ported yet.
+14-character strings (incdate.F90) kept as ``datetime``.  Surface
+currents in the forcing (``ucur``/``vcur``) re-derive the refraction
+inputs and the CFL retry mask (GETCURR → LUPDTWGHT).
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ class FastWaveModel:
 
     ``forcing_provider(date14) -> dict`` returns host arrays of shape
     (n_real,) for keys wswave, wdwave, aird, wstar, cicover (optional
-    cithick).  ``fl1`` (compact (nang, nfre, n_pad) numpy) and ``stress``
-    (dict of (n_pad,) numpy) carry a state across; without ``fl1`` the
+    cithick, and ucur/vcur, the surface currents, for irefra 2/3).
+    ``fl1`` (compact (nang, nfre, n_pad) numpy) and ``stress`` (dict of
+    (n_pad,) numpy) carry a state across; without ``fl1`` the
     JONSWAP cold start is built in the SRL layout on the device.
     ``plain=True`` runs the plain PyTorch versions of both kernels.
     """
@@ -74,7 +76,10 @@ class FastWaveModel:
         self.date = (parse_date(start_date)
                      if isinstance(start_date, str) else start_date)
         self.fp = fp = FusedPropagation(setup, plain=plain)
-        self.frc = self._to_device(self._forcing_host(self.date))
+        frc, cur = self._forcing_host(self.date)
+        self.frc = self._to_device(frc)
+        if cur is not None:
+            fp.refresh(*cur)
         # cold start and first-guess stress from the forcing as the model
         # holds it (model dtype), like the reference
         wind = {k: self.frc[k].cpu().numpy() for k in ("wswave", "wdwave")}
@@ -94,22 +99,27 @@ class FastWaveModel:
         self._phys_elapsed = 0.0
 
     # -- forcing (GETWND / NEWWIND) ---------------------------------------
-    def _forcing_host(self, date) -> dict:
-        """Provider fields → padded (n_pad,) float64 host arrays; U10 is
-        floored at WSPMIN (wamwnd.F90 CASE(3))."""
+    def _forcing_host(self, date):
+        """Provider fields → padded (n_pad,) float64 host arrays, and the
+        currents (ucur, vcur) the same way or None; U10 is floored at
+        WSPMIN (wamwnd.F90 CASE(3))."""
         raw = self.forcing_provider(format_date(date))
         keys = ["wswave", "wdwave", "aird", "wstar", "cicover"]
         if "cithick" in raw:
             keys.append("cithick")
-        if "ucur" in raw:
-            raise NotImplementedError("current forcing is not ported")
         out = {}
         for k in keys:
             v = np.asarray(raw[k], dtype=np.float64)
             if k == "wswave":
                 v = np.maximum(v, 1.0)
             out[k] = pad_point_field(self.setup, v)
-        return out
+        cur = None
+        if "ucur" in raw:
+            # as the model holds them (its dtype), like the reference
+            cur = tuple(np.asarray(torch.as_tensor(pad_point_field(
+                self.setup, np.asarray(raw[k], np.float64)),
+                dtype=self.setup.dtype), np.float64) for k in ("ucur", "vcur"))
+        return out, cur
 
     def _to_device(self, fields: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v), dtype=self.setup.dtype,
@@ -118,8 +128,13 @@ class FastWaveModel:
 
     def newwind(self, date):
         """Swap forcing in and cap TAUW where the new wind is weak
-        (newwind.F90:97-178): TAUW ≤ (ACD+BCD·U10)·U10³/WSPMIN_RESET_TAUW."""
-        self.frc = self._to_device(self._forcing_host(date))
+        (newwind.F90:97-178): TAUW ≤ (ACD+BCD·U10)·U10³/WSPMIN_RESET_TAUW.
+        New currents re-derive the refraction inputs (GETCURR →
+        LUPDTWGHT)."""
+        frc, cur = self._forcing_host(date)
+        self.frc = self._to_device(frc)
+        if cur is not None:
+            self.fp.refresh(*cur)
         self._frc6 = self.fp.frc_srl(self.frc)
         u10 = self._frc6[0]
         tlwmax = (1.0 / self.WSPMIN_RESET_TAUW) * (

@@ -1,7 +1,7 @@
 """Fused propagation + SRL-resident physics steps.
 
 Port of ``ecwam_tpu/model/fusedstep.py: FusedPropagation`` and
-``full_chunked_rows`` for irefra 0/1.  The spectrum lives in the
+``full_chunked_rows``.  The spectrum lives in the
 segmented row layout (SRL, :mod:`ecwam_tpu_torch.ops.propagation_fused`);
 each advection step refreshes the row-wrap slots and runs one all-band CTU
 pass plus the extra fast-wave sub-band passes (propag_wam.F90:247-313),
@@ -94,9 +94,6 @@ class FusedPropagation:
     device."""
 
     def __init__(self, setup, *, plain: bool = False):
-        if setup.irefra not in (0, 1):
-            raise NotImplementedError(f"irefra={setup.irefra}: current "
-                                      "refraction is not ported")
         self.setup = setup
         self.ft = ft = setup.fused
         self.plain = plain
@@ -127,32 +124,88 @@ class FusedPropagation:
         self.nsub = (max(1, round(setup.idelpro / setup.delpro_lf))
                      if setup.ifrelfmax > 0 else 1)
         self.mlf = setup.ifrelfmax
+        # with σ̇ frequency shifting the sub-band carries ONE extra
+        # frequency so that the m+1 coupling at the band edge sees the
+        # once-advected high-band value (propag_wam.F90:262-265 ND3EF1 =
+        # IFRELFMAX+1); the pass computes mlf_w frequencies and writes mlf
+        self.mlf_w = (self.mlf + 1 if setup.irefra in (2, 3) and self.mlf
+                      else self.mlf)
         self.lc_lo = None
         if self.nsub > 1:
             self.lc_lo = pcu.lane_tensors(
-                pfz.lane_consts(tb, np.full(self.mlf, setup.delpro_lf),
-                                self.mlf), dt, device)
+                pfz.lane_consts(tb, np.full(self.mlf_w, setup.delpro_lf),
+                                self.mlf_w), dt, device)
         self.tabs = tabs
         self.phys_tables = None
+        self.cfl_bad = None
         self.refresh()
 
-    # -- LUPDTWGHT ------------------------------------------------------
-    def refresh(self):
-        """Recompute the depth-refraction gradient rows (irefra=1,
-        propdot.F90:60-150 via GRADI)."""
+    # -- LUPDTWGHT / GETCURR --------------------------------------------
+    def refresh(self, ucur=None, vcur=None):
+        """Recompute the refraction inputs (propdot.F90:60-150 via GRADI):
+        the depth gradients (irefra 1/3) and, with currents (irefra 2/3),
+        the current field ``uv``, its gradients and ω·∂d (``omdd``,
+        irefra 3), then the CFL current retry.  ``ucur``/``vcur`` are
+        compact (n_pad,) arrays (GETCURR); None takes the setup's."""
         setup = self.setup
         if not setup.irefra:
             return
+        src = np.asarray(self.ft.srl_src)
         zeros = np.zeros(setup.n_pad + 1)
+        u_ext = v_ext = zeros
+        cur = setup.irefra in (2, 3)
+        if cur:
+            if ucur is not None:
+                u_ext, v_ext = (np.concatenate(
+                    [np.asarray(a, np.float64)[:setup.n_pad], [0.0]])
+                    for a in (ucur, vcur))
+            else:
+                u_ext, v_ext = (setup.env[k].cpu().numpy().astype(np.float64)
+                                for k in ("ucur_ext", "vcur_ext"))
+            self.tabs["uv"] = self._t(np.stack([u_ext[src], v_ext[src]], -1))
         g = prop.gradi(setup.stencil, self.setup.fused_env["depth_ext"],
-                       zeros, zeros, setup.irefra)
+                       u_ext, v_ext, setup.irefra)
+        dco = np.asarray(setup.stencil.cosphm1_pt, np.float64)
         grads = np.zeros((setup.n_pad + 1, 8))
         grads[:-1, 0] = g["ddphi"]
-        grads[:-1, 1] = g["ddlam"] * np.asarray(setup.stencil.cosphm1_pt,
-                                                np.float64)
-        self.tabs["grads"] = torch.as_tensor(
-            grads[np.asarray(self.ft.srl_src)], dtype=self.dtype,
-            device=self.device)
+        grads[:-1, 1] = g["ddlam"] * dco
+        if cur:
+            grads[:-1, 2] = g["duphi"]
+            grads[:-1, 3] = g["dvphi"]
+            grads[:-1, 4] = g["dulam"] * dco
+            grads[:-1, 5] = g["dvlam"] * dco
+            if setup.irefra == 3:
+                grads[:-1, 6] = (v_ext[:-1] * g["ddphi"]
+                                 + u_ext[:-1] * g["ddlam"] * dco)
+        self.tabs["grads"] = self._t(grads[src])
+        if cur:
+            # CFL current retry (ctuw.F90:114-123): drop the current terms
+            # wherever a pass with them would break the CFL condition,
+            # tested by kernel A (or the plain pass) on a zero spectrum
+            _, bad = self._pass(self._zero_srl(), self.nfre_red, self.lc,
+                                with_cfl=True)
+            self.cfl_bad = bad                 # SRL rows whose currents drop
+            self.tabs["grads"][:, 2:7] *= (~bad).to(self.dtype)[:, None]
+
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def _zero_srl(self):
+        return torch.zeros((self.ft.nsrl, self.L), dtype=self.dtype,
+                           device=self.device)
+
+    def cfl_diagnostics(self) -> dict:
+        """CHECKCFL equivalent (checkcfl.F90:74-210): the largest Courant
+        numbers of the east/west, north/south and total-outflow terms and
+        the count of violating points, from one pass on a zero spectrum.
+        With current refraction the offending current terms were already
+        zeroed by the CFL retry (LLCFLCUROFF), so what remains are genuine
+        reduce-IDELPRO errors."""
+        _, bad, (rx, ry, rs) = self._pass(self._zero_srl(), self.nfre_red,
+                                          self.lc, with_cfl="stats")
+        return dict(cfl_east_west=float(rx), cfl_north_south=float(ry),
+                    max_outflow=float(rs), n_violations=int(bad.sum()))
 
     # -- SRL-resident physics -------------------------------------------
     def build_phys_srl(self, frc, stress):
@@ -287,24 +340,25 @@ class FusedPropagation:
             out = torch.cat([out, fl1[:, self.nfre_red:]], dim=1)
         return out
 
-    def _pass(self, f_srl, nf, lc):
+    def _pass(self, f_srl, nf, lc, nw=None, with_cfl=False):
         fn = pcu.advect_plain if self.plain else pcu.advect
         return fn(f_srl, self.tabs, lc, nang=self.nang, nf=nf, S=self.ft.S,
-                  EW=self.ft.EW, irefra=self.setup.irefra)
+                  EW=self.ft.EW, irefra=self.setup.irefra, nw=nw,
+                  with_cfl=with_cfl)
 
     def _substeps(self, f_srl):
         """Main all-band pass + the extra fast-wave sub-band passes.
 
         The sub-band is the per-direction frequency prefix [:, :, :mlf]
-        (k-major lanes); the pass advects those lanes and carries the
-        others through.  Wraps are refreshed on all lanes before each
-        sub-band pass, so the wrap rows of the high band hold copies
-        rather than zeros afterwards; nothing reads them before the
+        (k-major lanes); the pass advects those lanes (computing mlf_w)
+        and carries the others through.  Wraps are refreshed on all lanes
+        before each sub-band pass, so the wrap rows of the high band hold
+        copies rather than zeros afterwards; nothing reads them before the
         next step's refresh."""
         f_srl = self._pass(f_srl, self.nfre_red, self.lc)
         for _ in range(self.nsub - 1):
             f_srl = pfz.refresh_wraps(f_srl, self.tabs)
-            f_srl = self._pass(f_srl, self.mlf, self.lc_lo)
+            f_srl = self._pass(f_srl, self.mlf_w, self.lc_lo, nw=self.mlf)
         return f_srl
 
 

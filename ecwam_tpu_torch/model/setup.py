@@ -94,10 +94,11 @@ def _pad_stencil(st: prop.StencilTables, n_real: int,
 
 
 def _env_tensors(props_ext: dict, depth_ext: np.ndarray, n_pad: int,
-                 dtype, device) -> dict:
+                 dtype, device, ucur_ext=None, vcur_ext=None) -> dict:
     """Env dict: ``<k>_ext`` (nfre, n_pad+1) tensors with ``<k>`` the
     (nfre, n_pad) view without the land slot, plus the per-point depth /
-    emaxdpt."""
+    emaxdpt and surface currents (zero without currents, land slot
+    zero)."""
     def t(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
     env = {}
@@ -108,6 +109,10 @@ def _env_tensors(props_ext: dict, depth_ext: np.ndarray, n_pad: int,
     env["depth"] = env["depth_ext"][:n_pad]
     env["emaxdpt_ext"] = t(dispersion.depth_limited_energy(depth_ext))
     env["emaxdpt"] = env["emaxdpt_ext"][:n_pad]
+    zeros = np.zeros(n_pad + 1)
+    for k, v in (("ucur", ucur_ext), ("vcur", vcur_ext)):
+        env[f"{k}_ext"] = t(zeros if v is None else v)
+        env[k] = env[f"{k}_ext"][:n_pad]
     return env
 
 
@@ -142,24 +147,35 @@ def build_model(
     irefra: int = 0,
     isnonlin: int = 1,
     icode_wnd: int = 3,
+    llgcbz0: bool = False,
+    llnormagam: bool = False,
+    llcapchnk: bool = False,
+    lciwa3: bool = False,
+    lciscal: bool = False,
     pad_to: int = 128,
     dtype: torch.dtype = torch.float32,
     obstructions=None,
+    currents: tuple | None = None,
     weights_mode: str = "fused",
     device: str | torch.device | None = None,
 ) -> ModelSetup:
     """Build a complete single-domain model for the fused SRL path.
 
     ``device`` names where the env tensors live: ``"cuda"`` (the
-    default, None) or ``"cpu"``; the numpy tables stay on the host.  Current refraction
-    (irefra 2/3) and the dense/OTF weight modes are not ported.
+    default, None) or ``"cpu"``; the numpy tables stay on the host.
+    ``currents``: optional (u, v) surface-current fields over the sea
+    points (n_real,), used when ``irefra`` ∈ {2, 3} (GETCURR).  The five
+    physics flags select ECMWF's cycle-49/50 options: the
+    gravity-capillary roughness closure (``llgcbz0``), normalised growth
+    (``llnormagam``), the capped Charnock parameter (``llcapchnk``), the
+    SDICE3 sea-ice attenuation (``lciwa3``) and the sea-ice scaling of the
+    sources (``lciscal``).  The dense/OTF weight modes are not ported.
     """
     if weights_mode != "fused":
         raise NotImplementedError(f"weights_mode={weights_mode!r}: only the "
                                   "fused SRL path is ported")
-    if irefra not in (0, 1):
-        raise NotImplementedError(f"irefra={irefra}: current refraction is "
-                                  "not ported")
+    if irefra not in (0, 1, 2, 3):
+        raise ValueError(f"irefra={irefra}")
     dev = resolve(device)
     if grid is None:
         if grid_name is None:
@@ -173,9 +189,12 @@ def build_model(
         raise ValueError("ifrelfmax must be < nfre_red (propag_wam.F90:257)")
 
     tb = build_spectral_tables(nang=nang, nfre=nfre, nfre_red=nfre_red)
-    params = pp.set_phys_params(iphys, nang=nang)
+    params = pp.set_phys_params(iphys, nang=nang, llgcbz0=llgcbz0,
+                                llnormagam=llnormagam, llcapchnk=llcapchnk)
     phys = impl.make_physics_config(tb, params, idelt, nfre_red=nfre_red,
-                                    isnonlin=isnonlin, icode_wnd=icode_wnd)
+                                    isnonlin=isnonlin, icode_wnd=icode_wnd,
+                                    lciwa3=lciwa3, lciscal=lciscal)
+    impl.check_ported(phys)
 
     # segment size scales with the typical row length (16..128)
     seg = 1 << max(4, min(7, int(np.log2(max(16, grid.ngx // 4)))))
@@ -191,13 +210,16 @@ def build_model(
     depth[n_real:] = blk.depth[0]
     depth_ext = np.concatenate([depth, [dispersion.BATHYMAX]])
     props_ext = dispersion.depth_properties(depth_ext, tb.fr)
+    uc, vc = np.zeros(n_pad + 1), np.zeros(n_pad + 1)
+    if currents is not None:
+        uc[:n_real], vc[:n_real] = currents[0], currents[1]
 
     return ModelSetup(
         grid=grid, blk=blk, tb=tb, phys=phys,
         stencil=_pad_stencil(st_real, n_real, n_pad),
         n_real=n_real, n_pad=n_pad, idelpro=idelpro, idelt=idelt,
         delpro_lf=delpro_lf or idelpro, ifrelfmax=ifrelfmax, irefra=irefra,
-        env=_env_tensors(props_ext, depth_ext, n_pad, dtype, dev),
+        env=_env_tensors(props_ext, depth_ext, n_pad, dtype, dev, uc, vc),
         dtype=dtype, device=dev, fused=ft,
         fused_env=_fused_env(ft, props_ext, depth_ext, nfre_red, irefra))
 
@@ -206,6 +228,7 @@ def setup_from_arrays(*, grid, blk, tb, params, stencil: dict, fused: dict,
                       env: dict, n_real: int, n_pad: int, idelpro: float,
                       idelt: float, delpro_lf: float, ifrelfmax: int,
                       irefra: int, isnonlin: int = 1, icode_wnd: int = 3,
+                      lciwa3: bool = False, lciscal: bool = False,
                       dtype: torch.dtype = torch.float32,
                       device: str | torch.device | None = None
                       ) -> ModelSetup:
@@ -213,24 +236,27 @@ def setup_from_arrays(*, grid, blk, tb, params, stencil: dict, fused: dict,
 
     ``stencil``/``fused`` are the field dicts of the (padded)
     StencilTables / FusedTables; ``env`` holds the ``<prop>_ext``
-    (nfre, n_pad+1) arrays and ``depth_ext`` — the reference
-    ModelSetup's layout.  Physics tables are rebuilt from ``tb`` and
-    ``params`` (pure numpy, identical in both packages)."""
-    if irefra not in (0, 1):
-        raise NotImplementedError(f"irefra={irefra} is not ported")
+    (nfre, n_pad+1) arrays, ``depth_ext`` and ``ucur_ext``/``vcur_ext``
+    — the reference ModelSetup's layout.  Physics tables are rebuilt from
+    ``tb`` and ``params`` (pure numpy, identical in both packages; the
+    gravity-capillary flags ride in ``params``)."""
     dev = resolve(device)
     ft = pfz.FusedTables(**fused)
     props_ext = {k: np.asarray(env[f"{k}_ext"], np.float64).T for k in PROPS}
     depth_ext = np.asarray(env["depth_ext"], np.float64)
     phys = impl.make_physics_config(tb, params, idelt,
                                     nfre_red=tb.nfre_red, isnonlin=isnonlin,
-                                    icode_wnd=icode_wnd)
+                                    icode_wnd=icode_wnd, lciwa3=lciwa3,
+                                    lciscal=lciscal)
+    impl.check_ported(phys)
+    cur = [np.asarray(env[k], np.float64) if k in env else None
+           for k in ("ucur_ext", "vcur_ext")]
     return ModelSetup(
         grid=grid, blk=blk, tb=tb, phys=phys,
         stencil=prop.StencilTables(**stencil), n_real=n_real, n_pad=n_pad,
         idelpro=idelpro, idelt=idelt, delpro_lf=delpro_lf,
         ifrelfmax=ifrelfmax, irefra=irefra,
-        env=_env_tensors(props_ext, depth_ext, n_pad, dtype, dev),
+        env=_env_tensors(props_ext, depth_ext, n_pad, dtype, dev, *cur),
         dtype=dtype, device=dev, fused=ft,
         fused_env=_fused_env(ft, props_ext, depth_ext, tb.nfre_red, irefra))
 

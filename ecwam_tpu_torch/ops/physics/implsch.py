@@ -7,9 +7,11 @@ version that the CUDA kernel of :mod:`.implsch_cuda` is held against.
 The chain: depth limit → means → 2×SINFLX → SDISSIP → SNONLIN → SDIWBK →
 SBOTTOM → implicit update with growth limiter → means → IMPHFTAIL →
 SETICE, and in full mode (the output dates) WNFLUXES and STOKESTRN.
-Ported for iphys=1 and isnonlin 0/1; iphys=0, isnonlin=2, the sea-ice
-source terms, LCISCAL and the gravity-capillary closure raise
-NotImplementedError.
+Ported for iphys=1 and isnonlin 0/1 with ECMWF's cycle-49/50 options:
+the gravity-capillary closure (LLGCBZ0, with HALPHAP on the first
+SINFLX call), LLNORMAGAM, LLCAPCHNK, LCISCAL and the SDICE3 sea-ice
+attenuation (LCIWA3).  iphys=0, isnonlin=2, SDICE1/2 and icode_wnd 1/2
+raise NotImplementedError (ROADMAP A4).
 
 Layout: fl1 (nang, nfre, npts).
 """
@@ -29,7 +31,9 @@ from ecwam_tpu_torch.ops.physics import airsea as airsea_mod
 from ecwam_tpu_torch.ops.physics import const
 from ecwam_tpu_torch.ops.physics import dia as dia_mod
 from ecwam_tpu_torch.ops.physics import fluxes as fluxes_mod
+from ecwam_tpu_torch.ops.physics import gc as gc_mod
 from ecwam_tpu_torch.ops.physics import means as means_mod
+from ecwam_tpu_torch.ops.physics import sdice as sdice_mod
 from ecwam_tpu_torch.ops.physics import sdissip as sdissip_mod
 from ecwam_tpu_torch.ops.physics import shallow as shallow_mod
 from ecwam_tpu_torch.ops.physics import sinput as sinput_mod
@@ -49,6 +53,19 @@ def derive_stokfac(wavnum, depth, tb):
     akd_s = torch.clamp(akd, max=10.0)
     sh = 2.0 * c.G * wavnum**2 / (om * torch.tanh(2.0 * akd_s))
     dp = (2.0 / c.G) * om**3
+    return torch.where(akd <= 10.0, sh, dp)
+
+
+def derive_cgroup(wavnum, depth, tb):
+    """Group speed from (k, d) (the formulas of core.dispersion); only the
+    sea-ice attenuation consumes it, so the kernel's env need not store
+    it."""
+    om = const(tb.zpifr, wavnum)[:, None]
+    akd = wavnum * depth[None, :]
+    akd_s = torch.clamp(akd, max=10.0)
+    sh = 0.5 * torch.sqrt(c.G * torch.tanh(akd_s) / wavnum) * (
+        1.0 + 2.0 * akd_s / torch.sinh(2.0 * akd_s))
+    dp = (c.G / (4.0 * c.PI)) / (om / c.ZPI)
     return torch.where(akd <= 10.0, sh, dp)
 
 
@@ -102,22 +119,31 @@ def check_ported(cfg: PhysicsConfig) -> None:
     missing = [name for name, on in (
         ("iphys=0", p.iphys != 1),
         ("isnonlin=2", cfg.isnonlin not in (0, 1)),
-        ("llgcbz0/llnormagam/llcapchnk",
-         p.llgcbz0 or p.llnormagam or p.llcapchnk),
-        ("lciscal", cfg.lciscal),
-        ("sea-ice attenuation (lciwa1/2/3)",
-         cfg.lciwa1 or cfg.lciwa2 or cfg.lciwa3),
+        ("sea-ice attenuation lciwa1/lciwa2", cfg.lciwa1 or cfg.lciwa2),
         ("icode_wnd 1/2", cfg.icode_wnd != 3)) if on]
     if missing:
-        raise NotImplementedError("not ported: " + ", ".join(missing))
+        raise NotImplementedError("not ported (ROADMAP A4): "
+                                  + ", ".join(missing))
+
+
+def growth_factor(wswave, params: pp.PhysParams):
+    """RNFAC, the wind-dependent growth factor of LLNORMAGAM with
+    LLCAPCHNK (sinflx.F90:92-98); 1 otherwise."""
+    if params.llnormagam and params.llcapchnk:
+        return 1.0 + params.dthrn_a * (
+            1.0 + torch.tanh(wswave - params.dthrn_u))
+    return torch.ones_like(wswave)
 
 
 def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
-           ufric, tauw, tauwdir, z0m, z0b, chrnck):
+           halp, ufric, tauw, tauwdir, z0m, z0b, chrnck):
     """One stress/input iteration (sinflx.F90:190-260).
 
     Returns dict with updated fl1 (tail floor applied on call 1), stress
-    state, input source arrays and the prognostic cut.
+    state, input source arrays, the prognostic cut and, under LLGCBZ0,
+    ``halp`` (HALPHAP, taken on call 1 and kept) and ``gc_margin`` (the
+    closure's decision margin, :func:`.airsea.taut_z0_gc`, and the
+    distance of the TAU_PHI_HF cut-off index from its step).
     """
     params = cfg.params
     tb = cfg.tables
@@ -125,16 +151,22 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
     th = const(tb.th, fl1)[:, None]
     coswdif = torch.cos(th - frc["wdwave"][None, :])
     sinwdif2 = torch.sin(th - frc["wdwave"][None, :]) ** 2
-    rnfac = torch.ones_like(frc["wswave"])
+    rnfac = growth_factor(frc["wswave"], params)
 
     if icall == 1:
         # raise the tail noise floor (sinflx.F90:112-115)
         fl1 = torch.cat([fl1[:, :-1, :],
                          torch.maximum(fl1[:, -1:, :], flm[:, None, :])],
                         dim=1)
-    _, ufric, z0m, z0b, chrnck = airsea_mod.airsea(
+        if params.llgcbz0:
+            halp = gc_mod.halphap(fl1, env["wavnum"], coswdif, tb, params)
+    _, ufric, z0m, z0b, chrnck, gc_margin = airsea_mod.airsea(
         frc["wswave"], frc["wdwave"], tauw, tauwdir, ufric, params,
-        icode_wnd=cfg.icode_wnd, iusfg=0 if icall == 1 else 1)
+        icode_wnd=cfg.icode_wnd, iusfg=0 if icall == 1 else 1, halp=halp,
+        rnfac=rnfac, with_margin=True)
+    if params.llgcbz0:
+        gc_margin = torch.minimum(
+            gc_margin, gc_mod.ns_gc_tie(ufric, gc_mod.gc_tables()))
 
     ngst = 1 if icall < ncall else 2
     llsneg = icall >= ncall
@@ -159,7 +191,7 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
         z0m=z0m, z0b=z0b, chrnck=chrnck,
         fld=fld, sl=sl, spos=spos, xllws=xllws, xllws_margin=margin,
         mij=mij, rhowgdfth=rhowgdfth, fmeanws=fmeanws, phiwa=phiwa,
-        frcut=frcut,
+        frcut=frcut, halp=halp, gc_margin=gc_margin,
         coswdif=coswdif, raorw=raorw)
 
 
@@ -195,11 +227,14 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         FLMIN * torch.clamp(coswdif, min=0.0) ** 2        # (nang, npts)
 
     st = None
-    ties = []
+    ties, gc_margins = [], []
+    halp = torch.zeros_like(fmean)
     for icall in (1, 2):
-        st = sinflx(icall, 2, cfg, fl1, env, frc, flm, fmean,
+        st = sinflx(icall, 2, cfg, fl1, env, frc, flm, fmean, halp,
                     ufric, tauw, tauwdir, z0m, z0b, chrnck)
         ties.append((st["frcut"] - torch.floor(st["frcut"]) - 0.5).abs())
+        gc_margins.append(st["gc_margin"])
+        halp = st["halp"]
         fl1, ufric, tauw, tauwdir = (
             st["fl1"], st["ufric"], st["tauw"], st["tauwdir"])
         z0m, z0b, chrnck = st["z0m"], st["z0b"], st["chrnck"]
@@ -221,6 +256,20 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
     fld, sl = shallow_mod.sdiwbk(
         fl1, fld, sl, env["depth"], env["emaxdpt"], emean, f1mean,
         cfg.nfre_red, lbiwbk=cfg.lbiwbk)
+    if cfg.licerun and cfg.lciscal:
+        # the sources scale with the open-water fraction (implsch.F90)
+        beta = (1.0 - frc["cicover"])[None, None, :]
+        sl = beta * sl
+        fld = beta * fld
+    if cfg.licerun and (cfg.lciwa1 or cfg.lciwa2 or cfg.lciwa3):
+        cithick = frc.get("cithick", torch.zeros_like(frc["cicover"]))
+        cgroup = env.get("cgroup")
+        if cgroup is None:
+            cgroup = derive_cgroup(env["wavnum"], env["depth"], tb)
+        fld, sl, _ = sdice_mod.sdice(
+            fl1, fld, sl, env["wavnum"], cgroup, frc["cicover"], cithick,
+            tb, cfg.idelt, lciwa1=cfg.lciwa1, lciwa2=cfg.lciwa2,
+            lciwa3=cfg.lciwa3)
     fld, sl = shallow_mod.sbottom(
         fl1, fld, sl, env["wavnum"], env["depth"], cfg.nfre_red)
 
@@ -270,6 +319,8 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         wsemean=wsemean, wsfmean=wsfmean, frcut_tie=torch.minimum(*ties),
         xllws_margin=xllws_margin,
         **flux_diag)
+    if cfg.params.llgcbz0:
+        state["gc_margin"] = torch.minimum(*gc_margins)
     if cfg.lstokes:
         cithick = frc.get("cithick", torch.zeros_like(frc["cicover"]))
         stokfac = env.get("stokfac")

@@ -21,6 +21,11 @@ Layouts (point index fastest in every row block, no lane pad):
 Minimal mode returns the 6 STRESS_KEYS rows; full mode (the output-date
 diagnostics, ``cfg`` with lcflx and lstokes) the 30 SCAL_OUT_FULL rows and
 the windsea mask xllws (nang, nfre, n) as float 0/1.
+
+ECMWF's cycle-49/50 physics options (the gravity-capillary closure
+LLGCBZ0 with HALPHAP, LLNORMAGAM, LLCAPCHNK, LCISCAL and the SDICE3
+sea-ice attenuation LCIWA3) run in a separate instantiation of the kernel
+(``OPTS``), so the default configuration's code is untouched by them.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from ecwam_tpu_torch.ops.physics import tables
 from ecwam_tpu_torch import _build
 from ecwam_tpu_torch.ops.physics import dia as dia_mod
 from ecwam_tpu_torch.ops.physics import fluxes as fluxes_mod
+from ecwam_tpu_torch.ops.physics import gc as gc_mod
 from ecwam_tpu_torch.ops.physics import implsch as impl
+from ecwam_tpu_torch.ops.physics import sdice as sdice_mod
 from ecwam_tpu_torch.ops.physics import sdissip as sdissip_mod
 from ecwam_tpu_torch.ops.physics import stokes as stokes_mod
 from ecwam_tpu_torch.ops.physics.airsea import EPS1, WSPMIN_DEFAULT
@@ -89,7 +96,21 @@ PAR_NAMES = (
     "efd_min", "efd_max", "cdb_c1", "cdb_c2", "cdb_p1", "cdb_p2", "cdb_max",
     "epsu10", "epsus3", "tauocmin", "tauocmax", "phiepsmin", "phiepsmax",
     "phioc_ice", "phiaw_ice", "twog", "twogm1", "stokes_c", "stmax",
-    "cithrsh_stokes")
+    "cithrsh_stokes",
+    # the cycle-49/50 options
+    "alpha", "chnkmin_u", "ang_gc_a", "ang_gc_b", "ang_gc_c", "bmaxokap",
+    "rn1_rn", "dthrn_a", "dthrn_u", "gamnconst", "alphapmax", "xnlev",
+    "rnukappam1", "sqrtgosurft", "xkm0", "xlogkratiom1", "acdlin", "bcdlin",
+    "alphamax", "constn", "cdice2", "logfr_last", "fr_nm3", "halp_tail",
+    "g4pi")
+
+# option bits of the kernel's ``opts`` argument, in the order of
+# csrc/implsch.cu's Opt enum
+OPT_FLAGS = ("llgcbz0", "llnormagam", "llcapchnk", "lciwa3", "lciscal")
+# gravity-capillary tables the kernel reads, NWAV values each, in the
+# order of csrc/implsch.cu's GcTab enum
+GC_TABLES = ("logxk", "cm", "om3gmkm", "xkmsqrtvgoc2", "delkcc_omxkm3",
+             "c2osqrtvg", "dns_omxkm3", "omega")
 
 
 def minimal_config(cfg: impl.PhysicsConfig) -> impl.PhysicsConfig:
@@ -116,6 +137,14 @@ def pack_scal_out(state: dict, *, full: bool):
     like = state["ufric"]
     return torch.stack([state[k].to(like.dtype) if k in state
                         else torch.zeros_like(like) for k in keys])
+
+
+def option_bits(cfg: impl.PhysicsConfig) -> int:
+    """The ``opts`` bit mask of the configuration's cycle-49/50 options
+    (OPT_FLAGS order); 0 runs the default instantiation."""
+    p = cfg.params
+    on = (p.llgcbz0, p.llnormagam, p.llcapchnk, cfg.lciwa3, cfg.lciscal)
+    return sum(1 << i for i, v in enumerate(on) if v)
 
 
 def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False) -> None:
@@ -179,8 +208,28 @@ def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
         phiepsmax=c.PHIEPSMAX, phioc_ice=fluxes_mod.PHIOC_ICE,
         phiaw_ice=fluxes_mod.PHIAW_ICE, twog=2.0 * c.G, twogm1=2.0 / c.G,
         stokes_c=stokes_mod.stokes_const(tb), stmax=stokes_mod.STMAX,
-        cithrsh_stokes=0.3, **fluxes_mod.ice_constants(p))
+        cithrsh_stokes=0.3, **fluxes_mod.ice_constants(p),
+        alpha=p.alpha, chnkmin_u=p.chnkmin_u, ang_gc_a=p.ang_gc_a,
+        ang_gc_b=p.ang_gc_b, ang_gc_c=p.ang_gc_c, bmaxokap=p.bmaxokap,
+        rn1_rn=p.rn1_rn, dthrn_a=p.dthrn_a, dthrn_u=p.dthrn_u,
+        gamnconst=p.gamnconst(), alphapmax=p.alphapmax, xnlev=pp.XNLEV,
+        rnukappam1=0.04 * pp.RNU / pp.XKAPPA, sqrtgosurft=c.SQRTGOSURFT,
+        xkm0=gc_mod.gc_tables().xkm[0], xlogkratiom1=gc_mod.XLOGKRATIOM1_GC,
+        acdlin=c.ACDLIN, bcdlin=c.BCDLIN, alphamax=pp.ALPHAMAX,
+        constn=tb.delth / (pp.XKAPPA * c.ZPI), cdice2=2.0 * sdice_mod.CDICE,
+        logfr_last=math.log(fr[-1]), fr_nm3=fr[tb.nfre - 3],
+        halp_tail=c.ZPI4GM2 * fr[-1] ** 5, g4pi=c.G / (4.0 * c.PI))
     return np.array([v[k] for k in PAR_NAMES], np.float64)
+
+
+def _gc_block() -> np.ndarray:
+    """The GC_TABLES rows (len(GC_TABLES), NWAV), float64."""
+    g = gc_mod.gc_tables()
+    rows = dict(logxk=np.log(g.xk), cm=g.cm, om3gmkm=g.om3gmkm,
+                xkmsqrtvgoc2=g.xkmsqrtvgoc2, delkcc_omxkm3=g.delkcc_omxkm3,
+                c2osqrtvg=g.c2osqrtvg, dns_omxkm3=g.delkcc_ns * g.omxkm3,
+                omega=g.omega)
+    return np.stack([rows[k] for k in GC_TABLES])
 
 
 def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
@@ -193,13 +242,14 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
     swellft = tables.tabu_swellft()
     ftabs = [tb.fr, tb.dfim, tb.dfimofr, tb.dfimfr, tb.zpifr, tb.fr5,
              tb.cofrm4, tb.rhowg_dfim, impl._flmax(tb, cfg.params),
-             tb.dfim_sim]
+             tb.dfim_sim, np.asarray(tb.fr) ** 4.5]
     wmat = sdissip_mod.saturation_matrix(tb.nang, cfg.sat_indices,
                                          cfg.sat_weights)
     ftab = np.concatenate(
         [_parameters(cfg)] + [np.asarray(a, np.float64) for a in ftabs]
         + [tb.th, tb.sinth, tb.costh, wmat.reshape(-1), swellft,
-           np.asarray(cfg.wtauhf, np.float64), dia.af11,
+           np.asarray(cfg.wtauhf, np.float64), _gc_block().reshape(-1),
+           dia.af11,
            np.asarray(dia.rnl, np.float64).reshape(-1),
            dia_mod.enhancement_xk(dia, tb)])
     shifts = dia_mod.build_dia_projection(dia).shifts
@@ -209,7 +259,8 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
     return dict(
         tab=torch.as_tensor(ftab.astype(np.float32), device=device),
         itab=torch.as_tensor(itab.astype(np.int32), device=device),
-        mlsthg=int(dia.mlsthg), niab=int(swellft.shape[0]))
+        mlsthg=int(dia.mlsthg), niab=int(swellft.shape[0]),
+        nwav=int(gc_mod.gc_tables().nwav), opts=option_bits(cfg))
 
 
 
@@ -280,6 +331,16 @@ def frcut_tie(cfg, f_srl, env2d, scal, tail, *, nang: int, nfre_red: int):
     return impl.implsch(cfg, fl, env, frc, *stress)[1]["frcut_tie"]
 
 
+def gc_margin(cfg, f_srl, env2d, scal, tail, *, nang: int, nfre_red: int):
+    """Per SRL row, the plain chain's decision margin of the
+    gravity-capillary closure (``gc_margin`` of :func:`.implsch.implsch`;
+    +inf without LLGCBZ0)."""
+    fl, env, frc, stress = srl_inputs(cfg, f_srl, env2d, scal, tail,
+                                      nang=nang, nfre_red=nfre_red)
+    st = impl.implsch(cfg, fl, env, frc, *stress)[1]
+    return st.get("gc_margin", torch.full_like(st["ufric"], torch.inf))
+
+
 def xllws_margin(cfg, fl1, env2d, scal):
     """Per bin of the compact (nang, nfre, n) spectrum, the plain chain's
     signed distance of the windsea-mask test from its edge
@@ -310,7 +371,7 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_long] * 2 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -328,6 +389,8 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
         tables_dev = pack_tables(cfg, dev)
     if tables_dev["tab"].device != dev:
         raise ValueError("physics tables on another device")
+    if tables_dev["opts"] != option_bits(cfg):
+        raise ValueError("physics tables packed for other options")
     keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
     out = torch.empty((len(keys), nrows), dtype=torch.float32, device=dev)
     xllws = (torch.empty((nang, nfre, nrows), dtype=torch.float32,
@@ -341,7 +404,8 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
             xllws.data_ptr() if full else None,
             tables_dev["tab"].data_ptr(), tables_dev["itab"].data_ptr(),
             nrows, nang, nfre, nfr, cfg.nfre_red, tables_dev["mlsthg"],
-            tables_dev["niab"], torch.cuda.current_stream(dev).cuda_stream)
+            tables_dev["niab"], tables_dev["nwav"], tables_dev["opts"],
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"implsch kernel launch failed: CUDA error {err}")
     return out, xllws

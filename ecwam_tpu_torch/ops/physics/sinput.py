@@ -3,8 +3,8 @@
 Port of ``ecwam_tpu/ops/physics/sinput.py: sinput_ard``
 (sinput_ard.F90:88-434): positive input with gustiness averaging,
 tail-stress sheltering carried low→high frequency by a sequential
-frequency loop, and the negative (swell damping) part.  The Janssen
-input (iphys=0) is not ported yet.
+frequency loop, the LLNORMAGAM growth normalisation, and the negative
+(swell damping) part.  The Janssen input (iphys=0) is not ported yet.
 
 Layout: fl1 (nang, nfre, npts); per-frequency env (nfre, npts); scalars
 (npts,).  Returns (fld, sl, spos, xllws, margin) with fld = ∂S/∂F
@@ -44,8 +44,6 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
                tb, params: pp.PhysParams,
                *, ngst: int = 2, llsneg: bool = True):
     """Ardhuin wind input (sinput_ard.F90:88-434)."""
-    if params.llnormagam:
-        raise NotImplementedError("LLNORMAGAM is not ported")
     nang, nfre, npts = fl1.shape
     sinth = const(tb.sinth, fl1)[:, None]
     costh = const(tb.costh, fl1)[:, None]
@@ -54,6 +52,8 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
 
     avg_gst = 1.0 / ngst
     const1 = params.betamaxoxkappa2
+    constn = tb.delth / (pp.XKAPPA * c.ZPI)
+    cstrnfac = constn * rnfac / raorw if params.llnormagam else None
     abs_tauwshelter = abs(params.tauwshelter)
     ltauwshelter = abs_tauwshelter != 0.0
 
@@ -158,6 +158,13 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
             xllws_m = torch.maximum(xllws_m, active.to(fl1.dtype))
             margin_m = torch.maximum(margin_m,
                                      torch.minimum(coslp - 0.01, -zlog))
+            if params.llnormagam:
+                # normalised growth (sinput_ard.F90:352-366)
+                sumf = torch.sum(gam0 * fl1_m, dim=0)
+                sumfsin2 = torch.sum(gam0 * fl1_m * sinwdif2, dim=0)
+                znz = cstrnfac * xk2cg[m] * um1
+                gam0 = gam0 * ((1.0 + znz * sumfsin2)
+                               / (1.0 + znz * sumf))[None, :]
 
             if llsneg:
                 dstab2 = temp1[None, :] * (

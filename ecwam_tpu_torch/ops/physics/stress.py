@@ -1,8 +1,9 @@
 """Wave-supported stress: prognostic-range cut, tail stress, total wave stress.
 
 Port of ``ecwam_tpu/ops/physics/stress.py``: FRCUTINDEX
-(frcutindex.F90:64-108), TAU_PHI_HF (tau_phi_hf.F90:73-255, the
-non-LLGCBZ0 path) and STRESSO (stresso.F90:63-160).
+(frcutindex.F90:64-108), TAU_PHI_HF (tau_phi_hf.F90:73-255, with the
+LLGCBZ0 cut-off and the LLNORMAGAM normalisation) and STRESSO
+(stresso.F90:63-160).
 
 Layout: fl1 (nang, nfre, npts); mij is the 0-based cut index (npts,) int64.
 """
@@ -16,6 +17,7 @@ from ecwam_tpu_torch.core import physparams as pp
 from ecwam_tpu_torch.core import spectral as sp
 from ecwam_tpu_torch.ops.physics import tables
 from ecwam_tpu_torch.ops.physics import const
+from ecwam_tpu_torch.ops.physics import gc as gc_mod
 from ecwam_tpu_torch.ops.physics.airsea import EPS1
 
 CITHRSH_TAIL = 0.3        # LMASKICE=T default (userin.F90:958-961)
@@ -63,13 +65,13 @@ def tau_phi_hf(mij, ufric, z0m, fl1, aird, rnfac, coswdif, sinwdif2,
                *, x0tauhf: float, wtauhf, ltauwshelter: bool,
                llphiwa: bool = True):
     """High-frequency stress TAUHF and energy flux PHIHF
-    (tau_phi_hf.F90:73-255, non-LLGCBZ0 path: zsup = log(1) = 0).
+    (tau_phi_hf.F90:73-255).  Under LLGCBZ0 the TAUHF integral stops at
+    the gravity-capillary cut-off (zsup = log(ω_gc·√(z0/g)), at most 0);
+    PHIHF always integrates up to log 1 = 0.
 
     ``ust`` is the (possibly sheltered) friction velocity input; returns
     (tauhf, phihf, ust_out) where ust_out is the tail-sheltered u*.
     """
-    if params.llgcbz0 or params.llnormagam:
-        raise NotImplementedError("LLGCBZ0/LLNORMAGAM are not ported")
     jtot = tables.JTOT_TAUHF
     wtauhf = [float(w) for w in wtauhf]
     x0g = x0tauhf * c.G
@@ -82,6 +84,13 @@ def tau_phi_hf(mij, ufric, z0m, fl1, aird, rnfac, coswdif, sinwdif2,
     sqrtz0og = torch.sqrt(z0m * c.GM1)
     sqrtgz0 = 1.0 / sqrtz0og
     zinf = torch.log(omegacc * sqrtz0og)
+    if params.llgcbz0:
+        # TAUHF stops at the gravity-capillary cut-off
+        # (tau_phi_hf.F90:125-127, 190-193)
+        _, _, oms = gc_mod.omegagc(ufric, gc_mod.gc_tables())
+        zsup = torch.clamp(torch.log(oms * sqrtz0og), max=0.0)
+    else:
+        zsup = torch.zeros_like(zinf)                  # log(1)
     consttau = c.ZPI4GM2 * fr5_mij
 
     # direction sums at the cut frequency (tau_phi_hf.F90:97-125)
@@ -92,10 +101,20 @@ def tau_phi_hf(mij, ufric, z0m, fl1, aird, rnfac, coswdif, sinwdif2,
     f1dcos3 = tb.delth * torch.sum(fcosw2 * cosw, dim=0)
     f1dcos2 = tb.delth * torch.sum(fcosw2, dim=0)
 
-    delz = torch.clamp((0.0 - zinf) / (jtot - 1), min=0.0)
+    if params.llnormagam:
+        f1dsin2 = tb.delth * torch.sum(fl1_mij * sinwdif2, dim=0)
+        f1d = tb.delth * torch.sum(fl1_mij, dim=0)
+        confg = params.gamnconst() * fr5_mij * rnfac * sqrtgz0
+        const1 = confg * f1dsin2
+        const2 = confg * f1d
+    else:
+        const1 = const2 = torch.zeros_like(ust)
 
-    def zbeta_at(j, u):
-        y = torch.exp(zinf + j * delz)
+    delz = torch.clamp((zsup - zinf) / (jtot - 1), min=0.0)
+    delz_phi = torch.clamp((0.0 - zinf) / (jtot - 1), min=0.0)
+
+    def zbeta_at(j, u, dz):
+        y = torch.exp(zinf + j * dz)
         omega = y * sqrtgz0
         cm1 = omega * c.GM1
         zx = u * cm1 + params.zalp
@@ -103,35 +122,39 @@ def tau_phi_hf(mij, ufric, z0m, fl1, aird, rnfac, coswdif, sinwdif2,
                            max=0.0)
         return zlog**4 * torch.exp(zlog), y
 
+    def gamnorma(zbeta, u, y):
+        znz = zbeta * u * y
+        return (1.0 + const1 * znz) / (1.0 + const2 * znz)
+
     taul0 = ust**2
     if ltauwshelter:
         taul, ust_out, tauhf = taul0, ust, torch.zeros_like(ust)
         for j in range(jtot):
-            zbeta, _ = zbeta_at(j, ust_out)
-            fnc2 = f1dcos3 * consttau * zbeta * taul * wtauhf[j] * delz
+            zbeta, y = zbeta_at(j, ust_out, delz)
+            fnc2 = (f1dcos3 * consttau * zbeta * taul * wtauhf[j] * delz
+                    * gamnorma(zbeta, ust_out, y))
             taul = torch.clamp(taul - params.tauwshelter * fnc2, min=0.0)
             ust_out = torch.sqrt(taul)
             tauhf = tauhf + fnc2
     else:
         acc = torch.zeros_like(ust)
         for j in range(jtot):
-            zbeta, _ = zbeta_at(j, ust)
-            acc = acc + zbeta * wtauhf[j]
+            zbeta, y = zbeta_at(j, ust, delz)
+            acc = acc + zbeta * wtauhf[j] * gamnorma(zbeta, ust, y)
         tauhf = f1dcos3 * consttau * taul0 * acc * delz
         ust_out = ust
 
     phihf = torch.zeros_like(ust)
     if llphiwa:
         constphi = aird * c.ZPI4GM1 * fr5_mij
-        # PHIHF always integrates the full range up to log(1)=0
-        # (tau_phi_hf.F90:251-254); fresh integration from the
-        # unsheltered ust
+        # fresh integration from the unsheltered ust
         acc = torch.zeros_like(ust)
         if ltauwshelter:
             taul, ustph = ust**2, ust
             for j in range(jtot):
-                zbeta, y = zbeta_at(j, ustph)
-                fnc2 = zbeta * taul * wtauhf[j] * delz
+                zbeta, y = zbeta_at(j, ustph, delz_phi)
+                fnc2 = (zbeta * taul * wtauhf[j] * delz_phi
+                        * gamnorma(zbeta, ust_out, y))
                 taul = torch.clamp(
                     taul - params.tauwshelter * f1dcos3 * consttau * fnc2,
                     min=0.0)
@@ -140,9 +163,9 @@ def tau_phi_hf(mij, ufric, z0m, fl1, aird, rnfac, coswdif, sinwdif2,
             phihf = f1dcos2 * constphi * sqrtz0og * acc
         else:
             for j in range(jtot):
-                zbeta, y = zbeta_at(j, ust)
-                acc = acc + zbeta * wtauhf[j] / y
-            phihf = f1dcos2 * constphi * sqrtz0og * ust**2 * acc * delz
+                zbeta, y = zbeta_at(j, ust, delz_phi)
+                acc = acc + zbeta * wtauhf[j] * gamnorma(zbeta, ust, y) / y
+            phihf = f1dcos2 * constphi * sqrtz0og * ust**2 * acc * delz_phi
     return tauhf, phihf, ust_out
 
 
@@ -196,7 +219,8 @@ def stresso(fl1, sl, spos, cinv, mij, rhowgdfth,
     ystress = ystress + tauhf * torch.cos(usdirp)
     tauw = torch.sqrt(xstress**2 + ystress**2)
     tauwdir = torch.atan2(xstress, ystress)
-    tauw = torch.minimum(tauw, ufric**2 / (1.0 + EPS1))
+    if not params.llgcbz0:
+        tauw = torch.minimum(tauw, ufric**2 / (1.0 + EPS1))
     if llphiwa:
         phiwa = phiwa + phihf
     return tauw, tauwdir, phiwa

@@ -9,8 +9,14 @@ Semantics shared by both: ``f_in`` is (nsrl, nang·nft) with k-major
 lanes ``k·nft + m``; lanes with ``m < nf`` get one CTU pass (wrap slots
 must be current, rows outside the body and invalid rows come out zero),
 lanes with ``m >= nf`` are copied through — so a fast-wave sub-band
-pass (nf = ifrelfmax) needs no gather/scatter around it.  irefra 0 and
-1 only; current refraction is not ported.
+pass (nf = ifrelfmax) needs no gather/scatter around it.  With current
+refraction (irefra 2/3) the σ̇ frequency shift couples each lane to its
+neighbours m±1, so a sub-band pass computes ``nf`` = ifrelfmax+1
+frequencies (the lane constants and the band-edge clamp) and writes only
+the first ``nw``; lanes from ``nw`` up are copied through.  ``with_cfl``
+also returns the per-row CFL-violation mask of the pass (ctuw.F90:
+238-300) and, as ``"stats"``, the largest east/west, north/south and
+outflow Courant numbers over the valid rows (CHECKCFL).
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from ecwam_tpu_torch.ops import propagation_fused as pfz
 
 # lane-constant rows the kernel reads, in the order of csrc/advect.cu's Lc
 LC_ROWS = ("s", "cth", "east", "north", "dt", "sp", "sm", "sd_p", "cd_p",
-           "sd_m", "cd_m")
+           "sd_m", "cd_m", "ss_p", "sc_p", "cc_p", "ss_m", "sc_m", "cc_m",
+           "nf_sc", "nf_cc", "nf_ss", "dfp", "dfm")
 CMTODEG = 360.0 / c.CIRC
 
 _F32_TABLES = ("cg_srl", "cg_land", "taps_dn", "taps_up", "sea_own",
@@ -35,32 +42,35 @@ _F32_TABLES = ("cg_srl", "cg_land", "taps_dn", "taps_up", "sea_own",
 
 def lane_tensors(lc_np: dict, dtype, device) -> dict:
     """Lane constants (numpy, from :func:`propagation_fused.lane_consts`)
-    as tensors, plus ``rows``: the (len(LC_ROWS), L) block the kernel
-    reads."""
-    out = {k: torch.as_tensor(v, dtype=dtype, device=device)
-           for k, v in lc_np.items() if isinstance(v, np.ndarray)}
+    as tensors, ``fratio`` as a float, plus ``rows``: the
+    (len(LC_ROWS), L) block the kernel reads."""
+    out = {k: (torch.as_tensor(v, dtype=dtype, device=device)
+               if isinstance(v, np.ndarray) else v)
+           for k, v in lc_np.items()}
     out["rows"] = torch.stack([out[k] for k in LC_ROWS]).contiguous()
     return out
 
 
 def advect_plain(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
-                 irefra: int):
+                 irefra: int, nw: int | None = None, with_cfl=False):
     """Plain PyTorch pass with the semantics of :func:`advect`."""
     nsrl, lw = f_in.shape
     nft = lw // nang
+    nw = nf if nw is None else nw
     dev = dict(tabs, obs=tabs["obs"][:, :, :nf])
     if "pf" in tabs:
         dev["pf"] = tabs["pf"][:, :, :nf]
     f3 = f_in.reshape(nsrl, nang, nft)
-    out = pfz.advect_xla(
+    res = pfz.advect_xla(
         f3[:, :, :nf].reshape(nsrl, nang * nf), tabs["cg_srl"][:, :nf], dev,
         lc, tabs["cg_land"][:nf], nang=nang, nfre=nf, irefra=irefra, S=S,
-        EW=EW)
-    if nf == nft:
-        return out
-    res = f3.clone()
-    res[:, :, :nf] = out.reshape(nsrl, nang, nf)
-    return res.reshape(nsrl, lw)
+        EW=EW, with_cfl=with_cfl)
+    out = res[0] if with_cfl else res
+    if nw < nft:
+        full = f3.clone()
+        full[:, :, :nw] = out.reshape(nsrl, nang, nf)[:, :, :nw]
+        out = full.reshape(nsrl, lw)
+    return (out,) + tuple(res[1:]) if with_cfl else out
 
 
 def _check(name, t, shape, dtype, device):
@@ -79,31 +89,36 @@ def _lib():
     lib = _build.load("advect")
     fn = lib.advect_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def advect(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
-           irefra: int):
+           irefra: int, nw: int | None = None, with_cfl=False):
     """One CTU pass (see the module docstring).  ``tabs`` holds the SRL
     tables (``propagation_fused.device_tables`` plus cg_srl, cg_land and,
-    for irefra=1, grads and pf); ``lc`` the lane tensors of
-    :func:`lane_tensors` for ``nf`` frequencies.  Returns a new tensor."""
+    for irefra ≥ 1, grads and pf, and for irefra 2/3 uv); ``lc`` the lane
+    tensors of :func:`lane_tensors` for ``nf`` frequencies; ``nw`` (≤ nf,
+    default nf) the frequencies written.  Returns a new tensor, or with
+    ``with_cfl`` (out, cfl mask (nsrl,) bool) and, for ``"stats"``, the
+    three largest Courant numbers as 0-d tensors."""
     if f_in.device.type == "cpu":
         return advect_plain(f_in, tabs, lc, nang=nang, nf=nf, S=S, EW=EW,
-                            irefra=irefra)
+                            irefra=irefra, nw=nw, with_cfl=with_cfl)
     if f_in.device.type != "cuda":
         raise ValueError(f"no advection kernel for device {f_in.device}")
-    if irefra not in (0, 1):
-        raise NotImplementedError(f"irefra={irefra} is not ported")
+    if irefra not in (0, 1, 2, 3):
+        raise ValueError(f"irefra={irefra}")
     nsrl, lw = f_in.shape
     nft = lw // nang
+    nw = nf if nw is None else nw
     dev, f32 = f_in.device, torch.float32
-    if lw != nang * nft or not 1 <= nf <= nft or nsrl % S or nsrl < 3 * S:
+    if (lw != nang * nft or not 1 <= nw <= nf <= nft or nsrl % S
+            or nsrl < 3 * S):
         raise ValueError(f"bad advection shape {tuple(f_in.shape)} "
-                         f"(nang={nang}, nf={nf}, S={S})")
+                         f"(nang={nang}, nf={nf}, nw={nw}, S={S})")
     nseg = nsrl // S - 3
     _check("f_in", f_in, (nsrl, lw), f32, dev)
     shapes = dict(cg_srl=(nsrl, nft), cg_land=(nft,),
@@ -115,13 +130,20 @@ def advect(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
     for name in ("dn_base", "up_base"):
         _check(name, tabs[name], (nseg,), torch.int32, dev)
     _check("lc rows", lc["rows"], (len(LC_ROWS), nang * nf), f32, dev)
-    pf = grads = None
-    if irefra == 1:
+    pf = grads = uv = None
+    if irefra:
         pf, grads = tabs["pf"], tabs["grads"]
         _check("pf", pf, (nsrl, 3, nft), f32, dev)
         _check("grads", grads, (nsrl, 8), f32, dev)
+    if irefra in (2, 3):
+        uv = tabs["uv"]
+        _check("uv", uv, (nsrl, 2), f32, dev)
 
     out = torch.empty_like(f_in)
+    cfl = stats = None
+    if with_cfl:
+        cfl = torch.empty(nsrl, dtype=torch.int32, device=dev)
+        stats = torch.empty((3, nsrl), dtype=f32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -130,14 +152,21 @@ def advect(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
             ptr(f_in), ptr(out), ptr(tabs["cg_srl"]), ptr(tabs["cg_land"]),
             ptr(tabs["taps_dn"]), ptr(tabs["taps_up"]), ptr(tabs["sea_own"]),
             ptr(tabs["cgland"]), ptr(tabs["geom"]), ptr(tabs["valid"]),
-            ptr(tabs["obs"]), ptr(pf), ptr(grads), ptr(tabs["dn_base"]),
-            ptr(tabs["up_base"]), ptr(lc["rows"]),
-            nsrl, nang, nft, nf, S, EW, irefra, CMTODEG,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ptr(tabs["obs"]), ptr(pf), ptr(grads), ptr(uv),
+            ptr(tabs["dn_base"]), ptr(tabs["up_base"]), ptr(lc["rows"]),
+            ptr(cfl), ptr(stats),
+            nsrl, nang, nft, nf, nw, S, EW, irefra, CMTODEG,
+            float(lc["fratio"]), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"advect kernel launch failed: CUDA error {err}")
     advect.launches += 1
-    return out
+    if not with_cfl:
+        return out
+    if with_cfl != "stats":
+        return out, cfl != 0
+    valid = tabs["valid"] > 0
+    return out, cfl != 0, tuple(
+        torch.where(valid, r, torch.zeros_like(r)).max() for r in stats)
 
 
 advect.launches = 0

@@ -400,22 +400,22 @@ def segment_advect(f_own, f_dn_win, f_up_win, f_own_win,
                    cg_own_win, cg_dn_win, cg_up_win,
                    taps_dn, taps_up, sea_own, cgland_w, geom, obs,
                    lc, cg_land_lane, nang, nfre, irefra,
-                   grads=None, pf=None):
-    """One (batch of) segment(s) of the fused CTU update, irefra 0/1.
+                   uv=None, grads=None, pf=None, with_cfl=False):
+    """One (batch of) segment(s) of the fused CTU update.
 
     Shapes (leading batch dims allowed):
       f_own (..., S, L);  f_dn_win / f_up_win (..., S+EW, L);
       f_own_win (..., S+2, L);  cg_* like f but nfre lanes;
       taps_dn/up (..., S, 3, EW);  sea_own/cgland_w (..., S, 2);
-      geom (..., S, 8); obs (..., S, 8, nfre);
-      grads (..., S, 8) refraction gradients (GRADS_FIELDS order);
+      geom (..., S, 8); obs (..., S, 8, nfre); uv (..., S, 2);
+      grads (..., S, 8) refraction gradients (GRADS_FIELDS order,
+      current terms pre-clipped and CFL-masked);
       pf (..., S, 3, nfre) per-freq env [omosnh2kd, cg·wavnum, omos·wavnum].
-    Returns the updated (..., S, L) spectrum (valid mask NOT applied).
-    Current refraction (irefra 2/3) is not ported yet.
+    Returns the updated (..., S, L) spectrum (valid mask NOT applied) and,
+    when ``with_cfl``, a (..., S) CFL-violation mask (ctuw.F90:238-300);
+    ``with_cfl="stats"`` adds the per-row largest east/west, north/south
+    and outflow Courant numbers.
     """
-    if irefra not in (0, 1):
-        raise NotImplementedError(f"irefra={irefra}: current refraction "
-                                  "is not ported")
     S = f_own.shape[-2]
     EW = taps_dn.shape[-1]
 
@@ -457,16 +457,36 @@ def segment_advect(f_own, f_dn_win, f_up_win, f_own_win,
         # k-major lanes: per-(point,freq) fields tile over angle groups
         return x.repeat((1,) * (x.dim() - 1) + (nang,))
 
-    # expanded edge velocities (ctuw.F90:170-230); without currents the
-    # whole displacement is upstream (dxdw = dydw = 0)
+    # expanded edge velocities (ctuw.F90:170-230)
     xw = expand(0.5 * (cg_o + cg_W) * ci) * lc["s"]
     xe = expand(0.5 * (cg_o + cg_E) * ci) * lc["s"]
     ys = expand(0.5 * (cg_o + dp_s * cg_S)) * lc["cth"]
     yn = expand(0.5 * (cg_o + dp_n * cg_N)) * lc["cth"]
-    dxup_w = torch.abs(lc["dt"] * xw * cmtodeg)
-    dxup_e = torch.abs(lc["dt"] * xe * cmtodeg)
-    dyup_s = torch.abs(lc["dt"] * ys * cmtodeg)
-    dyup_n = torch.abs(lc["dt"] * yn * cmtodeg)
+
+    have_cur = irefra in (2, 3) and uv is not None
+    if have_cur:
+        u = uv[..., 0:1]
+        v = uv[..., 1:2]
+
+        def updown(cgx, vadd):
+            # the current splits each edge's displacement into its
+            # upstream and downstream parts
+            rel = cgx + vadd
+            iss = (torch.sign(rel) == torch.sign(cgx)).to(cgx.dtype)
+            ad = torch.abs(lc["dt"] * rel * cmtodeg)
+            return ad, ad * iss, ad * (1.0 - iss)
+        adx_w, dxup_w, dxdw_w = updown(xw, u * ci)
+        adx_e, dxup_e, dxdw_e = updown(xe, u * ci)
+        ady_s, dyup_s, dydw_s = updown(ys, v * 0.5 * (1.0 + dp_s))
+        ady_n, dyup_n, dydw_n = updown(yn, v * 0.5 * (1.0 + dp_n))
+    else:
+        # without currents the whole displacement is upstream
+        adx_w = dxup_w = torch.abs(lc["dt"] * xw * cmtodeg)
+        adx_e = dxup_e = torch.abs(lc["dt"] * xe * cmtodeg)
+        ady_s = dyup_s = torch.abs(lc["dt"] * ys * cmtodeg)
+        ady_n = dyup_n = torch.abs(lc["dt"] * yn * cmtodeg)
+        zero = torch.zeros((), dtype=f_own.dtype, device=f_own.device)
+        dxdw_w = dxdw_e = dydw_s = dydw_n = zero
     east = lc["east"]
     north = lc["north"]
 
@@ -475,36 +495,45 @@ def segment_advect(f_own, f_dn_win, f_up_win, f_own_win,
 
     dxup_1 = sel(dxup_w, dxup_e, east)
     dxup_2 = sel(dxup_e, dxup_w, east)
+    dxdw_1 = sel(dxdw_w, dxdw_e, east)
+    dxdw_2 = sel(dxdw_e, dxdw_w, east)
     dyup_1 = sel(dyup_s, dyup_n, north)
     dyup_2 = sel(dyup_n, dyup_s, north)
+    dydw_1 = sel(dydw_s, dydw_n, north)
+    dydw_2 = sel(dydw_n, dydw_s, north)
 
     aream1 = 1.0 / (z * xdella)
-    dxx = z - dxup_2
-    dyy = xdella - dyup_2
+    dxx = z - dxup_2 - dxdw_1
+    dyy = xdella - dyup_2 - dydw_1
 
     w_jyo1 = dxx * dyup_1 * aream1
-    w_latS = north * w_jyo1
-    w_latN = (1.0 - north) * w_jyo1
+    w_jyo2 = dxx * dydw_2 * aream1
+    w_latS = sel(w_jyo1, w_jyo2, north)
+    w_latN = sel(w_jyo2, w_jyo1, north)
     w_jxo1 = dyy * dxup_1 * aream1
-    w_lonW = east * w_jxo1
-    w_lonE = (1.0 - east) * w_jxo1
+    w_jxo2 = dyy * dxdw_2 * aream1
+    w_lonW = sel(w_jxo1, w_jxo2, east)
+    w_lonE = sel(w_jxo2, w_jxo1, east)
 
-    # physical-corner weights via the quadrant → logical-slot map
-    # (ctuwupdt.F90:95-150 JXO/JYO/KCR): only the upstream-upstream
-    # corner (wg1) is live without currents
     wg1 = dxup_1 * dyup_1 * aream1
-    w_SW = north * east * wg1
-    w_SE = north * (1.0 - east) * wg1
-    w_NW = (1.0 - north) * east * wg1
-    w_NE = (1.0 - north) * (1.0 - east) * wg1
+    wg2 = dxdw_2 * dyup_1 * aream1
+    wg3 = dxup_1 * dydw_2 * aream1
+    wg4 = dxdw_2 * dydw_2 * aream1
+    # physical-corner weights via the quadrant → logical-slot map
+    # (ctuwupdt.F90:95-150 JXO/JYO/KCR)
+    w_SW = sel(sel(wg1, wg2, east), sel(wg3, wg4, east), north)
+    w_SE = sel(sel(wg2, wg1, east), sel(wg4, wg3, east), north)
+    w_NW = sel(sel(wg3, wg4, east), sel(wg1, wg2, east), north)
+    w_NE = sel(sel(wg4, wg3, east), sel(wg2, wg1, east), north)
 
-    sumwn = (z * dyup_2 + xdella * dxup_2 - dxup_2 * dyup_2) * aream1
+    sumwn = (z * (dydw_1 + dyup_2) + xdella * (dxup_2 + dxdw_1)
+             - (dxdw_1 + dxup_2) * (dydw_1 + dyup_2)) * aream1
 
     # --- direction turning (ctuw.F90:345-420) ---------------------------
     cgo_l = expand(cg_o)
     dthp = tp * lc["sp"] * cgo_l
     dthm = tp * lc["sm"] * cgo_l
-    if irefra == 1:
+    if irefra in (1, 3) and grads is not None and pf is not None:
         ddphi = grads[..., 0:1]
         ddlam_dco = grads[..., 1:2]
         drdp = ddphi * lc["sd_p"] - ddlam_dco * lc["cd_p"]
@@ -512,11 +541,43 @@ def segment_advect(f_own, f_dn_win, f_up_win, f_own_win,
         omos_l = expand(pf[..., 0, :])
         dthp = dthp + omos_l * drdp
         dthm = dthm + omos_l * drdm
+    if have_cur and grads is not None:
+        duphi = grads[..., 2:3]
+        dvphi = grads[..., 3:4]
+        dulam_dco = grads[..., 4:5]
+        dvlam_dco = grads[..., 5:6]
+        dthp = dthp + (duphi * lc["ss_p"] + dvphi * lc["sc_p"]
+                       - dulam_dco * lc["sc_p"] - dvlam_dco * lc["cc_p"])
+        dthm = dthm + (duphi * lc["ss_m"] + dvphi * lc["sc_m"]
+                       - dulam_dco * lc["sc_m"] - dvlam_dco * lc["cc_m"])
 
     wkpmn0 = (dthp + torch.abs(dthp)) + (torch.abs(dthm) - dthm)
     w_km1 = dthm + torch.abs(dthm)
     w_kp1 = -dthp + torch.abs(dthp)
     sumwn = sumwn + wkpmn0
+
+    # --- frequency shifting (current refraction, ctuw.F90:430-470) ------
+    wm_terms = None
+    if have_cur and grads is not None and pf is not None:
+        cgwav = expand(pf[..., 1, :])
+        omoswav = expand(pf[..., 2, :])
+        duphi = grads[..., 2:3]
+        dvphi = grads[..., 3:4]
+        dulam_dco = grads[..., 4:5]
+        dvlam_dco = grads[..., 5:6]
+        omdd = grads[..., 6:7]
+        sdot_nf = (duphi * lc["nf_sc"] + dvphi * lc["nf_cc"]
+                   + dulam_dco * lc["nf_ss"] + dvlam_dco * lc["nf_sc"])
+        sdot = sdot_nf * cgwav + omdd * omoswav
+        sd_mp1 = shift_m(sdot, +1, nfre, lc)
+        sd_mm1 = shift_m(sdot, -1, nfre, lc)
+        dthp_f = (sdot + sd_mp1) * lc["dfp"]
+        dthm_f = (sdot + sd_mm1) * lc["dfm"]
+        wmpmn0 = (dthp_f + torch.abs(dthp_f)) + (torch.abs(dthm_f) - dthm_f)
+        sumwn = sumwn + wmpmn0
+        w_mm1 = (dthm_f + torch.abs(dthm_f)) * lc["fratio"]
+        w_mp1 = (-dthp_f + torch.abs(dthp_f)) / lc["fratio"]
+        wm_terms = (w_mm1, w_mp1)
 
     # --- assemble (propags2.F90:49-130) ---------------------------------
     ob = [expand(obs[..., slot, :]) for slot in range(8)]
@@ -527,7 +588,23 @@ def segment_advect(f_own, f_dn_win, f_up_win, f_own_win,
                  + w_SW * ob[6] * v_corSW + w_NW * ob[7] * v_corNW)
     out = out + w_km1 * roll_k(f_own, -1, nfre)
     out = out + w_kp1 * roll_k(f_own, +1, nfre)
-    return out
+    if wm_terms is not None:
+        out = out + wm_terms[0] * shift_m(f_own, -1, nfre, lc)
+        out = out + wm_terms[1] * shift_m(f_own, +1, nfre, lc)
+
+    if not with_cfl:
+        return out
+    bad = ((torch.maximum(adx_w, adx_e) > z)
+           | (torch.maximum(ady_s, ady_n) > xdella)
+           | (sumwn > 1.0) | (sumwn < 0.0))
+    if with_cfl == "stats":
+        # CHECKCFL-role diagnostics (checkcfl.F90:74-210): the largest
+        # east/west, north/south and total-outflow Courant numbers
+        ratio_x = torch.amax(torch.maximum(adx_w, adx_e) / z, dim=-1)
+        ratio_y = torch.amax(torch.maximum(ady_s, ady_n) / xdella, dim=-1)
+        return out, bad.any(dim=-1), (ratio_x, ratio_y,
+                                      torch.amax(sumwn, dim=-1))
+    return out, bad.any(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -542,17 +619,23 @@ def _windows(arr, bases, width):
 
 def advect_xla(f_srl, cg_srl, dev, lc, cg_land_lane, *,
                nang: int, nfre: int, irefra: int, S: int, EW: int,
-               seg_chunk: int = 64):
+               with_cfl=False, seg_chunk: int = 64):
     """Fused CTU advection over the whole SRL domain (plain PyTorch; the
     name follows the reference's XLA formulation).
 
     ``dev`` is the table dict from :func:`device_tables` (plus ``grads``
-    and ``pf`` for irefra=1); ``lc`` the lane-constant dict of tensors.
-    Returns the updated (nsrl, L) spectrum with the wrap/pad slots zeroed.
+    and ``pf`` for irefra ≥ 1 and ``uv`` for irefra 2/3); ``lc`` the
+    lane-constant dict of tensors.  Returns the updated (nsrl, L)
+    spectrum with the wrap/pad slots zeroed and, with ``with_cfl``, the
+    per-SRL-slot CFL mask (valid slots only); ``with_cfl="stats"`` adds
+    the largest east/west, north/south and outflow Courant numbers over
+    the valid slots.
     """
     nsrl, L = f_srl.shape
     nseg = (nsrl - 3 * S) // S
     out = torch.zeros_like(f_srl)
+    cfl = torch.zeros(nsrl, dtype=torch.bool, device=f_srl.device)
+    stats = torch.zeros((3, nsrl), dtype=f_srl.dtype, device=f_srl.device)
     seg_base = S + torch.arange(nseg, device=f_srl.device,
                                 dtype=torch.int64) * S
     for s0 in range(0, nseg, seg_chunk):
@@ -562,6 +645,9 @@ def advect_xla(f_srl, cg_srl, dev, lc, cg_land_lane, *,
 
         def seg(name, inner):
             return dev[name][rows].reshape((ns, S) + inner)
+
+        def opt(name, inner):
+            return seg(name, inner) if name in dev else None
 
         dn = dev["dn_base"][s0:s1].long()
         up = dev["up_base"][s0:s1].long()
@@ -575,15 +661,27 @@ def advect_xla(f_srl, cg_srl, dev, lc, cg_land_lane, *,
             seg("taps_dn", (3, EW)), seg("taps_up", (3, EW)),
             seg("sea_own", (2,)), seg("cgland", (2,)), seg("geom", (8,)),
             seg("obs", (8, nfre)), lc, cg_land_lane, nang, nfre, irefra,
-            grads=seg("grads", (8,)) if "grads" in dev else None,
-            pf=seg("pf", (3, nfre)) if "pf" in dev else None)
-        out[rows] = res.reshape(ns * S, L) * dev["valid"][rows][:, None]
-    return out
+            uv=opt("uv", (2,)), grads=opt("grads", (8,)),
+            pf=opt("pf", (3, nfre)), with_cfl=with_cfl)
+        valid = dev["valid"][rows]
+        if with_cfl:
+            cfl[rows] = res[1].reshape(-1) & (valid > 0)
+            if with_cfl == "stats":
+                stats[:, rows] = torch.stack(res[2]).reshape(3, -1)
+            res = res[0]
+        out[rows] = res.reshape(ns * S, L) * valid[:, None]
+    if not with_cfl:
+        return out
+    if with_cfl == "stats":
+        valid = dev["valid"] > 0
+        return out, cfl, tuple(
+            torch.where(valid, r, torch.zeros_like(r)).max() for r in stats)
+    return out, cfl
 
 
 def device_tables(ft: FusedTables, dtype, device) -> dict:
     """FusedTables → tensor dict for :func:`advect_xla` and the CUDA
-    kernel (static parts only; grads/pf added by the caller)."""
+    kernel (static parts only; uv/grads/pf added by the caller)."""
     def i32(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.int32,
                                device=device)

@@ -1,15 +1,22 @@
-"""Deliberately broken copies of csrc/implsch.cu against the card limits.
+"""Deliberately broken copies of the CUDA kernels against the card limits.
 
-    python3 ecwam_tpu_torch/tools/mutations.py
+    python3 ecwam_tpu_torch/tools/mutations.py            # every copy
+    python3 ecwam_tpu_torch/tools/mutations.py sound rnfac_one ...
 
 Run from the repository root on a machine with one CUDA card.  For the
-sound kernel and for each entry of MUTATIONS (one text change in the
-full-mode part of the kernel source) it copies the package, chip_smoke.py
-and the golden statistics into a temporary directory outside the
-repository, applies the change there, builds it and reads every
-full-mode check of chip_smoke.py with its limits: the golden and shallow
-physics steps, the golden statistics.log trajectory and the O320 slice.
-Prints one JSON line per kernel: the readings and the checks it fails.
+sound kernels and for each entry of MUTATIONS (one text change in one
+kernel source) it copies the package, chip_smoke.py and the golden
+statistics into a temporary directory outside the repository, applies the
+change there, builds it and reads the checks of chip_smoke.py that cover
+the changed code, with their limits: for ``full`` (kernel B's full mode)
+the golden and shallow physics steps, the golden statistics.log
+trajectory and the O320 slice; for ``options`` (kernel B with the
+cycle-49/50 options) the shallow cy50r1 and golden cy49r1 physics steps
+in both modes and the full-mode slice of ``cases.o320_options``; for
+``currents`` (kernel A with currents) the currents grids' passes and CFL
+retry mask, the golden currents trajectory and the O320 options pass.
+The sound copy reads them all.  Prints one JSON line per copy: the
+readings and the checks it fails.
 """
 
 import json
@@ -21,44 +28,88 @@ import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-KERNEL = os.path.join("ecwam_tpu_torch", "csrc", "implsch.cu")
+CSRC = os.path.join("ecwam_tpu_torch", "csrc")
+IMPLSCH, ADVECT = "implsch.cu", "advect.cu"
 
+# name: (checks, source, text, replacement); the sound copy reads every
+# kind of check
 MUTATIONS = {
-    "sound": None,
+    "sound": (("full", "options", "currents"), None, None, None),
     # the FLMAX cap's term left out of the flux source
-    "no_cap_flux": (
+    "no_cap_flux": (("full",), IMPLSCH,
         "if (FULL) W.fld[b] = P[P_DELTM] * fminf(T.flmax[m] - f, 0.f);",
         "if (FULL) W.fld[b] = 0.f;"),
     # the Stokes drift's f^-5 tail term left out
-    "no_stokes_tail": (
+    "no_stokes_tail": (("full",), IMPLSCH,
         "us = warp_sum(us) + P[P_STOKES_C] * warp_sum(ut);",
         "us = warp_sum(us) + 0.f * warp_sum(ut);"),
     # PHIWA without the tail's energy flux PHIHF
-    "no_phihf": (
+    "no_phihf": (("full",), IMPLSCH,
         "phiwa += f1dcos2 * (aird * P[P_ZPI4GM1] * T.fr5[mij]) * sqrtz0og * acc;",
         "phiwa += 0.f * acc;"),
     # the flux source without the implicit factor 1/max(1 − δ·fld, 1)
-    "no_implicit_factor": (
+    "no_implicit_factor": (("full",), IMPLSCH,
         "const float ss = W.sl[b] / fmaxf(1.f - P[P_DELT5] * W.fld[b], 1.f);",
         "const float ss = W.sl[b];"),
     # the windsea mask's test moved by 1e-3 in zlog (the growth term kept)
-    "mask_edge_moved": (
+    "mask_edge_moved": (("full",), IMPLSCH,
         "if (active) xll[q] = 1.f;",
         "if (active && zlog < -1e-3f) xll[q] = 1.f;"),
     # one bin of the written mask dropped: direction 0, frequency nfre/2
-    "mask_bit_dropped": (
+    "mask_bit_dropped": (("full",), IMPLSCH,
         "(float)((xbits[q] >> m) & 1ull);",
         "(float)((xbits[q] >> m) & (k == 0 && m == nfre / 2 ? 0ull : 1ull));"),
+    # STRESS_GC without its tail sum: only the cut-off wavenumber's term
+    "gc_tail_dropped": (("options",), IMPLSCH,
+        ": G[G_DELKCC_OMXKM3 * nw + i]);",
+        ": 0.f);"),
+    # the LLNORMAGAM/LLCAPCHNK growth factor RNFAC forced to 1
+    "rnfac_one": (("options",), IMPLSCH,
+        "? 1.f + P[P_DTHRN_A] * (1.f + tanhf(wswave - P[P_DTHRN_U])) : 1.f;",
+        "? 1.f : 1.f;"),
+    # SDICE3's ice attenuation left out
+    "no_sdice3": (("options",), IMPLSCH,
+        "const bool ciwa3 = opts & OPT_LCIWA3;",
+        "const bool ciwa3 = false;"),
+    # LCISCAL's open-water scaling of the sources left out
+    "no_lciscal": (("options",), IMPLSCH,
+        "if (opts & OPT_LCISCAL) {",
+        "if (false) {"),
+    # the σ̇ inflow from frequency m−1 dropped
+    "no_sdot_mm1": (("currents",), ADVECT,
+        "out = out + w_mm1 * frow[k * nft + mm1];",
+        "out = out + 0.f * frow[k * nft + mm1];"),
+    # one downstream corner weight (x reversed, y upstream) zeroed
+    "no_downstream_corner": (("currents",), ADVECT,
+        "const float wg2 = dxdw_2 * dyup_1 * aream1;",
+        "const float wg2 = 0.f;"),
+    # the CFL flag never set
+    "no_cfl_flag": (("currents",), ADVECT,
+        "if (bad) atomicOr(&cfl_s[it], 1);",
+        "if (false) atomicOr(&cfl_s[it], 1);"),
 }
 
 
-def readings() -> dict:
-    """The full-mode checks of chip_smoke.py on the tree at sys.path[0]."""
+def readings(kinds) -> dict:
+    """The checks of chip_smoke.py of ``kinds`` on the tree at
+    sys.path[0]."""
     import torch
+    out, fails = {}, []
+    dev = torch.device("cuda")
+    if "full" in kinds:
+        _full(dev, out, fails)
+    if "options" in kinds:
+        _options(dev, out, fails)
+    if "currents" in kinds:
+        _currents(dev, out, fails)
+    out["fails"] = fails
+    return out
+
+
+def _full(dev, out, fails):
+    """Kernel B's full-mode checks."""
     import chip_smoke as cs
     from ecwam_tpu_torch.model import cases
-    dev = torch.device("cuda")
-    out, fails = {}, []
     for name, kw in (("golden", cases.golden_kw()),
                      ("shallow", cases.shallow_kw())):
         f = cases.full_kernel_vs_plain(kw, dev, width=cs.MASK_WIDTH)
@@ -91,16 +142,85 @@ def readings() -> dict:
         cs.check_slice(r, True, "o320")
     except AssertionError:
         fails.append("o320 slice")
-    out["fails"] = fails
-    return out
+
+
+def _options(dev, out, fails):
+    """Kernel B's checks with the cycle-49/50 options."""
+    import chip_smoke as cs
+    from ecwam_tpu_torch.model import cases
+    gc = dict(gc_width=cs.GC_WIDTH, off_tol=cs.STRESS_TOL)
+    for name, kw, frc in (("shallow_cy50r1", cases.shallow_kw(True),
+                           cases.shallow_ice),
+                          ("golden_cy49r1", dict(cases.golden_kw(),
+                                                 **cases.CY49R1),
+                           cases.storm)):
+        spec, stress, held = cases.physics_kernel_vs_plain(
+            kw, dev, forcing=frc, **gc)
+        f = cases.full_kernel_vs_plain(kw, dev, width=cs.MASK_WIDTH,
+                                       forcing=frc, **gc)
+        worst = max(f["rows"], key=f["rows"].get)
+        out[name] = dict(spec=spec, stress=stress, held=held,
+                         full_spec=f["spec"], worst=worst,
+                         rows=f["rows"][worst], full_held=f["held"],
+                         xllws_off=f["off_edge"])
+        if spec > cs.PHYS_TOL or f["spec"] > cs.PHYS_TOL:
+            fails.append(f"{name} spectrum")
+        if stress > cs.STRESS_TOL or f["rows"][worst] > cs.FULL_ROW_TOL:
+            fails.append(f"{name} rows")
+        if max(held, f["held"]) > 1:
+            fails.append(f"{name} rows held")
+        if f["off_edge"] > 0:
+            fails.append(f"{name} xllws")
+    ms, model = cases.o320_options(dev)
+    model.advance(2)
+    r = cs.slice_check(ms, model, dev, True, above_cut=0.0)
+    worst = max(r["rows"], key=r["rows"].get)
+    out["o320_options"] = dict(
+        spec=r["spec_rel"], stress=r["stress_rel"], worst=worst,
+        rows=r["rows"][worst], n_off=r["n_off"], n_gc=r["n_gc"],
+        n_tie=r["n_tie"], xllws_off=r["xllws_off"])
+    try:
+        cs.check_slice(r, True, "o320 options")
+    except AssertionError:
+        fails.append("o320 options slice")
+
+
+def _currents(dev, out, fails):
+    """Kernel A's checks with currents."""
+    import chip_smoke as cs
+    from ecwam_tpu_torch.model import cases
+    for name, kw in (("cfl", cases.currents_kw(3, cfl=True)),
+                     ("fast", cases.currents_kw(2, fast=True)),
+                     ("golden", cases.golden_kw(3, currents=True))):
+        a = cases.advect_kernel_vs_plain(kw, dev)
+        out[f"advect_{name}"] = dict(main=a["main"], sub=a["sub"],
+                                     cfl_differ=a["cfl_differ"],
+                                     cfl_masked=a["cfl_masked"])
+        if max(a["main"], a["sub"] or 0.0) > cs.ADVECT_TOL:
+            fails.append(f"advect {name}")
+        if a["cfl_differ"]:
+            fails.append(f"advect {name} CFL mask")
+    err, _ = cases.golden_kernel_vs_plain(
+        dev, kw=cases.golden_kw(3, currents=True))
+    out["golden_currents"] = err
+    if (err.pop("fl1") > cs.TRAJ_TOL
+            or max(err.values()) > cs.TRAJ_STRESS_TOL):
+        fails.append("golden currents trajectory")
+    ms, model = cases.o320_options(dev)
+    a = cs.advect_check(model, ms.fused, ms.irefra)
+    out["o320_options_advect"] = a[0]
+    if a[0] > cs.ADVECT_TOL:
+        fails.append("o320 options advect")
 
 
 def main():
-    if sys.argv[1:] == ["--readings"]:
+    if sys.argv[1:2] == ["--readings"]:
         sys.path.insert(0, os.getcwd())
-        print(json.dumps(readings()), flush=True)
+        print(json.dumps(readings(sys.argv[2].split(","))), flush=True)
         return
-    for name, change in MUTATIONS.items():
+    names = sys.argv[1:] or list(MUTATIONS)
+    for name in names:
+        kinds, source, text, repl = MUTATIONS[name]
         tmp = tempfile.mkdtemp(prefix=f"implsch_{name}_")
         try:
             shutil.copytree(os.path.join(HERE, "ecwam_tpu_torch"),
@@ -111,18 +231,19 @@ def main():
             shutil.copy(os.path.join(HERE, "tests", "golden",
                                      "statistics_golden.json"),
                         os.path.join(tmp, "tests", "golden"))
-            if change is not None:
-                path = os.path.join(tmp, KERNEL)
+            if source is not None:
+                path = os.path.join(tmp, CSRC, source)
                 with open(path) as f:
                     src = f.read()
-                if src.count(change[0]) != 1:
+                if src.count(text) != 1:
                     raise RuntimeError(f"{name}: the text to change is not "
                                        "in the kernel exactly once")
                 with open(path, "w") as f:
-                    f.write(src.replace(change[0], change[1]))
+                    f.write(src.replace(text, repl))
             res = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--readings"],
-                cwd=tmp, capture_output=True, text=True, timeout=900)
+                [sys.executable, os.path.abspath(__file__), "--readings",
+                 ",".join(kinds)],
+                cwd=tmp, capture_output=True, text=True, timeout=1200)
             if res.returncode != 0:
                 raise RuntimeError(f"{name}:\n{res.stderr[-3000:]}")
             line = json.loads(res.stdout.strip().splitlines()[-1])

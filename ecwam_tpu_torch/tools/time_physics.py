@@ -1,11 +1,14 @@
-"""Time kernel B in minimal mode on every SRL row of the O320 state.
+"""Time kernels A and B of the default configuration on the O320 state.
 
     python3 ecwam_tpu_torch/tools/time_physics.py               # this tree
     python3 ecwam_tpu_torch/tools/time_physics.py --ab OTHER    # A/B
 
 Run from a repository root on a machine with one CUDA card.  The state is
-``chip_smoke.o320_model``'s after two steps (one physics step); the kernel
-is timed with CUDA events over ``--reps`` launches on fresh copies.  With
+``chip_smoke.o320_model``'s after two steps (one physics step); kernel B
+is timed in minimal mode on every SRL row and in full mode over every row
+in chunks of 65,536 (the output date's launches), and kernel A as one
+all-band pass, each with CUDA events over ``--reps`` runs on fresh
+copies.  With
 ``--ab OTHER`` (the root of another checkout, e.g. the parent commit
 unpacked with ``git archive``) the two trees run in turns, each in its own
 process, OTHER, this, this, OTHER, so that both are measured on one card.
@@ -27,6 +30,7 @@ def run(root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
     import chip_smoke as cs
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
     from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
     dev = torch.device("cuda")
     ms, model = cs.o320_model(dev)
@@ -42,9 +46,24 @@ def run(root: str, reps: int) -> dict:
     ms_all = cs.cuda_ms(lambda a: ipk.implsch_srl(
         cfg, *a, nang=fp.nang, nfre_red=fp.nfre_red, tables_dev=tabs),
         reps, fresh)
-    return dict(root=root, card=cs.card_line(),
-                rows=int(model._f_srl.shape[0]), reps=reps,
-                minimal_all_rows_ms=ms_all)
+    nsrl, chunk = model._f_srl.shape[0], 65536
+
+    def full_all(a):
+        for s0 in range(0, nsrl, chunk):
+            r = slice(s0, min(nsrl, s0 + chunk))
+            ipk.implsch_srl(ms.phys, a[0][r], a[1][:, r].contiguous(),
+                            a[2][:, r].contiguous(), a[3][r],
+                            nang=fp.nang, nfre_red=fp.nfre_red, full=True,
+                            tables_dev=tabs)
+    full_ms = cs.cuda_ms(full_all, reps, fresh)
+    f0 = model._f_srl.clone()
+    kw = dict(nang=fp.nang, nf=fp.nfre_red, S=ms.fused.S, EW=ms.fused.EW,
+              irefra=ms.irefra)
+    advect_ms = cs.cuda_ms(lambda _: pcu.advect(f0, fp.tabs, fp.lc, **kw),
+                           reps)
+    return dict(root=root, card=cs.card_line(), rows=int(nsrl), reps=reps,
+                minimal_all_rows_ms=ms_all, full_all_rows_ms=full_ms,
+                advect_pass_ms=advect_ms)
 
 
 def main():

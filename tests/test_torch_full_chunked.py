@@ -10,10 +10,16 @@ advected, random 6–14 m/s winds from seed 3):
     (rtol 5e-5, atol 1e-6, as there);
   * the port's ``sepwisw`` matches ``ecwam_tpu.io.products.sepwisw`` on the
     same inputs (rtol 5e-5, atol 1e-6, as there);
-  * the port's ``full_chunked_rows`` matches the reference's (its Pallas
-    kernel in interpret mode) on the same float64 SRL state, at
-    tests/test_implsch_pallas.py:171-192's bounds: rtol 1e-6 on the
-    spectrum, the stress rows and the windsea/swell rows, exact mij.
+  * the port's ``full_chunked_rows`` matches the reference's chunked full
+    step on the same float64 SRL state, at tests/test_implsch_pallas.py:
+    171-192's bounds: rtol 1e-6 on the spectrum, the stress rows and the
+    windsea/swell rows, exact mij.  The reference runs through its XLA
+    chain (``test_torch_implsch_full.reference_chain`` on every SRL row,
+    then ``sepwisw``), the function its chunked Pallas step computes; the
+    reference's own tests
+    pin the two together (tests/test_implsch_pallas.py,
+    tests/test_full_chunked.py), and interpreting the Pallas kernel here
+    cost two minutes of the tier-1 run.
 """
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 
 from ecwam_tpu.io import products as j_products
 from ecwam_tpu.model import fusedstep as j_fused
+from ecwam_tpu.ops.physics import implsch_pallas as j_ipk
 from ecwam_tpu.model import setup as j_setup
 from ecwam_tpu.model import stepper as j_stepper
 from ecwam_tpu_torch.io import products as t_products
@@ -30,6 +37,7 @@ from ecwam_tpu_torch.model import fusedstep as t_fused
 from ecwam_tpu_torch.model import setup as t_setup
 from ecwam_tpu_torch.model.stepper import initial_stress
 from ecwam_tpu_torch.ops.physics import implsch_cuda as t_ipk
+from test_torch_implsch_full import reference_chain
 
 KW = dict(grid_name="12.0", nang=12, nfre=15, nfre_red=12, idelpro=900.0,
           idelt=900.0, pad_to=128)
@@ -110,10 +118,31 @@ def test_sepwisw_matches_reference():
                                    rtol=5e-5, atol=1e-6, err_msg=k)
 
 
+def _reference_full_step(ms, f_srl, tail, scal, env2d, nang, nfre_red):
+    """The reference's full step on every SRL row through its XLA chain
+    (``test_torch_implsch_full.reference_chain``) and ``sepwisw``:
+    (f_srl, tail, state with the SCAL_OUT_FULL rows and ``sep``), as
+    ``fusedstep.full_chunked_rows`` returns them."""
+    tb = ms.tb
+    nfre, nsrl, lt = tb.nfre, f_srl.shape[0], nang * (tb.nfre - nfre_red)
+    fl = jnp.concatenate(
+        [f_srl.reshape(nsrl, nang, nfre_red),
+         tail[:, :lt].reshape(nsrl, nang, nfre - nfre_red)], axis=2)
+    out, rows, xllws = reference_chain(
+        ms.phys, jnp.transpose(fl, (1, 2, 0)), env2d, scal, True)
+    state = j_ipk.unpack_scal_out(rows, full=True)
+    sep = j_products.sepwisw(out, xllws, env2d[nfre:2 * nfre],
+                             state["ufric"], scal[0], scal[1], tb)
+    state["sep"] = {k: sep[k] for k in j_fused.SEP_KEYS}
+    out = jnp.transpose(out, (2, 0, 1))
+    return (out[:, :, :nfre_red].reshape(nsrl, -1),
+            out[:, :, nfre_red:].reshape(nsrl, -1), state)
+
+
 @pytest.fixture(scope="module")
 def reference_state():
     """The reference's float64 SRL state of the configuration and its
-    chunked full step (Pallas kernel in interpret mode)."""
+    full step (XLA chain, see the module docstring)."""
     ms = j_setup.build_model(dtype=jnp.float64, weights_mode="fused", **KW)
     fp = j_fused.FusedPropagation(ms)
     n = ms.n_pad
@@ -128,10 +157,9 @@ def reference_state():
     ins = dict(f_srl=np.asarray(f_srl), tail=np.asarray(tail),
                scal=np.asarray(jnp.concatenate([frc6, denv, stress6])),
                env2d=np.asarray(env2d))
-    res = j_fused.full_chunked_rows(
-        ms.phys, ms.tb, f_srl, tail,
-        jnp.concatenate([frc6, denv, stress6]), env2d, nang=fp.nang,
-        nfre_red=fp.nfre_red, interpret=True, chunk=256)
+    res = _reference_full_step(
+        ms, f_srl, tail, jnp.concatenate([frc6, denv, stress6]), env2d,
+        fp.nang, fp.nfre_red)
     return ms, ins, res
 
 

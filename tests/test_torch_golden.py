@@ -3,10 +3,14 @@ its committed golden statistics.log.
 
 ``ecwam_tpu_torch``'s ``FastWaveModel`` (float32, plain versions on the
 CPU) on the golden-trajectory configuration:
-  * against ``ecwam_tpu``'s ``FastWaveModel(backend="pallas",
-    interpret=True)``, 5 minimal-mode steps from the same cold start, on
-    fl1 and the stress fields at tests/test_trajectory_oracle.py's f32
-    bound (5e-3 of the field maximum);
+  * against ``ecwam_tpu``'s ``FastWaveModel(backend="xla")`` (its XLA
+    advection; the fast path's physics is the Pallas kernel, interpreted
+    on the CPU), 5 minimal-mode steps from the same cold start, on fl1 and
+    the stress fields at tests/test_trajectory_oracle.py's f32 bound (5e-3
+    of the field maximum).  The reference's own tests pin its XLA
+    advection to the Pallas kernel at 2e-6 (tests/test_fused_pallas.py);
+    interpreting the advection kernel here cost a third of the test's
+    time;
   * 5 output-date steps ``advance(1, full_phys=True)`` (full-mode physics
     chunked, with the windsea/swell split), whose statistics.log norms —
     swh, and ufric, phiaw, emean, wsemean, esea, eswell on the physics
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 import test_golden_trajectory as tgold
+from ecwam_tpu.model import driver as jdrv
 import test_trajectory_oracle as toracle
 from ecwam_tpu_torch.model import driver as tdrv
 from ecwam_tpu_torch.model import setup as tsetup
@@ -30,7 +35,9 @@ from test_torch_driver import assert_trajectory_close
 
 
 def test_golden_config_matches_reference_fast_path():
-    ms_j, m_j = tgold._model()
+    ms_j, m_p = tgold._model()
+    m_j = jdrv.FastWaveModel(ms_j, m_p.forcing_provider, START,
+                             backend="xla")
     ms_t = tsetup.build_model(device="cpu", **golden_kw())
     m_t = tdrv.FastWaveModel(
         ms_t, provider(toracle._forcing(ms_t.n_real), 900.0), START)

@@ -18,7 +18,13 @@ same limits as chip_smoke.py):
                            bins differ only within MASK_WIDTH of the
                            mask's edge (float64), ≤ XLLWS_SHARE of all
   4-step golden trajectory fl1 ≤ TRAJ_TOL; stress ≤ TRAJ_STRESS_TOL
+  CFL current retry        the kernel's mask equals the plain version's
+With the cycle-49/50 options, a row off the limits whose
+gravity-capillary decision margin (float64) lies within GC_WIDTH of its
+edge is held out, at most one a grid.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,6 +34,7 @@ from ecwam_tpu_torch import device as tdevice
 from ecwam_tpu_torch.core import grid as grid_mod
 from ecwam_tpu_torch.model import preset
 from ecwam_tpu_torch.model import setup as tsetup
+from ecwam_tpu_torch.model import cases
 from ecwam_tpu_torch.model.cases import (compact_kernel_vs_plain,
                                          full_kernel_vs_plain,
                                          golden_kernel_vs_plain, golden_kw,
@@ -44,6 +51,7 @@ XLLWS_SHARE = 1e-6
 MASK_WIDTH = 1e-4
 TRAJ_TOL = 2.5e-4
 TRAJ_STRESS_TOL = 5e-3
+GC_WIDTH = 1e-4
 
 
 def refraction_kw():
@@ -119,7 +127,7 @@ def test_physics_kernel_matches_plain_on_card(cuda, name):
     """With the tail block (golden, 18 frequencies, 15 advected), without
     it (all 18 advected), and in shallow water (SDIWBK, SBOTTOM and a cut
     inside the ladder)."""
-    spec, stress = physics_kernel_vs_plain(PHYSICS_CONFIGS[name](), cuda)
+    spec, stress, _ = physics_kernel_vs_plain(PHYSICS_CONFIGS[name](), cuda)
     assert spec <= PHYS_TOL and stress <= STRESS_TOL
 
 
@@ -146,6 +154,65 @@ def test_compact_kernel_matches_plain_on_card(cuda, full):
     assert r["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
     assert r["off_edge"] == 0
     assert r["xllws"] <= XLLWS_SHARE * r["bins"]
+
+
+CURRENTS_CONFIGS = {
+    "irefra2_fast_waves": lambda: cases.currents_kw(2, fast=True),
+    "irefra3_cfl_retry": lambda: cases.currents_kw(3, cfl=True),
+    "golden_irefra3": lambda: golden_kw(3, currents=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CURRENTS_CONFIGS))
+def test_advect_currents_kernel_matches_plain_on_card(cuda, name):
+    """Kernel A with current refraction: an all-band pass, a sub-band pass
+    (σ̇ over ifrelfmax+1 frequencies), and the CFL retry mask, which the
+    kernel computes in the setup's refresh."""
+    r = cases.advect_kernel_vs_plain(CURRENTS_CONFIGS[name](), cuda)
+    assert r["main"] <= ADVECT_TOL
+    assert (r["sub"] or 0.0) <= ADVECT_TOL
+    assert r["cfl_differ"] == 0
+    if name == "irefra3_cfl_retry":
+        assert r["cfl_masked"] > 0
+
+
+OPTION_CONFIGS = {
+    "shallow_cy50r1": (lambda: shallow_kw(options=True), cases.shallow_ice),
+    "golden_cy49r1": (lambda: dict(golden_kw(), **cases.CY49R1),
+                      cases.storm),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(OPTION_CONFIGS))
+def test_option_physics_kernels_match_plain_on_card(cuda, name):
+    """Kernels B (both modes) and C (both modes) with the cycle-49/50
+    options, on the shallow grid with polar ice and the golden grid."""
+    make, frc = OPTION_CONFIGS[name]
+    gc = dict(forcing=frc, gc_width=GC_WIDTH, off_tol=STRESS_TOL)
+    spec, stress, held = physics_kernel_vs_plain(make(), cuda, **gc)
+    assert spec <= PHYS_TOL and stress <= STRESS_TOL and held <= 1
+    r = full_kernel_vs_plain(make(), cuda, width=MASK_WIDTH, **gc)
+    assert r["spec"] <= PHYS_TOL and r["held"] <= 1
+    for key, e in r["rows"].items():
+        assert e <= FULL_ROW_TOL, key
+    assert r["off_edge"] == 0
+    for full in (False, True):
+        c = compact_kernel_vs_plain(make(), cuda, full=full,
+                                    width=MASK_WIDTH, **gc)
+        assert c["spec"] <= PHYS_TOL and c["off_edge"] == 0
+        assert c["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
+
+
+@pytest.mark.gpu
+def test_currents_trajectory_matches_plain_on_card(cuda):
+    err, launched = golden_kernel_vs_plain(
+        cuda, kw=golden_kw(3, currents=True))
+    assert launched == dict(kernels=(8, 2), plain=(0, 0))
+    assert err.pop("fl1") <= TRAJ_TOL
+    for key, e in err.items():
+        assert e <= TRAJ_STRESS_TOL, key
 
 
 @pytest.mark.gpu
@@ -176,9 +243,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pcu.advect(f[:-1], fp.tabs, fp.lc, **kw)
     with pytest.raises(ValueError):
         pcu.advect(f.t().contiguous().t(), fp.tabs, fp.lc, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        pcu.advect(f, fp.tabs, fp.lc, **dict(kw, nw=fp.nfre_red + 1))
+    with pytest.raises(KeyError):                  # currents need uv
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, irefra=2))
     cfg = ipk.minimal_config(ms.phys)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        ipk.kernel_supports(dataclasses.replace(cfg, lciwa1=True))
     env2d = torch.zeros((3 * ms.tb.nfre, f.shape[0]), device=cuda)
     scal = torch.zeros((len(ipk.SCAL_IN), f.shape[0]), device=cuda)
     with pytest.raises(ValueError):

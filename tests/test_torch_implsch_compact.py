@@ -1,13 +1,18 @@
 """Kernel C's plain version, the compact entry, against ``ecwam_tpu``.
 
 ``implsch_cuda.implsch_compact`` (on the CPU its plain version
-``implsch_compact_plain``) against ``implsch_pallas(..., interpret=True)``
-on the compact (nang, nfre, n) spectrum of
+``implsch_compact_plain``) against the reference's compact kernel
+``implsch_pallas`` on the compact (nang, nfre, n) spectrum of
 tests/test_implsch_pallas.py:_problem, in minimal and full mode, both
 sides fed float64, at tests/test_implsch_pallas.py:171-192's bounds: rtol
 1e-6 on the spectrum and the stress rows, 1e-5 on phiocd, exact xllws and
-mij.  The CUDA kernel is held against the plain version in
-tests/test_torch_gpu.py.
+mij.  The reference kernel runs through its plain reference, the XLA
+chain with the kernel's packed inputs and outputs
+(``test_torch_implsch_full.reference_chain``): the reference's own tests
+pin the kernel to that chain (tests/test_implsch_pallas.py:
+_check_kernel_vs_direct), and interpreting the kernel here cost two
+minutes of the tier-1 run.  The CUDA kernel is held against the plain
+version in tests/test_torch_gpu.py.
 """
 
 import numpy as np
@@ -17,7 +22,7 @@ import pytest
 from ecwam_tpu.ops.physics import implsch_pallas as j_ipk
 from ecwam_tpu_torch.ops.physics import implsch_cuda as t_ipk
 from test_torch_implsch_full import (F64, NPTS, _assert_full_rows,  # noqa: F401
-                                     _port_cfg, _t, prob)
+                                     _port_cfg, _t, prob, reference_chain)
 
 
 @pytest.mark.parametrize("full", [False, True])
@@ -28,11 +33,9 @@ def test_compact_matches_interpret_kernel(prob, full):
     scal = np.asarray(j_ipk.pack_scal(
         {k: jnp.asarray(v) for k, v in p["frc"].items()},
         {k: jnp.asarray(v) for k, v in p["stress"].items()}, env, NPTS, F64))
-    res = j_ipk.implsch_pallas(p["cfg"] if full
-                               else j_ipk.minimal_config(p["cfg"]),
-                               jnp.asarray(p["fl"]), jnp.asarray(env2d),
-                               jnp.asarray(scal), full=full, tile=NPTS,
-                               interpret=True)
+    res = reference_chain(p["cfg"] if full
+                          else j_ipk.minimal_config(p["cfg"]),
+                          p["fl"], env2d, scal, full)
     got = t_ipk.implsch_compact(_port_cfg(p, full),
                                 *map(_t, (p["fl"], env2d, scal)), full=full)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(res[0]),

@@ -8,11 +8,17 @@ seed and handed to both packages:
   * the plain full chain ``implsch.implsch`` against the reference's, every
     state key, float64, at the minimal chain's bounds (rtol 1e-8, atol
     1e-14, tests/test_torch_physics.py);
-  * the SRL entry ``implsch_srl_plain(full=True)`` against
-    ``implsch_pallas_srl(full=True, interpret=True)``, both sides fed
-    float64, at tests/test_implsch_pallas.py:171-192's bounds: rtol 1e-6
-    on the spectrum and the stress rows, 1e-5 on phiocd, exact xllws and
-    mij (the compact entry: tests/test_torch_implsch_compact.py).
+  * the SRL entry ``implsch_srl_plain(full=True)`` against the reference's
+    SRL kernel ``implsch_pallas_srl(full=True)``, both sides fed float64,
+    at tests/test_implsch_pallas.py:171-192's bounds: rtol 1e-6 on the
+    spectrum and the stress rows, 1e-5 on phiocd, exact xllws and mij (the
+    compact entry: tests/test_torch_implsch_compact.py).  The reference
+    kernel runs through its plain reference, the XLA chain with the
+    kernel's packed inputs and outputs (:func:`reference_srl`): the
+    reference's own tests pin the kernel to that chain
+    (tests/test_implsch_pallas.py: _check_kernel_vs_direct and the SRL
+    layout tests), and interpreting the kernel here cost minutes of the
+    tier-1 run.
 The CUDA kernels are held against these plain versions in
 tests/test_torch_gpu.py.
 """
@@ -55,6 +61,38 @@ def prob():
 
 def _t(x):
     return torch.tensor(np.asarray(x, np.float64))
+
+
+def reference_chain(cfg, fl, env2d, scal, full):
+    """The reference's IMPLSCH kernels (``implsch_pallas``/``_srl``)
+    through their plain reference, the XLA chain ``impl.implsch``, with the
+    kernels' packed inputs (``pack_env``/``pack_scal`` rows) and outputs:
+    (fl1 (nang, nfre, n), the SCAL_OUT rows[, xllws]), in ``fl``'s dtype."""
+    nfre = cfg.tables.nfre
+    si = {k: jnp.asarray(scal[i]) for i, k in enumerate(j_ipk.SCAL_IN)}
+    env = {k: jnp.asarray(env2d[i * nfre:(i + 1) * nfre])
+           for i, k in enumerate(j_ipk.ENV_FIELDS)}
+    env.update(depth=si["depth"], emaxdpt=si["emaxdpt"])
+    frc = {k: si[k] for k in j_ipk.SCAL_IN[:j_ipk.N_FRC]}
+    stress = {k: si[k] for k in j_ipk.STRESS_KEYS}
+    out, st = jax.jit(lambda *a: j_impl.implsch(cfg, *a[:3], **a[3]))(
+        jnp.asarray(fl), env, frc, stress)
+    keys = j_ipk.SCAL_OUT_FULL if full else j_ipk.STRESS_KEYS
+    rows = jnp.stack([st[k].astype(out.dtype) if k in st else
+                      jnp.zeros_like(st["ufric"]) for k in keys])
+    return (out, rows) + ((st["xllws"],) if full else ())
+
+
+def reference_srl(cfg, f_srl, env2d, scal, tail, *, nang, nfre_red, full):
+    """:func:`reference_chain` on SRL rows: (f_srl, rows, tail[, xllws])
+    in the reference kernel's layout (without its lane pad)."""
+    nfre, nsrl = cfg.tables.nfre, f_srl.shape[0]
+    fl = np.concatenate([f_srl.reshape(nsrl, nang, nfre_red),
+                         tail.reshape(nsrl, nang, nfre - nfre_red)], axis=2)
+    res = reference_chain(cfg, fl.transpose(1, 2, 0), env2d, scal, full)
+    out = np.asarray(res[0]).transpose(2, 0, 1)
+    return ((out[:, :, :nfre_red].reshape(nsrl, -1), res[1],
+             out[:, :, nfre_red:].reshape(nsrl, -1)) + tuple(res[2:]))
 
 
 def _case(name, p):
@@ -162,11 +200,8 @@ def test_srl_full_matches_interpret_kernel(prob):
     nang, nfre, nred = p["tb"].nang, p["tb"].nfre, 20
     src, f_srl, tail, env2d, scal = _srl(p, nred)
     L, LT = nang * nred, nang * (nfre - nred)
-    pad = lambda a, w: np.pad(a, ((0, 0), (0, w - a.shape[1])))
-    res = j_ipk.implsch_pallas_srl(
-        p["cfg"], jnp.asarray(pad(f_srl, 256)), jnp.asarray(env2d),
-        jnp.asarray(scal), jnp.asarray(pad(tail, 128)), nang=nang,
-        nfre_red=nred, full=True, interpret=True)
+    res = reference_srl(p["cfg"], f_srl, env2d, scal, tail, nang=nang,
+                        nfre_red=nred, full=True)
     f_t, so_t, t_t, x_t = t_ipk.implsch_srl(
         _port_cfg(p, True), *map(_t, (f_srl, env2d, scal, tail)), nang=nang,
         nfre_red=nred, full=True)

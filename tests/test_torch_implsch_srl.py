@@ -3,9 +3,12 @@
 The port's SRL entry (``implsch_cuda.implsch_srl``; on the CPU its plain
 version) with the operational split nfre_red < nfre — the diagnostic
 tail block beside the SRL state — against ``ecwam_tpu``'s
-``implsch_pallas_srl(..., interpret=True)`` in float32, at the
-reference's bound for its substituted forms (rtol 2e-2, atol 1e-7,
-tests/test_implsch_pallas.py:99-112).  The CUDA kernel is held against
+``implsch_pallas_srl`` in float32, at the reference's bound for its
+substituted forms (rtol 2e-2, atol 1e-7, tests/test_implsch_pallas.py:
+99-112).  The reference kernel runs through its plain reference, the XLA
+chain with the kernel's packed inputs and outputs
+(``test_torch_implsch_full.reference_srl``), which the reference's own
+tests pin it to; interpreting it here cost minutes of the tier-1 run.  The CUDA kernel is held against
 the plain version in tests/test_torch_gpu.py.
 """
 
@@ -17,6 +20,7 @@ import test_implsch_pallas as tip
 from ecwam_tpu.ops.physics import implsch_pallas as j_ipk
 from ecwam_tpu_torch.ops.physics import implsch as t_impl
 from ecwam_tpu_torch.ops.physics import implsch_cuda as t_ipk
+from test_torch_implsch_full import reference_srl
 
 NANG, NFRE, NFRE_RED, NPTS = 12, 25, 20, 128
 
@@ -45,11 +49,8 @@ def _port_cfg(tb, cfg):
 def test_srl_step_matches_interpret_kernel():
     tb, cfg, f_srl, tail, env2d, scal = _rows()
     L, LT = NANG * NFRE_RED, NANG * (NFRE - NFRE_RED)
-    pad = lambda a, w: np.pad(a, ((0, 0), (0, w - a.shape[1])))
-    res = j_ipk.implsch_pallas_srl(
-        j_ipk.minimal_config(cfg), jnp.asarray(pad(f_srl, 256)),
-        jnp.asarray(env2d), jnp.asarray(scal), jnp.asarray(pad(tail, 128)),
-        nang=NANG, nfre_red=NFRE_RED, interpret=True)
+    res = reference_srl(j_ipk.minimal_config(cfg), f_srl, env2d, scal, tail,
+                        nang=NANG, nfre_red=NFRE_RED, full=False)
     f_t, s_t, t_t = t_ipk.implsch_srl(
         _port_cfg(tb, cfg), torch.tensor(f_srl), torch.tensor(env2d),
         torch.tensor(scal), torch.tensor(tail), nang=NANG, nfre_red=NFRE_RED)

@@ -24,6 +24,14 @@ from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ecwam_tpu_torch")
 
+# The tier-1 run (ROADMAP.md) runs 6 pytest workers.  PyTorch's default
+# of one intra-op thread per core gives each worker as many spinning
+# OpenMP threads as the machine has cores, and the port's CPU tests ran
+# three times slower for it (their tensors are small).  Every worker
+# imports every test module while it collects, so this sets one thread
+# for the port's tests in all of them.
+torch.set_num_threads(1)
+
 
 def _modules():
     return sorted(m.name for m in pkgutil.walk_packages(
@@ -79,6 +87,8 @@ def test_device_default_is_the_card():
 
 @pytest.mark.parametrize("source,enum,names", [
     ("implsch.cu", r"enum Par \{(.*?)NPAR", ipk.PAR_NAMES),
+    ("implsch.cu", r"enum Opt \{(.*?)\}", ipk.OPT_FLAGS),
+    ("implsch.cu", r"enum GcTab \{(.*?)NGCTAB", ipk.GC_TABLES),
     ("advect.cu", r"enum Lc \{(.*?)NLC", pcu.LC_ROWS)])
 def test_kernel_parameter_order_matches_wrapper(source, enum, names):
     with open(os.path.join(_build.CSRC, source)) as f:
