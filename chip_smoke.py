@@ -45,7 +45,19 @@ Phases (any failure raises and the script exits non-zero):
      steps and an output date through the kernels with their launch
      counts, kernel A and kernel B against plain as in phase 3, and the
      timing and profile of phase 4;
-  6. one JSON line with each kernel's launches, errors, times and bound;
+  6. the rest of the physics (``cases.LEGACY_CASES``: iphys=0 alone and
+     with CY49R1 on the golden grid; ISNONLIN 0 and 2, SDICE1, SDICE2,
+     LSTRN and LBIWBK/LICERUN/LMASKICE off on the shallow grid): one
+     physics step each, kernel against plain in both modes and through
+     kernel C; then, once the options' O320 model is freed,
+     ``cases.o320_legacy`` (iphys=0, ISNONLIN=2, SDICE1, LSTRN, polar ice,
+     a 20–980 m bottom): 4 steps and an output date through the kernels
+     with their launch counts, kernel B against plain on the slice in both
+     modes, and the timing and profile of phase 4;
+  7. kernel D, the op-class micro-benchmark (``tools/opclass.py``): each of
+     the nine classes at K=8 over 16,384 lanes against its plain version,
+     then timed at the reference's size (K=64 over 131,072 lanes);
+  8. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -68,6 +80,8 @@ gives the sound readings and those of deliberately broken kernels):
   golden statistics.log           average, minimum, maximum within
                                   GOLDEN_RTOL of the committed values
   kernel A's CFL retry mask       equal to the plain version's
+  kernel D                        equal for the layout classes, 1e-6 of
+                                  max for the others
 Physics rows whose FRCUTINDEX argument lies within TIE_WIDTH of a
 rounding tie (x.5, in float64) are held out of the physics tolerances:
 the cut index, and with it the stress, may round the other way in either
@@ -77,11 +91,15 @@ gravity-capillary closure, rows whose decision margin (``gc_margin`` of
 the plain chain in float64: a TAUT_Z0_GC convergence test, its x1 ≥ pmax
 test, or an NS_GC index step, see ``airsea.taut_z0_gc``) lies within
 GC_WIDTH of its edge are held out, at most GC_SHARE of the sea rows (on a
-small grid, at most one row).
+small grid, at most one row), and under ISNONLIN=2 the rows whose PEAK_ANG
+peak lies within PEAK_WIDTH (relative, float64, ``peak_margin``) of the
+next direction maximum, at most PEAK_SHARE of them: the peak, and with it
+the enhancement, may move in either float32 version.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +117,8 @@ TIE_WIDTH = 1e-5
 TIE_SHARE = 1e-3
 GC_WIDTH = 1e-4
 GC_SHARE = 1e-3
+PEAK_WIDTH = 1e-5
+PEAK_SHARE = 1e-3
 PHYS_ROWS = 32768
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
@@ -108,6 +128,26 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 
 def log(*a):
     print(*a, flush=True)
+
+
+def register_lines(text: str) -> list:
+    """Each kernel's registers and spills from ``nvcc -Xptxas=-v``, named
+    by its template (``implsch_kernel<FULL,COMPACT,OPTS,EXT,JAN>``)."""
+    out, name = [], "?"
+    for ln in text.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"\d([a-z][a-z_]*)I((?:L[bi]\d+E)+)E",
+                          m.group(1))
+            name = (f"{t.group(1)}<"
+                    + ",".join(re.findall(r"L[bi](\d+)E", t.group(2)))
+                    + ">" if t else m.group(1))
+        elif "registers" in ln:
+            out.append(f"{name}: " + ln.split(":", 1)[-1].strip())
+        elif "spill" in ln and not re.search(r"\b0 bytes spill stores, "
+                                             r"0 bytes spill loads", ln):
+            out.append(f"{name}: " + ln.split(":", 1)[-1].strip())
+    return out
 
 
 def card_line():
@@ -152,7 +192,7 @@ def bound(byte_count, ops):
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea,
+def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
                 gc_terms=0.0):
     """Float32 operations of the IMPLSCH chain on one row, counted by stage
     from csrc/implsch.cu.  Each add, subtract, multiply, min, max or
@@ -164,8 +204,10 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea,
     above the cut (IMPHFTAIL), ``shallow`` the share of rows shallower than
     BATHYMAX (SBOTTOM), ``windsea`` the share of bins in the windsea mask
     (the second FEMEANWS), ``gc_terms`` the mean number of gc wavenumbers
-    from the cut-off up (NWAV − NS, STRESS_GC); the sea-ice branches of the
-    default chain are left out.  The cycle-49/50 options add, per
+    from the cut-off up (NWAV − NS, STRESS_GC), ``ice`` the share of rows
+    with ice thicker than 0 (the SDICE1 lookup, its group speed and the
+    AKI_ICE steps of CIMSSTRN, which the kernel skips on open water); the
+    sea-ice branches of the default chain are left out.  The cycle-49/50 options add, per
     configuration flag: HALPHAP, TAUT_Z0_GC's two loops of NITER steps
     (the kernel, like the reference, runs all of them), STRESS_GC's
     wavenumber sum in each first-loop step and the TAU_PHI_HF cut-off
@@ -230,6 +272,39 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea,
     if cfg.lciwa3 or cfg.lciscal:
         # the group speed per frequency (15) and 6 a bin
         ops += 15 * f + 6 * nb
+    if p.iphys == 0:
+        # SINPUT_JAN in place of SINPUT ARD: call 1 one gust (23 a bin),
+        # call 2 two gusts and the negative part (45 a bin), the
+        # per-frequency scalars; SDISSIP_JAN (8 a bin) in place of SDISSIP
+        # ARD; the first FKMEAN's mean wavenumbers (2 sums)
+        ops -= (10 + 21 * f + 35 * nb) + (71 + 51 * f + 76 * nb)
+        ops += (10 + 15 * f + 23 * nb) + (20 + 30 * f + 45 * nb)
+        ops -= f * (2 * a * a + 12 * a + 9)
+        ops += 8 * nb + 10 + (8 * f + 10)
+    if cfg.isnonlin == 0:
+        # one factor from depth and akmean for every MC, not TRANSF
+        ops += 8 * f + 10 + 15 - 54 * ml
+    if cfg.isnonlin == 2:
+        # PEAK_ANG: column sums and maxima, three moments, the peak, and
+        # the 2·NSH+1 window steps (direction sums, THMEAN, the 2·sin²
+        # sum, 13 a direction and 15 a step); TRANSF_SNL (70 a MC) for
+        # TRANSF (54)
+        nsh = 1 + int(np.log(1.5) / np.log(cfg.tables.fratio))
+        ops += 2 * nb + 6 * f + 15 + f + (2 * nsh + 1) * (13 * a + 15)
+        ops += 16 * ml
+    if cfg.lciwa1:
+        # SDICE1: the floe size (30), 4 a bin; on iced rows the lookup and
+        # rate per frequency (30) and the group speed (15)
+        ops += 30 + 4 * nb + ice * (30 * f + (0 if cfg.lciwa3 else 15 * f))
+    if cfg.lciwa2:
+        # SDICE2: 9 a bin
+        ops += 9 * nb + (0 if cfg.lciwa3 or cfg.lciwa1 else 15 * f)
+    if full and cfg.lstrn:
+        # CIMSSTRN: a column sum and the strain per frequency (8); on iced
+        # rows AKI_ICE's start (15) and 25 Newton steps (22 each)
+        ops += nb + 8 * f + ice * f * (15 + 25 * 22)
+    if not cfg.lbiwbk:
+        ops -= (3 * nb + 2 * f + 5) + 190 + cfg.nfre_red * a * 3
     return ops
 
 
@@ -259,20 +334,36 @@ def o320_model(dev):
     return ms, driver.FastWaveModel(ms, lambda date14: wind, cases.START)
 
 
-def slice_check(ms, model, dev, full, above_cut):
+def ice_slice(ms) -> int:
+    """The first SRL row of the PHYS_ROWS-row slice with the most rows in
+    the partly iced band 60° < |φ| < 75° (cicover strictly between 0 and
+    1 in ``cases.o320_options``/``o320_legacy``)."""
+    import numpy as np
+    from ecwam_tpu_torch.model import cases
+    lat, _ = cases.point_latlon(ms.grid, ms.blk)
+    la = np.zeros(ms.n_pad + 1)
+    la[:ms.n_real] = np.abs(lat)
+    la = la[np.asarray(ms.fused.srl_src)]
+    c = np.concatenate([[0], np.cumsum((la > 60.0) & (la < 75.0))])
+    n = min(PHYS_ROWS, la.size)
+    return int(np.argmax(c[n:] - c[:-n]))
+
+
+def slice_check(ms, model, dev, full, above_cut, r0=None):
     """Kernel B against the plain chain on the sea rows of a
-    PHYS_ROWS-row slice of the model's state, in minimal or full mode;
-    then, on the same rows as a compact (nang, nfre, rows) spectrum,
-    kernel C against its plain version and against kernel B.  Returns the
-    readings, with the operations bound counted for ``above_cut`` (see
-    :func:`implsch_ops`) and this step's windsea mask."""
+    PHYS_ROWS-row slice of the model's state (from row ``r0``, by default
+    the middle row), in minimal or full mode; then, on the same rows as a
+    compact (nang, nfre, rows) spectrum, kernel C against its plain
+    version and against kernel B.  Returns the readings, with the
+    operations bound counted for ``above_cut`` (see :func:`implsch_ops`)
+    and this step's windsea mask."""
     import torch
     from ecwam_tpu_torch.core.dispersion import BATHYMAX
     from ecwam_tpu_torch.model import cases
     from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
     ft, fp = ms.fused, model.fp
     cfg = ms.phys if full else ipk.minimal_config(ms.phys)
-    r0 = ft.nsrl // 2
+    r0 = ft.nsrl // 2 if r0 is None else r0
     rows = slice(r0, r0 + PHYS_ROWS)
     scal = torch.cat([model._frc6, model._denv, model._stress6])
     args = (model._f_srl[rows], model._env2d[:, rows].contiguous(),
@@ -314,33 +405,53 @@ def slice_check(ms, model, dev, full, above_cut):
     if full:
         off_row |= err[nst:].amax(0) > FULL_ROW_TOL
     off = torch.nonzero(sea & off_row).flatten()
-    tie = torch.zeros_like(sea)
-    gc = torch.zeros_like(sea)
-    gc_m = torch.zeros(0, dtype=torch.float64, device=dev)
+    tie, gc, peak = (torch.zeros_like(sea) for _ in range(3))
+    gc_m = pk_m = torch.zeros(0, dtype=torch.float64, device=dev)
     n_sea = int(sea.sum())
-    if 0 < off.numel() <= (TIE_SHARE + GC_SHARE) * n_sea:
-        ins = [x.double() for x in (args[0][off], args[1][:, off],
-                                    args[2][:, off], args[3][off])]
-        dist = ipk.frcut_tie(cfg, *ins, nang=fp.nang, nfre_red=fp.nfre_red)
+    if 0 < off.numel() <= (TIE_SHARE + GC_SHARE + PEAK_SHARE) * n_sea:
+        st = cases.srl_state(cfg, *args, nang=fp.nang, nfre_red=fp.nfre_red,
+                             rows=off)
+        dist = st["frcut_tie"]
         tie[off[dist < TIE_WIDTH]] = True
-        if cfg.params.llgcbz0:
+        if "gc_margin" in st:
             # a TAUT_Z0_GC loop that may leave at another iteration (or a
             # cut-off index step) in either float32 version
-            gc_m = ipk.gc_margin(cfg, *ins, nang=fp.nang,
-                                 nfre_red=fp.nfre_red)
+            gc_m = st["gc_margin"]
             gc[off[(gc_m < GC_WIDTH) & (dist >= TIE_WIDTH)]] = True
-    keep = sea & ~tie & ~gc
+        if "peak_margin" in st:
+            # a PEAK_ANG peak that may move to another direction maximum
+            pk_m = st["peak_margin"]
+            peak[off[(pk_m < PEAK_WIDTH) & (dist >= TIE_WIDTH)
+                     & ~gc[off]]] = True
+    keep = sea & ~tie & ~gc & ~peak
     spec = [rel_max(got[0][keep], want[0][keep]),
             rel_max(got[2][keep], want[2][keep])]
     held_m = gc_m[gc[off]] if gc.any() else gc_m[:0]
+    held_p = pk_m[peak[off]] if peak.any() else pk_m[:0]
     r = dict(n_sea=n_sea, n_tie=int(tie.sum()), n_gc=int(gc.sum()),
-             n_off=off.numel() - int(tie.sum()) - int(gc.sum()),
+             n_peak=int(peak.sum()),
+             n_off=(off.numel() - int(tie.sum()) - int(gc.sum())
+                    - int(peak.sum())),
              tie_stress=float(s_row[tie].max()) if tie.any() else 0.0,
              gc_stress=float(s_row[gc].max()) if gc.any() else 0.0,
              gc_margin=float(held_m.max()) if held_m.numel() else 0.0,
+             peak_err=float(s_row[peak].max()) if peak.any() else 0.0,
+             peak_margin=float(held_p.max()) if held_p.numel() else 0.0,
              spec_rel=max(s[0] for s in spec),
              spec_abs=max(s[1] for s in spec),
              stress_rel=float(s_row[keep].max()))
+    if cfg.isnonlin == 2:
+        # PEAK_WIDTH's reading: how near a tie the peaks of the rows that
+        # agree came without moving — their smallest margin (0 where two
+        # direction maxima are equal in float64), their smallest nonzero
+        # one, and how many lie within PEAK_WIDTH
+        pm = cases.srl_state(cfg, *args, nang=fp.nang, nfre_red=fp.nfre_red,
+                             rows=torch.nonzero(keep).flatten())[
+                                 "peak_margin"]
+        r["peak_sound"] = dict(
+            min=float(pm.min()),
+            min_nonzero=float(pm[pm > 0].min()) if (pm > 0).any() else 0.0,
+            zero=int((pm == 0).sum()), within=int((pm < PEAK_WIDTH).sum()))
     if full:
         rk = err[:, keep].amax(1)
         r["rows"] = {k: float(rk[i]) for i, k in enumerate(ipk.SCAL_OUT_FULL)}
@@ -356,10 +467,12 @@ def slice_check(ms, model, dev, full, above_cut):
     r["bytes"] = nbytes(*args, *args[::3], *got[1:2], *(got[3:] if full
                                                          else ()))
     depth = ipk.SCAL_IN.index("depth")
+    cithick = ipk.SCAL_IN.index("cithick")
     windsea = float(got[3][..., sea].mean()) if full else 0.0
     data = dict(above_cut=above_cut, windsea=windsea,
                 shallow=float((args[2][depth] < BATHYMAX).double().mean()),
-                gc_terms=gc_terms(got[1][0][sea]))
+                gc_terms=gc_terms(got[1][0][sea]),
+                ice=float((args[2][cithick] > 0).double().mean()))
     r["ops"] = PHYS_ROWS * implsch_ops(cfg, fp.nang, full, **data)
 
     # kernel C on the same rows in the compact layout
@@ -400,6 +513,7 @@ def slice_check(ms, model, dev, full, above_cut):
         r["all_rows_ms"] = cuda_ms(lambda _: run_kernel(all_rows), 3)
     keys = ipk.SCAL_OUT_FULL if full else ipk.SCAL_OUT_MIN
     data["shallow"] = float((scal[depth] < BATHYMAX).double().mean())
+    data["ice"] = float((scal[cithick] > 0).double().mean())
     data["gc_terms"] = gc_terms(model._stress6[0])
     r["all_rows_bound"] = bound(
         nbytes(*all_rows, *all_rows[::3]) + 4 * ft.nsrl * (
@@ -411,6 +525,7 @@ def slice_check(ms, model, dev, full, above_cut):
 def check_slice(r, full, name):
     ok = (r["n_off"] == 0 and r["n_tie"] <= TIE_SHARE * r["n_sea"]
           and r["n_gc"] <= GC_SHARE * r["n_sea"]
+          and r["n_peak"] <= PEAK_SHARE * r["n_sea"]
           and r["spec_rel"] <= PHYS_TOL and r["stress_rel"] <= STRESS_TOL)
     if full:
         ok = ok and (max(v for k, v in r["rows"].items()) <= FULL_ROW_TOL
@@ -516,42 +631,10 @@ def options_phase(dev) -> dict:
             raise AssertionError(f"advect {name}: kernel disagrees")
 
     # kernel B and C with the options on the small grids
-    for name, kw, frc in (("shallow cy50r1", cases.shallow_kw(True),
-                           cases.shallow_ice),
-                          ("golden cy49r1", dict(cases.golden_kw(),
-                                                 **cases.CY49R1),
-                           cases.storm)):
-        gc = dict(gc_width=GC_WIDTH, off_tol=STRESS_TOL)
-        spec, stress, held = cases.physics_kernel_vs_plain(
-            kw, dev, forcing=frc, **gc)
-        f = cases.full_kernel_vs_plain(kw, dev, width=MASK_WIDTH,
-                                       forcing=frc, **gc)
-        cap = max(1.0, GC_SHARE * f["n"])
-        worst = max(f["rows"], key=f["rows"].get)
-        log(f"{name} physics step, kernel vs plain: minimal spectrum "
-            f"{spec:.3e}, stress {stress:.3e}; full spectrum {f['spec']:.3e},"
-            f" worst row {worst} {f['rows'][worst]:.3e}; xllws "
-            f"{f['xllws']} bins on the edge, {f['off_edge']} off it; rows "
-            f"held on a gc edge {held} / {f['held']} of {f['n']} (width "
-            f"{GC_WIDTH})")
-        ok = (spec <= PHYS_TOL and stress <= STRESS_TOL
-              and f["spec"] <= PHYS_TOL and f["rows"][worst] <= FULL_ROW_TOL
-              and f["off_edge"] == 0
-              and f["xllws"] <= XLLWS_SHARE * f["bins"]
-              and max(held, f["held"]) <= cap)
-        for full in (False, True):
-            c = cases.compact_kernel_vs_plain(kw, dev, full=full,
-                                              width=MASK_WIDTH, forcing=frc,
-                                              **gc)
-            log(f"{name} compact entry {'full' if full else 'minimal'}: "
-                f"spectrum {c['spec']:.3e}, rows {c['rows']:.3e}, xllws "
-                f"off the edge {c['off_edge']}, held {c['held']}")
-            ok = ok and (c["spec"] <= PHYS_TOL and c["off_edge"] == 0
-                         and c["rows"] <= (FULL_ROW_TOL if full
-                                           else STRESS_TOL)
-                         and c["held"] <= cap)
-        if not ok:
-            raise AssertionError(f"{name}: physics kernel disagrees")
+    small_case("shallow cy50r1", cases.shallow_kw(True), dev,
+               forcing=cases.shallow_ice)
+    small_case("golden cy49r1", dict(cases.golden_kw(), **cases.CY49R1),
+               dev, forcing=cases.storm)
 
     # O320 with the options: the main path through the kernels
     t0 = time.perf_counter()
@@ -660,6 +743,204 @@ def options_phase(dev) -> dict:
                 full=sl["full"])
 
 
+def small_case(name, kw, dev, *, forcing=None, phys=None):
+    """One physics step of a small grid, kernel B (both modes) and kernel
+    C (both modes) against plain, with the gravity-capillary and
+    peak-tie hold-outs; raises on a disagreement."""
+    from ecwam_tpu_torch.model import cases
+    hold = dict(gc_width=GC_WIDTH, peak_width=PEAK_WIDTH, off_tol=STRESS_TOL,
+                forcing=forcing, phys=phys)
+    spec, stress, held = cases.physics_kernel_vs_plain(kw, dev, **hold)
+    f = cases.full_kernel_vs_plain(kw, dev, width=MASK_WIDTH, **hold)
+    cap = max(1.0, max(GC_SHARE, PEAK_SHARE) * f["n"])
+    worst = max(f["rows"], key=f["rows"].get)
+    log(f"{name} physics step, kernel vs plain: minimal spectrum "
+        f"{spec:.3e}, stress {stress:.3e}; full spectrum {f['spec']:.3e}, "
+        f"worst row {worst} {f['rows'][worst]:.3e}, strnms "
+        f"{f['rows']['strnms']:.3e}; xllws {f['xllws']} bins on the edge, "
+        f"{f['off_edge']} off it; rows held on a gc edge or peak tie "
+        f"{held} / {f['held']} of {f['n']}")
+    ok = (spec <= PHYS_TOL and stress <= STRESS_TOL
+          and f["spec"] <= PHYS_TOL and f["rows"][worst] <= FULL_ROW_TOL
+          and f["off_edge"] == 0 and f["xllws"] <= XLLWS_SHARE * f["bins"]
+          and max(held, f["held"]) <= cap)
+    for full in (False, True):
+        c = cases.compact_kernel_vs_plain(kw, dev, full=full,
+                                          width=MASK_WIDTH, **hold)
+        log(f"{name} compact entry {'full' if full else 'minimal'}: "
+            f"spectrum {c['spec']:.3e}, rows {c['rows']:.3e}, xllws off "
+            f"the edge {c['off_edge']}, held {c['held']}")
+        ok = ok and (c["spec"] <= PHYS_TOL and c["off_edge"] == 0
+                     and c["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
+                     and c["held"] <= cap)
+    if not ok:
+        raise AssertionError(f"{name}: physics kernel disagrees")
+
+
+def legacy_phase(dev) -> dict:
+    """Phase 6 (see the module docstring); returns the readings of the
+    kernels line's legacy entries."""
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch.model import cases
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+
+    for name in cases.LEGACY_CASES:
+        c = cases.legacy_case(name)
+        small_case(name, c["kw"], dev, forcing=c["forcing"], phys=c["phys"])
+
+    t0 = time.perf_counter()
+    ms, model = cases.o320_legacy(dev)
+    ft = ms.fused
+    depth = ms.env["depth"][:ms.n_real]
+    log(f"O320 legacy build {time.perf_counter() - t0:.1f} s: iphys "
+        f"{ms.phys.params.iphys}, isnonlin {ms.phys.isnonlin}, lciwa1 "
+        f"{ms.phys.lciwa1}, lstrn {ms.phys.lstrn}; depth "
+        f"{float(depth.min()):.1f}–{float(depth.max()):.1f} m")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pcu.advect.launches = 0
+    ipk.implsch_srl.launches = 0
+    ipk.implsch_srl.full_launches = 0
+    steps = []
+    for _ in range(4):
+        t_p, t_f = model.timers.propag, model.timers.phys
+        model.advance(1)
+        steps.append((model.timers.propag - t_p, model.timers.phys - t_f))
+    model.advance(1)
+    t_f = model.timers.phys
+    model.advance(1, full_phys=True)
+    t_full = model.timers.phys - t_f
+    launches = dict(advect=pcu.advect.launches,
+                    implsch=ipk.implsch_srl.launches,
+                    implsch_full=ipk.implsch_srl.full_launches)
+    n = ms.n_real
+    st = model.state
+    norms = {k: (float(v[:n].mean()), float(v[:n].min()), float(v[:n].max()))
+             for k, v in (("swh", torch.as_tensor(model.swh())),
+                          ("esea", st["sep"]["esea"]),
+                          ("ufric", st["ufric"]), ("strnms", st["strnms"]))}
+    log("O320 legacy steps (t_propag s, t_phys s): "
+        + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in steps)
+        + f"; output date t_phys {t_full:.4f} s; launches {launches}; "
+        f"peak allocation {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+        f" norms (avg, min, max) "
+        + ", ".join(f"{k} {v}" for k, v in norms.items()))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"O320 legacy bypassed a kernel: {launches}")
+    if not all(np.isfinite(v).all() for v in norms.values()):
+        raise AssertionError("O320 legacy norms not finite")
+    if not (norms["swh"][1] > 0 and norms["ufric"][1] > 0
+            and norms["strnms"][2] > 0):
+        raise AssertionError("O320 legacy: no wave height, u* or ice strain")
+    above_cut = ms.tb.nfre - 1 - float(st["mij"][:n].double().mean())
+
+    # the slice with the most partly iced rows, where SDICE1 and the
+    # strain act
+    r0 = ice_slice(ms)
+    ci = model._frc6[ipk.SCAL_IN.index("cicover")][r0:r0 + PHYS_ROWS]
+    log(f"O320 legacy slice from SRL row {r0}: {int((ci > 0).sum())} of "
+        f"{PHYS_ROWS} rows iced, {int(((ci > 0) & (ci < 1)).sum())} partly")
+    sl = {}
+    for full in (False, True):
+        mode = "full" if full else "minimal"
+        r = sl[mode] = slice_check(ms, model, dev, full, above_cut, r0)
+        log(f"implsch {mode} legacy ({PHYS_ROWS} rows): kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; spectrum "
+            f"{r['spec_abs']:.3e} = {r['spec_rel']:.3e} of max, stress "
+            f"{r['stress_rel']:.3e}"
+            + (f", rows " + ", ".join(f"{k} {v:.2e}"
+                                      for k, v in r["rows"].items())
+               + f"; xllws {r['xllws']} of {r['xllws_bins']} bins on the "
+               f"edge, {r['xllws_off']} off it (largest |margin| "
+               f"{r['margin']:.3e})" if full else "")
+            + f"; {r['n_tie']} FRCUTINDEX ties, {r['n_peak']} of "
+            f"{r['n_sea']} rows on a peak tie (off by up to "
+            f"{r['peak_err']:.3e}, largest margin {r['peak_margin']:.3e}, "
+            f"width {PEAK_WIDTH}; rows that agree: smallest margin "
+            f"{r['peak_sound']['min']:.3e}, smallest nonzero "
+            f"{r['peak_sound']['min_nonzero']:.3e}, "
+            f"{r['peak_sound']['zero']} at 0, "
+            f"{r['peak_sound']['within']} within the width), "
+            f"{r['n_off']} other rows off"
+            + (f"; kernel on all rows {r['all_rows_ms']:.3f} ms"
+               if not full else "")
+            + f"; bound on all rows {r['all_rows_bound'][0]:.3f} ms "
+            f"({r['all_rows_bound'][1]}); compact: spectrum "
+            f"{r['compact']['spec_rel']:.3e}, same as SRL "
+            f"{r['compact']['same_as_srl']}")
+        check_slice(r, full, f"implsch {mode} legacy")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.advance(8)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 8
+    bins = ms.n_real * ms.tb.nang * ms.tb.nfre
+    names = dict(advect=lambda s: "advect" in s,
+                 implsch=lambda s: "implsch_kernel<false" in s,
+                 implsch_full=lambda s: "implsch_kernel<true" in s)
+    a0 = pcu.advect.launches
+    wall, split, busy = profile(lambda: model.advance(4), names)
+    log(f"O320 legacy steady state: mean step {step_s * 1e3:.3f} ms over 8 "
+        f"steps = {bins / step_s / 1e9:.3f} Gbins/s; profiled 4 steps "
+        f"({pcu.advect.launches - a0} advection launches by the wrapper's "
+        f"count): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f} %); "
+        + ", ".join(f"{k} {t:.3f} ms in {n_} launches"
+                    for k, (t, n_) in split.items()))
+    model.advance(1)
+    wall, split, busy = profile(lambda: model.advance(1, full_phys=True),
+                                names)
+    log(f"O320 legacy profiled output date: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms; "
+        + ", ".join(f"{k} {t:.3f} ms in {n_} launches"
+                    for k, (t, n_) in split.items())
+        + f"; the rest {busy - sum(t for t, _ in split.values()):.3f} ms")
+    return dict(launches=launches, minimal=sl["minimal"], full=sl["full"])
+
+
+def opclass_phase(dev) -> list:
+    """Phase 7: kernel D, each op class at K=8 over 16,384 lanes against
+    its plain version, then at the reference's size (K=64 over 131,072
+    lanes) one call against plain and one timed run of 8 chained calls;
+    returns the readings."""
+    import torch
+    from ecwam_tpu_torch.tools import opclass as oc
+    x = oc.start(128 * 1024, dev)
+    small = x[..., :16384].contiguous()
+    checks = {name: oc.check(name, small, 8) for name in oc.CLASSES}
+    del small
+    out = []
+    oc.opclass.launches = 0
+    for name in oc.CLASSES:
+        big = oc.check(name, x, 64)
+        n0 = oc.opclass.launches
+        r = oc.measure(name, x, 64, 8)
+        r.update(launches=oc.opclass.launches - n0, **checks[name])
+        r["max_abs_err"] = max(r["max_abs_err"], big["max_abs_err"])
+        r["max_rel_err"] = max(r["max_rel_err"], big["max_rel_err"])
+        r["ok"] = r["ok"] and big["ok"]
+        out.append(r)
+        tol = "exact" if name in oc.LAYOUT else "tol 1e-6"
+        log(f"opclass {name}: K=8 check max|k-p| "
+            f"{checks[name]['max_abs_err']:.3e} = "
+            f"{checks[name]['max_rel_err']:.3e} of max, K=64 check "
+            f"{big['max_abs_err']:.3e} = {big['max_rel_err']:.3e} of max "
+            f"({tol}); K=64 over {r['lanes']} lanes: kernel "
+            f"{r['ms']:.3f} ms = {r['ns_per_app_tile']:.3f} ns/app/tile, "
+            f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']}; bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}: hbm {r['hbm_ms']:.3f},"
+            f" ops {r['ops_ms']:.3f}, smem {r['smem_ms']:.3f}) = "
+            f"{100 * r['share']:.1f} %; {r['launches']} launches")
+        if not r["ok"]:
+            raise AssertionError(f"opclass {name}: kernel disagrees")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -689,9 +970,7 @@ def main():
     logs = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (sec, text) in logs.items():
-        regs = [ln.strip() for ln in text.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"  {name}: {sec:.1f} s; " + " | ".join(regs))
+        log(f"  {name}: {sec:.1f} s; " + " | ".join(register_lines(text)))
 
     # ---- 2. small configurations -----------------------------------------
     err, launched = cases.golden_kernel_vs_plain(dev)
@@ -898,7 +1177,17 @@ def main():
     torch.cuda.empty_cache()
     op = options_phase(dev)
 
-    # ---- 6. report ---------------------------------------------------------
+    # ---- 6. the rest of the physics (the options' O320 model freed first)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lg = legacy_phase(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 7. kernel D, the op-class micro-benchmark
+    od = opclass_phase(dev)
+
+    # ---- 8. report ---------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)
@@ -938,11 +1227,33 @@ def main():
               "ecwam_tpu/ops/physics/implsch_pallas.py:381",
               op["launches"]["implsch_full"], ofu["spec_abs"], ofu["ms"],
               ofu["plain_ms"], ofu["bytes"], ofu["ops"])]
+    lmn, lfu = lg["minimal"], lg["full"]
+    kernels += [
+        entry("implsch_minimal_legacy", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+              lg["launches"]["implsch"], lmn["spec_abs"], lmn["ms"],
+              lmn["plain_ms"], lmn["bytes"], lmn["ops"]),
+        entry("implsch_full_legacy", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+              lg["launches"]["implsch_full"], lfu["spec_abs"], lfu["ms"],
+              lfu["plain_ms"], lfu["bytes"], lfu["ops"])]
     kernels[0]["max_rel_err"] = a_rel
     kernels[4]["max_rel_err"] = oa[0]
     for e, r in zip(kernels[1:4] + kernels[5:],
-                    (mn, fu, fu["compact"], omn, ofu)):
+                    (mn, fu, fu["compact"], omn, ofu, lmn, lfu)):
         e["max_rel_err"] = r["spec_rel"]
+    for r in od:
+        kernels.append(dict(
+            name=f"opclass_{r['name']}", route="cuda",
+            source="ecwam_tpu_torch/csrc/opclass.cu",
+            replaces="scripts/mosaic_opclass.py:63", launches=r["launches"],
+            max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"],
+            bound_by="operations" if r["bound_by"] == "ops" else "bytes",
+            bound_of=r["bound_by"], library_ms=r["library_ms"],
+            hbm_bound_ms=r["hbm_ms"],
+            ns_per_app_tile=r["ns_per_app_tile"]))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

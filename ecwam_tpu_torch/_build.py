@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(
     "build", "ecwam_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("advect", "implsch")
+SOURCES = ("advect", "implsch", "opclass")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -47,6 +47,34 @@
 //    open-water fraction and the h^1.25·f^4.5 ice attenuation, with the
 //    group speed derived from (k, d).
 //
+// The rest of the reference's physics (template flag EXT, instantiated
+// with OPTS, so that the default and OPTS instantiations keep their code;
+// the options are further bits of ``opts``):
+//  * iphys=0 (template flag JAN, with EXT): Janssen's SINPUT_JAN in place
+//    of SINPUT ARD, frequency-parallel, the same per-frequency loop with
+//    the lanes over directions and warp sums for LLNORMAGAM and the
+//    STRESSO/FEMEANWS sums; the cycle-4 SDISSIP_JAN in place of SDISSIP
+//    ARD.  Its STRESSO has no sheltering: iphys=0 sets TAUWSHELTER = 0,
+//    and STRESSO's sheltered branch with TAUWSHELTER = 0 is the
+//    reference's LTAUWSHELTER = .FALSE. branch (the stress is the
+//    wind's, the tail integrand's u* constant);
+//  * ISNONLIN=0, the DIA enhancement from depth and the mean wavenumber;
+//    ISNONLIN=2, TRANSF_SNL with PEAK_ANG's spreads: the peak is the
+//    lowest-index maximum over (k, m = 1..nfre−2) — lane maxima, then a
+//    warp reduction that keeps the lowest index on ties — and the window
+//    of 2·NSH+1 frequencies updates THMEAN in order, each step closed by
+//    warp sums; 1 − r1 is accumulated as Σ 2·sin²(Δθ/2)·F·Δf, free of
+//    cancellation for narrow spectra;
+//  * SDICE1 (a bilinear lookup per frequency in the 16×36 CIDEAC table
+//    in global memory, through the read-only cache, and the per-row floe
+//    size) and SDICE2 (per bin), before SDICE3, as the reference orders
+//    them;
+//  * CIMSSTRN (full mode, LSTRN): AKI_ICE's 25 Newton steps, one lane per
+//    frequency, on the spectrum after SETICE;
+//  * the switches: LBIWBK off drops SDEPTHLIM and SDIWBK; LICERUN off the
+//    LCISCAL scaling, SDICE, the sea-ice flux and Stokes branches and
+//    SETICE; LMASKICE off SETICE.
+//
 // What bounds it: arithmetic and transcendentals.  Its only bulk traffic
 // is one read and one write of each spectrum row (≈2·nang·nfre·4 bytes);
 // everything else is a few hundred bytes of per-row env/forcing.  The
@@ -99,12 +127,21 @@ enum Par {
   P_RNUKAPPAM1, P_SQRTGOSURFT, P_XKM0, P_XLOGKRATIOM1, P_ACDLIN, P_BCDLIN,
   P_ALPHAMAX, P_CONSTN, P_CDICE2, P_LOGFR_LAST, P_FR_NM3, P_HALP_TAIL,
   P_G4PI,
+  // iphys=0, ISNONLIN 0/2, SDICE1/2 and CIMSSTRN
+  P_CONSS, P_DELTA_SDIS, P_CVIS, P_CONST3, P_XKAPPAD, P_NSH, P_COEF_FR2,
+  P_XKDMIN, P_TICMIN, P_DTIC, P_NICT, P_HICMIN, P_DHIC, P_NICH, P_CDICWA,
+  P_FICSTF_C, P_RDH_C, P_AKI_MAX, P_F1LIM,
   NPAR
 };
 
 // option bits of ``opts``, in the order of implsch_cuda.OPT_FLAGS
 enum Opt { OPT_LLGCBZ0 = 1, OPT_LLNORMAGAM = 2, OPT_LLCAPCHNK = 4,
-           OPT_LCIWA3 = 8, OPT_LCISCAL = 16 };
+           OPT_LCIWA3 = 8, OPT_LCISCAL = 16,
+           OPT_IPHYS0 = 32, OPT_ISNONLIN0 = 64, OPT_ISNONLIN2 = 128,
+           OPT_LCIWA1 = 256, OPT_LCIWA2 = 512, OPT_LSTRN = 1024,
+           OPT_NO_LBIWBK = 2048, OPT_NO_LICERUN = 4096,
+           OPT_NO_LMASKICE = 8192 };
+constexpr int OPT_EXT = 32 * 511;            // the EXT instantiations' bits
 
 // gravity-capillary tables (NWAV each), in the order of
 // implsch_cuda.GC_TABLES
@@ -113,7 +150,7 @@ enum GcTab { G_LOGXK, G_CM, G_OM3GMKM, G_XKMSQRTVGOC2, G_DELKCC_OMXKM3,
 
 // per-frequency tables following the parameters, in this order
 enum FreqTab { T_FR, T_DFIM, T_DFIMOFR, T_DFIMFR, T_ZPIFR, T_FR5, T_COFRM4,
-               T_RHOWG, T_FLMAX, T_DFIMSIM, T_FR45, NFREQTAB };
+               T_RHOWG, T_FLMAX, T_DFIMSIM, T_FR45, T_DFIMFR2, NFREQTAB };
 
 // rows of the full-mode output block, in the order of
 // implsch_cuda.SCAL_OUT_FULL (the first 6 are the minimal mode's)
@@ -147,6 +184,7 @@ struct Tabs {
   const int* im1; const int* ikm; const int* ikm1; const int* ikp;
   const int* ikp1; const int* shifts;
   int nang, nfre, nred, mlsthg, niab, nwav, opts;
+  const float* dfimfr2; const float* cideac;   // EXT only
 };
 
 // sum over the warp, the same value (lane 0's) on every lane
@@ -858,14 +896,56 @@ __device__ void sdissip_ard(const Tabs& T, const Work& W, int lane) {
   __syncwarp();
 }
 
-// SNONLIN DIA with the TRANSF enhancement (snonlin.F90:70-470)
-__device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth) {
+// TRANSF_SNL (transf_snl.F90:30-85): TRANSF with the spread dependence
+// of PEAK_ANG's ν and σθ, clipped to [0.1, 10]
+__device__ float transf_snl(const float* P, float xk0, float depth,
+                            float xnu, float sig_th) {
+  const float x0 = xk0 * depth;
+  const float xk = fmaxf(xk0, P[P_XKDMIN] / depth);
+  const float x = fminf(xk * depth, P[P_DKMAX]);
+  const float t0 = tanhf(x);
+  const float t0sq = t0 * t0;
+  const float om = sqrtf(P[P_G] * xk * t0);
+  const float c0 = om / xk;
+  const float cs_sq = P[P_G] * depth;
+  const float vg = x < 1.0e-4f
+      ? c0 : 0.5f * c0 * (1.f + 2.f * x / sinhf(2.f * x));
+  const float vg_sq = vg * vg;
+  const float a = t0 - x * (1.f - t0sq);
+  const float dvg = a * a + 4.f * (x * x) * t0sq * (1.f - t0sq);
+  const float xnl1 = (9.f * (t0sq * t0sq) - 10.f * t0sq + 9.f)
+      / (8.f * t0sq * t0);
+  const float b = 2.f * vg - 0.5f * c0;
+  const float xnl2 = (b * b / (cs_sq - vg_sq) + 1.f) / x;
+  const float e = 2.f * c0 + vg * (1.f - t0sq);
+  const float xnl4 = 1.f / (4.f * t0) * (e * e) / (cs_sq - vg_sq);
+  const float alp = (1.f - vg_sq / cs_sq) * (c0 * c0) / vg_sq;
+  const float s2 = sig_th * sig_th;
+  const float zfac = s2 / (s2 + alp * (xnu * xnu));
+  const float xnl = xnl1 - xnl2 + zfac * xnl4;
+  const float t4 = t0sq * t0sq;
+  const float val = fminf(fmaxf(xnl * xnl / (dvg * (t4 * t4)), 0.1f), 10.f);
+  const bool on = depth < P[P_BATHYMAX] && depth > 0.f && x0 <= P[P_DKMAX];
+  return on ? val : 1.f;
+}
+
+// SNONLIN DIA with the TRANSF enhancement (snonlin.F90:70-470); EXT adds
+// ISNONLIN=0 (one factor ``enhfr`` for every MC) and ISNONLIN=2
+// (TRANSF_SNL with PEAK_ANG's ``xnu`` and ``sig_th``)
+template <bool EXT>
+__device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
+                        float enhfr, float xnu, float sig_th) {
   const float* P = T.par;
   const int nang = T.nang, nfre = T.nfre, ml = T.mlsthg;
   for (int mc = lane; mc < ml; mc += 32) {
     const float xk = mc < nfre ? W.wav[mc] : T.xk_ext[mc - nfre];
-    W.enh[mc] = fminf(fmaxf(transf(P, xk, depth), P[P_ENH_MIN]),
-                      P[P_ENH_MAX]);
+    if (EXT && (T.opts & OPT_ISNONLIN0))
+      W.enh[mc] = enhfr;
+    else if (EXT && (T.opts & OPT_ISNONLIN2))
+      W.enh[mc] = transf_snl(P, xk, depth, xnu, sig_th);
+    else
+      W.enh[mc] = fminf(fmaxf(transf(P, xk, depth), P[P_ENH_MIN]),
+                        P[P_ENH_MAX]);
   }
   __syncwarp();
   const float* r = T.rnl;
@@ -938,6 +1018,266 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth) {
   }
 }
 
+// SINPUT_JAN (sinput_jan.F90:84-280), Janssen's quasi-linear input of WAM
+// cycle 4 (iphys=0): frequency-parallel, no sheltering, gusts ordered
+// (1 − σ, 1 + σ).  The same outputs as sinput_ard: fld and sl in full, per
+// frequency ws, sx and sy, and in FULL sp, the mask bits and phw.  OPTS
+// adds LLNORMAGAM as in sinput_ard
+template <bool FULL, bool OPTS>
+__device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
+                           bool llsneg, float wswave, float ufric, float z0m,
+                           float raorw, float wstar, float rnfac,
+                           unsigned long long* xbits, float& phw) {
+  const float* P = T.par;
+  const int nang = T.nang, nfre = T.nfre;
+  const bool normagam = OPTS && (T.opts & OPT_LLNORMAGAM);
+  const float cstrnfac = P[P_CONSTN] * rnfac / raorw;
+  float us[2], wsin = 1.f;
+  if (ngst > 1) {
+    const float sig_n = wsigstar<OPTS>(P, T.opts, wswave, ufric, z0m, wstar);
+    us[0] = ufric * (1.f - sig_n);
+    us[1] = ufric * (1.f + sig_n);
+    wsin = 0.5f;
+  } else {
+    us[0] = us[1] = ufric;
+  }
+  if (FULL) {
+    xbits[0] = xbits[1] = 0ull;
+    phw = 0.f;
+  }
+  for (int m = 0; m < nfre; ++m) {
+    const float zp = T.zpifr[m], wav = W.wav[m], cim = W.cinv[m];
+    const float cnsn = (zp * P[P_CONST1]) * ((zp * zp) / (P[P_G] * wav))
+        * raorw;
+    const float zcn = logf(wav * z0m);
+    float u1[KPL] = {0.f, 0.f}, u2[KPL] = {0.f, 0.f};
+    float xll[KPL] = {0.f, 0.f};
+    for (int g = 0; g < ngst; ++g) {
+      const float ucn = us[g] * cim + P[P_ZALP];
+      const float ucnd = 1.f / ucn;
+      float gam[KPL] = {0.f, 0.f};
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + 32 * q;
+        if (k >= nang) continue;
+        const float cw = W.cosw[k];
+        const bool lz = cw > 0.01f;
+        const float zlog = zcn + P[P_XKAPPA] / (lz ? cw : 1.f) * ucnd;
+        const bool active = lz && zlog < 0.f;
+        const float x = cw * ucn;
+        const float zlog2x = zlog * zlog * x;
+        gam[q] = active ? zlog2x * zlog2x * expf(zlog) * cnsn : 0.f;
+        xll[q] = fmaxf(xll[q], active ? 1.f : 0.f);
+        if (normagam) {
+          const float gf = gam[q] * W.fl[k * nfre + m];
+          s1 += gf;
+          s2 += gf * W.sin2[k];
+        }
+      }
+      if (normagam) {
+        const float sumf = warp_sum(s1), sumfsin2 = warp_sum(s2);
+        const float znz = cstrnfac * W.xk2cg[m]
+            * (1.f / fmaxf(us[g], P[P_EPSUS]));
+        const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) gam[q] = gam[q] * gn;
+      }
+      const float c3u2 = P[P_CONST3] * (ucn * ucn);
+      const float xvd = 1.f / (-us[g] * P[P_XKAPPAD] * zcn * cim);
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + 32 * q;
+        if (k >= nang) continue;
+        u1[q] += wsin * gam[q];
+        if (llsneg) u2[q] += wsin * (c3u2 * (W.cosw[k] - xvd));
+      }
+    }
+    float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + 32 * q;
+      if (k >= nang) continue;
+      const int b = k * nfre + m;
+      const float f = W.fl[b];
+      const float fm = u1[q] + u2[q] * cnsn;
+      const float sp = u1[q] * f;
+      W.fld[b] = fm;
+      W.sl[b] = fm * f;
+      wsp += xll[q] * f;
+      sxp += sp * T.sinth[k];
+      syp += sp * T.costh[k];
+      if (FULL) {
+        spp += sp;
+        dph += (fm * f - sp) * T.rhowg[m];
+        if (xll[q] != 0.f) xbits[q] |= 1ull << m;
+      }
+    }
+    wsp = warp_sum(wsp);
+    sxp = warp_sum(sxp);
+    syp = warp_sum(syp);
+    if (FULL) {
+      spp = warp_sum(spp);
+      phw += warp_sum(dph);
+    }
+    if (lane == 0) {
+      W.ws[m] = wsp;
+      W.sx[m] = sxp;
+      W.sy[m] = syp;
+      if (FULL) W.sp[m] = spp;
+    }
+  }
+  __syncwarp();
+}
+
+// SDISSIP_JAN (sdissip_jan.F90:50-120), the cycle-4 dissipation from the
+// first FKMEAN's mean parameters, per bin
+__device__ void sdissip_jan(const Tabs& T, const Work& W, int lane,
+                            float emean, float f1mean, float xkmean) {
+  const float* P = T.par;
+  const int nfre = T.nfre, nb = T.nang * nfre;
+  const float xk2 = xkmean * xkmean;
+  const float sds = P[P_CONSS] * f1mean * (emean * emean) * (xk2 * xk2);
+  const float dsd = P[P_DELTA_SDIS];
+  for (int b = lane; b < nb; b += 32) {
+    const int m = b % nfre;
+    const float wav = W.wav[m];
+    const float x = wav / xkmean;
+    const float t = sds * x * ((1.f - dsd) + dsd * x)
+        + P[P_CVIS] * (wav * wav);
+    W.fld[b] += t;
+    W.sl[b] += t * W.fl[b];
+  }
+  __syncwarp();
+}
+
+// PEAK_ANG (peak_ang.F90:60-160): the frequency spread ν and directional
+// spread σθ at the peak, for TRANSF_SNL; W.tm and W.ws as scratch.  The
+// peak is the lowest-index maximum over (k, m = 1..nfre−2); the window's
+// THMEAN update is sequential in m, each step closed by warp sums;
+// s1 − s2 is summed directly as Σ 2·sin²((θ − θm)/2)·F·Δf
+__device__ void peak_ang(const Tabs& T, const Work& W, int lane, float& xnu,
+                         float& sig_th) {
+  const float* P = T.par;
+  const int nang = T.nang, nfre = T.nfre;
+  const float zeps = 10.f * 1.1920929e-7f;       // 10·FLT_EPSILON
+  for (int m = lane; m < nfre; m += 32) {
+    float s = 0.f, mx = -INFINITY;
+    for (int k = 0; k < nang; ++k) {
+      const float f = W.fl[k * nfre + m];
+      s += f;
+      mx = fmaxf(mx, f);
+    }
+    W.tm[m] = s;
+    W.ws[m] = mx;
+  }
+  __syncwarp();
+  float sum0 = zeps + msum(nfre, lane, [&](int m) {
+    return T.dfim[m] * W.tm[m]; });
+  float sum1 = msum(nfre, lane, [&](int m) { return T.dfimfr[m] * W.tm[m]; });
+  float sum2 = msum(nfre, lane, [&](int m) {
+    return T.dfimfr2[m] * W.tm[m]; });
+  const float tl = W.tm[nfre - 1];
+  sum0 = sum0 + P[P_DELT25] * tl;
+  sum1 = sum1 + P[P_COEF1] * tl;
+  sum2 = sum2 + P[P_COEF_FR2] * tl;
+  xnu = sum0 > zeps
+      ? sqrtf(fmaxf(sum2 * sum0 / (sum1 * sum1) - 1.f, zeps)) : zeps;
+
+  // the peak: lane maxima over m = 1..nfre−2, then the warp's, the
+  // lowest index on ties
+  float best = -INFINITY;
+  int ib = nfre;
+  for (int m = lane; m < nfre - 1; m += 32) {
+    if (m >= 1 && W.ws[m] > best) {
+      best = W.ws[m];
+      ib = m;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, o);
+    const int oi = __shfl_xor_sync(FULL, ib, o);
+    if (ob > best || (ob == best && oi < ib)) {
+      best = ob;
+      ib = oi;
+    }
+  }
+  const int mmax = best > 0.f ? ib : 1;
+
+  const int nsh = (int)P[P_NSH];
+  float ss = 0.f, sc = zeps, s1 = zeps, d = zeps;
+  for (int m = mmax - nsh; m <= mmax + nsh; ++m) {
+    if (m < 0 || m > nfre - 1) continue;
+    float ps = 0.f, pc = 0.f, pf = 0.f;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + 32 * q;
+      if (k >= nang) continue;
+      const float f = W.fl[k * nfre + m];
+      ps += T.sinth[k] * f;
+      pc += T.costh[k] * f;
+      pf += f;
+    }
+    ss += warp_sum(ps);
+    sc += warp_sum(pc);
+    const float thm = atan2f(ss, sc);
+    s1 += warp_sum(pf) * T.dfim[m];
+    float pd = 0.f;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + 32 * q;
+      if (k >= nang) continue;
+      const float h = sinf(0.5f * (T.th[k] - thm));
+      pd += 2.f * h * h * W.fl[k * nfre + m];
+    }
+    d += warp_sum(pd) * T.dfim[m];
+  }
+  sig_th = s1 > zeps ? sqrtf(2.f * fmaxf(d / s1, 0.f)) : 0.f;
+  __syncwarp();
+}
+
+// SDICE1's attenuation rate at frequency m (sdice1.F90:100-124): the
+// bilinear lookup of CIDEAC in (period, thickness) — the thickness cell
+// ``ih`` and weight ``wh1`` are the row's — times the row's 1/D
+__device__ float sdice1_alpha(const Tabs& T, int m, int ih, float wh1,
+                              float dinv) {
+  const float* P = T.par;
+  const int nict = (int)P[P_NICT], nich = (int)P[P_NICH];
+  const float tw = 1.f / T.fr[m];
+  const int it = min(max((int)floorf((tw - P[P_TICMIN]) / P[P_DTIC]), 0),
+                     nict - 1);
+  const int it1 = min(it + 1, nict - 1);
+  const float wt1 = fminf(fmaxf((tw - (P[P_TICMIN] + (float)it * P[P_DTIC]))
+                                / P[P_DTIC], 0.f), 1.f);
+  const int ih1 = min(ih + 1, nich - 1);
+  auto c = [&](int i, int j) { return __ldg(T.cideac + i * nich + j); };
+  const float wh = 1.f - wh1, wt = 1.f - wt1;
+  const float deac = wt * (wh * c(it, ih) + wh1 * c(it, ih1))
+      + wt1 * (wh * c(it1, ih) + wh1 * c(it1, ih1));
+  return expf(deac) * dinv;
+}
+
+// AKI_ICE (aki_ice.F90): the wavenumber under sea ice of thickness cith,
+// 25 Newton steps of the flexural dispersion with the reference's clip
+__device__ float aki_ice(const float* P, float xk, float depth, float cith) {
+  if (!(cith > 0.f)) return xk;
+  const float ficstf = P[P_FICSTF_C] * (cith * cith * cith);
+  const float rdh = P[P_RDH_C] * cith;
+  const float om2 = P[P_G] * xk * tanhf(xk * depth);
+  float aki = fminf(xk, powf(om2 / fmaxf(ficstf, 1.f), 0.2f));
+  for (int it = 0; it < 25; ++it) {
+    const float akid = fminf(depth * aki, 50.f);
+    const float sh = sinhf(akid);
+    const float a2 = aki * aki;
+    const float f = ficstf * (a2 * a2 * aki) + P[P_G] * aki
+        - om2 * (rdh * aki + 1.f / tanhf(akid));
+    const float fp = 5.f * ficstf * (a2 * a2) + P[P_G]
+        - om2 * (rdh - depth / (sh * sh));
+    const float nxt = aki - f / fp;
+    aki = nxt <= 0.f ? P[P_AKI_MAX] : fminf(nxt, P[P_AKI_MAX]);
+  }
+  return aki;
+}
 
 // Layout of the spectrum: bin (k, m) of row p lies at
 // fin[p·f_ps + (k·nfr + m)·f_bs] for m < nfr (SRL rows: f_ps = nang·nfr,
@@ -951,7 +1291,8 @@ struct Layout {
   const float* tin; float* tout; int nfr;
 };
 
-template <bool FULL, bool COMPACT, bool OPTS>
+template <bool FULL, bool COMPACT, bool OPTS, bool EXT = false,
+          bool JAN = false>
 __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
 implsch_kernel(Layout Lo, const float* __restrict__ env2d,
                const float* __restrict__ scal, float* __restrict__ out,
@@ -1009,16 +1350,22 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   float ufric = sc(8), tauw = sc(9), tauwdir = sc(10), z0m = sc(11);
   float z0b = sc(12), chrnck = sc(13);
   __syncwarp();
+  // EXT: the switches (LBIWBK, LICERUN, LMASKICE) and the option bits
+  const int xo = EXT ? T.opts : 0;
+  const bool biwbk = !(xo & OPT_NO_LBIWBK);
+  const bool icerun = !(xo & OPT_NO_LICERUN);
 
   // ---- SDEPTHLIM (sdepthlim.F90:32-46)
-  colsum(W.fl, W.tm, nang, nfre, lane);
-  float em = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.tm[m]; });
-  em = em + P[P_DELT25] * W.tm[nfre - 1] + P[P_EPSMIN];
-  const float scale = fminf(emaxdpt / em, 1.f);
-  __syncwarp();
-  for (int b = lane; b < nb; b += 32)
-    W.fl[b] = fmaxf(W.fl[b] * scale, P[P_EPSMIN]);
-  __syncwarp();
+  if (biwbk) {
+    colsum(W.fl, W.tm, nang, nfre, lane);
+    float em = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.tm[m]; });
+    em = em + P[P_DELT25] * W.tm[nfre - 1] + P[P_EPSMIN];
+    const float scale = fminf(emaxdpt / em, 1.f);
+    __syncwarp();
+    for (int b = lane; b < nb; b += 32)
+      W.fl[b] = fmaxf(W.fl[b] * scale, P[P_EPSMIN]);
+    __syncwarp();
+  }
 
   // ---- FKMEAN: emean, fmean (1/f weighted), f1mean (fkmean.F90:60-100)
   colsum(W.fl, W.tm, nang, nfre, lane);
@@ -1033,6 +1380,20 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     emean = emean + P[P_DELT25] * tl;
     fmean = emean / (fmean + P[P_DELT2] * tl);
     f1mean = (f1mean + P[P_COEF1] * tl) / emean;
+  }
+  // EXT: the mean wavenumbers, for ISNONLIN=0 (akmean) and SDISSIP_JAN
+  // (xkmean)
+  float akmean = 0.f, xkmean = 0.f;
+  if (EXT && (JAN || (xo & OPT_ISNONLIN0))) {
+    const float ak = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return T.dfim[m] / sqrtf(W.wav[m]) * W.tm[m]; });
+    const float xk = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
+      return sqrtf(W.wav[m]) * T.dfim[m] * W.tm[m]; });
+    const float tl = W.tm[nfre - 1];
+    const float ar = emean / (ak + P[P_COEFA] * tl);
+    akmean = ar * ar;
+    const float xr = (xk + P[P_COEFX] * tl) / emean;
+    xkmean = xr * xr;
   }
   __syncwarp();
 
@@ -1069,9 +1430,14 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     else
       taut_z0<OPTS>(P, opts, wswave, wdwave, tauw, tauwdir, ufric,
                     icall == 1 ? 0 : 1, ufric, z0m, z0b, chrnck);
-    sinput_ard<FULL, OPTS>(T, W, lane, icall == 1 ? 1 : 2, icall == 2, wswave,
-                           wdwave, ufric, z0m, raorw, wstar, rnfac, xbits,
-                           phiwa);
+    if constexpr (JAN)
+      sinput_jan<FULL, OPTS>(T, W, lane, icall == 1 ? 1 : 2, icall == 2,
+                             wswave, ufric, z0m, raorw, wstar, rnfac, xbits,
+                             phiwa);
+    else
+      sinput_ard<FULL, OPTS>(T, W, lane, icall == 1 ? 1 : 2, icall == 2,
+                             wswave, wdwave, ufric, z0m, raorw, wstar, rnfac,
+                             xbits, phiwa);
     // FEMEANWS (femeanws.F90:52-100)
     float emws = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
         + P[P_EPSMIN];
@@ -1091,8 +1457,18 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
                         tauw, tauwdir, phiwa);
   }
 
-  sdissip_ard(T, W, lane);
-  snonlin(T, W, lane, depth);
+  if constexpr (JAN)
+    sdissip_jan(T, W, lane, emean, f1mean, xkmean);
+  else
+    sdissip_ard(T, W, lane);
+  // the DIA enhancement of ISNONLIN 0 (snonlin.F90:127-136) or 2
+  float enhfr = 0.f, xnu = 0.f, sig_th = 0.f;
+  if (EXT && (xo & OPT_ISNONLIN0)) {
+    const float e = fmaxf(0.75f * depth * akmean, 0.5f);
+    enhfr = 1.f + (5.5f / e) * (1.f - 0.833f * e) * expf(-1.25f * e);
+  }
+  if (EXT && (xo & OPT_ISNONLIN2)) peak_ang(T, W, lane, xnu, sig_th);
+  snonlin<EXT>(T, W, lane, depth, enhfr, xnu, sig_th);
 
   // ---- WNFLUXES' source sums, SNONLIN included (implsch.F90:297-305)
   if (FULL) {
@@ -1127,7 +1503,8 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
       done = done || rel_err < 1.0e-5f;
       if (!done) q_old = q;
     }
-    if (depth < P[P_DEPTHTRS]) sds = 2.f * alph * fminf(q_out, 1.f) * f1mean;
+    if (depth < P[P_DEPTHTRS] && biwbk)
+      sds = 2.f * alph * fminf(q_out, 1.f) * f1mean;
   }
   const bool bottom = depth < P[P_BATHYMAX];
   if (!OPTS) {
@@ -1148,10 +1525,38 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     }
   } else {
     // SDIWBK, then LCISCAL and SDICE3 on every frequency
-    // (implsch.F90, sdice3.F90:55-95), then SBOTTOM
+    // (implsch.F90, sdice3.F90:55-95), then SBOTTOM; EXT adds SDICE1 and
+    // SDICE2 before SDICE3, and LICERUN
     const float beta = 1.f - cicover;
-    const bool ciwa3 = opts & OPT_LCIWA3;
+    const bool ciwa3 = icerun && (opts & OPT_LCIWA3);
+    const bool ciwa1 = EXT && icerun && (xo & OPT_LCIWA1);
+    const bool ciwa2 = EXT && icerun && (xo & OPT_LCIWA2);
     const float h125 = ciwa3 ? powf(cithick, 1.25f) : 0.f;
+    if (ciwa1) {
+      // SDICE1's rate per frequency into W.ws (free after SINFLX), with
+      // the row's floe size 1/D and thickness cell (sdice1.F90:65-124)
+      const float cidmax = 200.f + 300.f * cicover;
+      const float icm = fminf(floorf(logf(cidmax / 20.f) / logf(2.f)), 3.f);
+      float sn = 0.f, sd = 0.f, x = 1.f, g = 1.f;
+      for (int i = 0; i <= 3; ++i) {
+        if ((float)i <= icm) {
+          sn += x * cidmax / g;
+          sd += x;
+        }
+        x *= 4.f * 0.955f;
+        g *= 2.f;
+      }
+      const float dinv = sd / sn;
+      const int nich = (int)P[P_NICH];
+      const int ih = min(max((int)floorf((cithick - P[P_HICMIN])
+                                         / P[P_DHIC]), 0), nich - 1);
+      const float wh1 = fminf(fmaxf((cithick - (P[P_HICMIN] + (float)ih
+                                                * P[P_DHIC])) / P[P_DHIC],
+                                    0.f), 1.f);
+      for (int m = lane; m < nfre; m += 32)
+        W.ws[m] = cithick > 0.f ? sdice1_alpha(T, m, ih, wh1, dinv) : 0.f;
+      __syncwarp();
+    }
     for (int b = lane; b < nb; b += 32) {
       const int m = b % nfre;
       const bool low = m < T.nred;
@@ -1161,11 +1566,11 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
         s = s + (-sds) * f;
         d = d + (-sds);
       }
-      if (opts & OPT_LCISCAL) {
+      if (icerun && (opts & OPT_LCISCAL)) {
         s = beta * s;
         d = beta * d;
       }
-      if (ciwa3) {
+      if (ciwa3 || ciwa1 || ciwa2) {
         // the group speed from (k, d), as implsch.derive_cgroup
         const float xk = W.wav[m];
         const float akd = xk * depth, akd_s = fminf(akd, 10.f);
@@ -1173,9 +1578,23 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
             ? 0.5f * sqrtf(P[P_G] * tanhf(akd_s) / xk)
                   * (1.f + 2.f * akd_s / sinhf(2.f * akd_s))
             : P[P_G4PI] / T.fr[m];
-        const float fldice = -(P[P_CDICE2] * h125 * T.fr45[m]) * cg;
-        s = s + cicover * (f * fldice);
-        d = d + cicover * fldice;
+        if (ciwa1) {
+          const float fldice = -W.ws[m] * cg;
+          s = s + cicover * (f * fldice);
+          d = d + cicover * fldice;
+        }
+        if (ciwa2) {
+          // SDICE2 (sdice2.F90:45-70): the drag on each bin's amplitude
+          const float ewh = 4.f * sqrtf(fmaxf(P[P_EPSMIN], f * T.dfim[m]));
+          const float fldice = -(P[P_CDICWA] * (xk * xk) * ewh) * cg;
+          s = s + cicover * (f * fldice);
+          d = d + cicover * fldice;
+        }
+        if (ciwa3) {
+          const float fldice = -(P[P_CDICE2] * h125 * T.fr45[m]) * cg;
+          s = s + cicover * (f * fldice);
+          d = d + cicover * fldice;
+        }
       }
       if (low && bottom) {
         const float sbo = P[P_SBOT_C] * W.wav[m]
@@ -1235,7 +1654,7 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     const float ystr = msum(nfre, lane, [&](int m) {
       return W.sumy[m] * (W.cinv[m] * rhowgdfth(m)); });
     float ooval = 1.f, ustar = ufric, em_oc = emean, f1_oc = f1mean;
-    if (P[P_LWAMRSETCI] != 0.f && cicover > P[P_ZCITHRS]) {
+    if (P[P_LWAMRSETCI] != 0.f && icerun && cicover > P[P_ZCITHRS]) {
       const float ci4 = cicover * P[P_CITHRSH_INV];
       const float oi = expf(-fminf((ci4 * ci4) * (ci4 * ci4), P[P_ZMAXEXP]));
       const float u10p = fmaxf(wswave, P[P_EPSU10]);
@@ -1332,7 +1751,7 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     W.fl[b] = fmaxf(ratio * W.fl[k * nfre + mij], W.flm[k]);
   }
   __syncwarp();
-  if (cicover > P[P_CITHRSH]) {
+  if (icerun && !(xo & OPT_NO_LMASKICE) && cicover > P[P_CITHRSH]) {
     const float cireduc = fmaxf(P[P_EPSMIN], 1.f - cicover);
     for (int b = lane; b < nb; b += 32) {
       const float c2 = fmaxf(0.f, W.cosw[b / nfre]);
@@ -1367,7 +1786,7 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     }
     us = warp_sum(us) + P[P_STOKES_C] * warp_sum(ut);
     vs = warp_sum(vs) + P[P_STOKES_C] * warp_sum(vt);
-    if (P[P_LWAMRSETCI] != 0.f && cicover > P[P_CITHRSH_STOKES]) {
+    if (P[P_LWAMRSETCI] != 0.f && icerun && cicover > P[P_CITHRSH_STOKES]) {
       const float fac = 0.016f * wswave * (1.f - cicover);
       us = fac * sinf(wdwave);
       vs = fac * cosf(wdwave);
@@ -1375,6 +1794,19 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     o[O_USTOKES] = fminf(fmaxf(us, -P[P_STMAX]), P[P_STMAX]);
     o[O_VSTOKES] = fminf(fmaxf(vs, -P[P_STMAX]), P[P_STMAX]);
     o[O_STRNMS] = 0.f;
+    if (xo & OPT_LSTRN) {
+      // CIMSSTRN (cimsstrn.F90:85-125): one lane per frequency
+      float part = 0.f;
+      for (int m = lane; m < nfre; m += 32) {
+        float sume = 0.f;
+        for (int k = 0; k < nang; ++k) sume += W.fl[k * nfre + m];
+        const float xk = W.wav[m];
+        const float xki = aki_ice(P, xk, depth, cithick);
+        const float e = 0.5f * cithick * (xki * xki * xki) / xk;
+        if (sume > P[P_F1LIM]) part += (e * e) * sume * T.dfim[m];
+      }
+      o[O_STRNMS] = warp_sum(part);
+    }
   }
 
   // ---- store
@@ -1409,7 +1841,7 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   }
 }
 
-template <bool FULL, bool COMPACT, bool OPTS>
+template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN>
 int launch(const Layout& Lo, const float* env2d, const float* scal,
            float* out, float* xllws, const Tabs& T, int nrows,
            cudaStream_t stream) {
@@ -1417,13 +1849,14 @@ int launch(const Layout& Lo, const float* env2d, const float* scal,
                                                   FULL) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        implsch_kernel<FULL, COMPACT, OPTS>,
+        implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (nrows + WARPS - 1) / WARPS;
-  implsch_kernel<FULL, COMPACT, OPTS><<<blocks, 32 * WARPS, smem, stream>>>(
-      Lo, env2d, scal, out, xllws, T, nrows);
+  implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN>
+      <<<blocks, 32 * WARPS, smem, stream>>>(Lo, env2d, scal, out, xllws, T,
+                                             nrows);
   return (int)cudaGetLastError();
 }
 
@@ -1434,8 +1867,10 @@ int launch(const Layout& Lo, const float* env2d, const float* scal,
 // layout arguments are those of ``Layout`` above.  ``out`` takes 6 rows
 // (minimal) or NOUT_FULL rows and ``xllws`` the (nang, nfre, nrows) mask
 // (full).  ``nred`` is the configuration's nfre_red, the top of the
-// SDIWBK/SBOTTOM range, whatever the layout.  Returns the CUDA error code
-// of the launch (0 = launched).
+// SDIWBK/SBOTTOM range, whatever the layout.  ``opts`` picks the
+// instantiation: with bits of OPT_EXT the EXT one (JAN too for iphys=0),
+// with other bits OPTS, with none the default.  Returns the CUDA error
+// code of the launch (0 = launched).
 extern "C" int implsch_launch(
     int full, const float* fin, float* fout, long f_ps, long f_bs,
     const float* tin, float* tout, const float* env2d, const float* scal,
@@ -1478,17 +1913,23 @@ extern "C" int implsch_launch(
   T.ikp = it; it += mlsthg;
   T.ikp1 = it; it += mlsthg;
   T.shifts = it;
+  T.dfimfr2 = ft[T_DFIMFR2];
+  T.cideac = T.xk_ext + (mlsthg - nfre);
 
   const Layout Lo{fin, fout, f_ps, f_bs, tin, tout, nfr};
   const cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(F, C, O) launch<F, C, O>(Lo, env2d, scal, out, xllws, T, nrows, s)
-  if (opts) {
-    if (f_bs != 1)
-      return full ? LAUNCH(true, true, true) : LAUNCH(false, true, true);
-    return full ? LAUNCH(true, false, true) : LAUNCH(false, false, true);
+#define LAUNCH(F, C, O, E, J) \
+  launch<F, C, O, E, J>(Lo, env2d, scal, out, xllws, T, nrows, s)
+#define MODES(O, E, J)                                                    \
+  if (f_bs != 1)                                                          \
+    return full ? LAUNCH(true, true, O, E, J) : LAUNCH(false, true, O, E, J); \
+  return full ? LAUNCH(true, false, O, E, J) : LAUNCH(false, false, O, E, J)
+  if (opts & OPT_EXT) {
+    if (opts & OPT_IPHYS0) { MODES(true, true, true); }
+    MODES(true, true, false);
   }
-  if (f_bs != 1)
-    return full ? LAUNCH(true, true, false) : LAUNCH(false, true, false);
-  return full ? LAUNCH(true, false, false) : LAUNCH(false, false, false);
+  if (opts) { MODES(true, false, false); }
+  MODES(false, false, false);
+#undef MODES
 #undef LAUNCH
 }

@@ -7,12 +7,16 @@ trajectory oracle's currents (irefra 3), its decaying-wind forcing
 (``tests/test_trajectory_oracle.py:_forcing``), its statistics.log
 trajectory (``tests/test_golden_trajectory.py``), a shallow grid on which
 every shallow-water term is active (and its cycle-50 variant with polar
-sea ice), and the O320 configurations at full width, built from numpy so
-that ``chip_smoke.py`` and the port's tests use one definition.
+sea ice), the small-grid cases of the rest of the physics
+(:data:`LEGACY_CASES`: iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN and the
+LBIWBK/LICERUN/LMASKICE switches), and the O320 configurations at full
+width, built from numpy so that ``chip_smoke.py`` and the port's tests
+use one definition.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -135,6 +139,82 @@ def shallow_ice(ms) -> dict:
     return dict(polar_ice(ms, 48.0, 36.0, 0.5, 2.0), **storm(ms))
 
 
+def with_phys(ms, **phys):
+    """``ms`` with its PhysicsConfig's flags replaced — the way the
+    reference reaches the options that ``build_model`` takes no keyword
+    for (lciwa1/2, lstrn, lbiwbk, licerun, lmaskice)."""
+    if not phys:
+        return ms
+    return dataclasses.replace(ms, phys=dataclasses.replace(ms.phys, **phys))
+
+
+def build(kw: dict, device, phys: dict | None = None):
+    """``build_model(**kw)`` on ``device`` with ``phys``'s flags
+    (:func:`with_phys`)."""
+    return with_phys(build_model(device=device, **kw), **(phys or {}))
+
+
+# The rest of the physics on the small grids: name → (build_model
+# keywords, PhysicsConfig flags, forcing keywords of golden_forcing or
+# None).  iphys=0 alone is ECMWF's iphys_0 flag set
+# (BASELINE.md's etopo1_oper_an_fc_O48_iphys_0); the ISNONLIN cases need
+# the shallow grid (TRANSF_SNL and the ISNONLIN=0 factor act only in
+# finite depth); the sea-ice cases run under shallow_ice.
+LEGACY_CASES = {
+    "iphys0": (lambda: dict(golden_kw(), iphys=0), {}, None),
+    "iphys0_cy49r1": (lambda: dict(golden_kw(), iphys=0, **CY49R1), {},
+                      storm),
+    "isnonlin0_shallow": (lambda: dict(shallow_kw(), isnonlin=0), {}, None),
+    "isnonlin2_shallow": (lambda: dict(shallow_kw(), isnonlin=2), {}, None),
+    "sdice1_shallow": (shallow_kw, dict(lciwa1=True), shallow_ice),
+    "sdice2_shallow": (shallow_kw, dict(lciwa2=True), shallow_ice),
+    "lstrn_shallow": (shallow_kw, dict(lstrn=True), shallow_ice),
+    "switches_off_shallow": (shallow_kw, dict(lbiwbk=False, licerun=False,
+                                              lmaskice=False),
+                             shallow_ice),
+}
+
+
+def legacy_case(name: str) -> dict:
+    """The keywords of the checks of :data:`LEGACY_CASES`' ``name``:
+    ``kw``, ``phys`` and ``forcing``."""
+    make, phys, forcing = LEGACY_CASES[name]
+    return dict(kw=make(), phys=phys, forcing=forcing)
+
+
+def o320_legacy(device):
+    """A coverage configuration at full width that puts the rest of the
+    physics into one model: O320, 36×36 with 29 advected, idelpro 450 s,
+    idelt 900 s, irefra 0, with iphys=0 (Janssen's input and the cycle-4
+    dissipation), ISNONLIN=2 (PEAK_ANG and TRANSF_SNL), SDICE1 and, on
+    output dates, the sea-ice strain (LSTRN).  The aqua planet's sea points
+    get the depth d = 20 + 480·(1 + cos 3λ) m (20 to 980 m), so that
+    TRANSF_SNL, SDIWBK and SBOTTOM act; sea ice and winds as in
+    :func:`o320_options` (cicover = clip((|φ| − 60°)/15°, 0, 1), cithick =
+    2·cicover m; 8–12 m/s from ``default_rng(0)``).  Returns the setup and
+    a cold-started ``FastWaveModel`` on ``device``."""
+    grid = grid_mod.octahedral_grid(320)
+    bathy = grid_mod.aqua_bathymetry(grid)
+    for k in range(grid.ngy):
+        n = grid.nlonrgg[k]
+        lon = np.radians(grid.amowep + np.arange(n) * grid.zdello[k])
+        sea = bathy[k, :n] > 0.0
+        bathy[k, :n][sea] = (20.0 + 480.0 * (1.0 + np.cos(3.0 * lon)))[sea]
+    ms = with_phys(build_model(
+        grid=grid, bathy=bathy, nang=36, nfre=36, nfre_red=29,
+        idelpro=450.0, idelt=900.0, pad_to=8192, iphys=0, isnonlin=2,
+        device=device), lciwa1=True, lstrn=True)
+    lat, _ = point_latlon(grid, ms.blk)
+    rng = np.random.default_rng(0)
+    n = ms.n_real
+    ci = np.clip((np.abs(lat) - 60.0) / 15.0, 0.0, 1.0)
+    forcing = dict(wswave=8.0 + 4.0 * rng.random(n),
+                   wdwave=rng.random(n) * 2.0 * np.pi,
+                   aird=np.full(n, 1.225), wstar=np.zeros(n), cicover=ci,
+                   cithick=2.0 * ci)
+    return ms, FastWaveModel(ms, lambda date14: forcing, START)
+
+
 def o320_options(device):
     """ECMWF's operational configuration at full width: O320 aqua planet,
     36×36 with 29 advected, idelpro 450 s, idelt 900 s (as chip_smoke.py's
@@ -197,17 +277,17 @@ def provider(forcing_at, idelpro: float):
     return at
 
 
-def _physics_step(kw: dict, device, full: bool, forcing=None):
-    """One physics step on every SRL row of ``build_model(**kw)``, after
-    two plain steps under the golden forcing — with ``forcing(ms)``'s
-    keywords of :func:`golden_forcing`, or by default with sea ice on a
-    fifth of the points (above and below the ice threshold) — through
-    the kernel and through the plain
-    version on ``device``: (kernel result, plain result, ``margin_at`` of
-    :func:`full_errors` on the step's inputs, the per-row
-    gravity-capillary decision margin in float64 or None without
-    LLGCBZ0), each result (f_srl, rows, tail[, xllws])."""
-    ms = build_model(device=device, **kw)
+def _physics_step(kw: dict, device, full: bool, forcing=None, phys=None):
+    """One physics step on every SRL row of ``build(kw, device, phys)``,
+    after two plain steps under the golden forcing — with
+    ``forcing(ms)``'s keywords of :func:`golden_forcing`, or by default
+    with sea ice on a fifth of the points (above and below the ice
+    threshold) — through the kernel and through the plain version on
+    ``device``: (kernel result, plain result, ``margin_at`` of
+    :func:`full_errors` on the step's inputs, the per-row decision
+    margins in float64 (:func:`decision_margins`, empty without such
+    decisions), each result (f_srl, rows, tail[, xllws])."""
+    ms = build(kw, device, phys)
     n = ms.n_real
     if forcing is None:
         f_kw = dict(cicover=np.where(
@@ -234,34 +314,48 @@ def _physics_step(kw: dict, device, full: bool, forcing=None):
     if (got[2] is None) != (want[2] is None):
         raise AssertionError("kernel and plain disagree on the tail block")
     rows_kw = dict(nang=ms.tb.nang, nfre_red=ms.tb.nfre_red)
-    gc = (srl_gc_margin(cfg, *fresh(), **rows_kw)(None)
-          if cfg.params.llgcbz0 else None)
-    return got, want, srl_margin(cfg, *fresh(), **rows_kw), gc
+    margins = (decision_margins(srl_state(cfg, *fresh(), **rows_kw))
+               if has_decisions(cfg) else {})
+    return got, want, srl_margin(cfg, *fresh(), **rows_kw), margins
 
 
-def srl_gc_margin(cfg, f_srl, env2d, scal, tail, *, nang: int,
-                  nfre_red: int):
-    """``at(rows)``: the plain chain's gravity-capillary decision margin
-    (:func:`implsch_cuda.gc_margin`) at the given SRL rows (all for None),
-    in float64 on the rows' device."""
-    def at(rows):
-        rows = slice(None) if rows is None else rows
-        t = None if tail is None else tail[rows].double()
-        return ipk.gc_margin(cfg, f_srl[rows].double(),
-                             env2d[:, rows].double(), scal[:, rows].double(),
-                             t, nang=nang, nfre_red=nfre_red)
-    return at
+def has_decisions(cfg) -> bool:
+    """Whether the configuration makes the per-row discrete decisions
+    that :func:`held` forgives near their edge (the gravity-capillary
+    closure, PEAK_ANG)."""
+    return cfg.params.llgcbz0 or cfg.isnonlin == 2
 
 
-def gc_held(gc, err, off_tol: float, width: float):
+def decision_margins(state: dict) -> dict:
+    """The ``margins`` of :func:`held` from a plain chain's state."""
+    return dict(gc=state.get("gc_margin"), peak=state.get("peak_margin"))
+
+
+def srl_state(cfg, f_srl, env2d, scal, tail, *, nang: int, nfre_red: int,
+              rows=None) -> dict:
+    """The plain chain's state (:func:`.implsch.implsch`) at the given SRL
+    rows (all for None), in float64 on the rows' device: its per-row
+    decision margins (``gc_margin``, ``peak_margin``, ``frcut_tie``)."""
+    rows = slice(None) if rows is None else rows
+    t = None if tail is None else tail[rows].double()
+    fl, env, frc, stress = ipk.srl_inputs(
+        cfg, f_srl[rows].double(), env2d[:, rows].double(),
+        scal[:, rows].double(), t, nang=nang, nfre_red=nfre_red)
+    return impl.implsch(cfg, fl, env, frc, *stress)[1]
+
+
+def held(margins: dict, widths: dict, err, off_tol: float):
     """Rows held out of the checks: those off the limit (``err`` (n,), a
-    row's largest error, above ``off_tol``) whose gravity-capillary
-    decision margin ``gc`` (float64, or None) lies within ``width`` of an
-    edge — a loop of TAUT_Z0_GC may leave at another iteration, or a
-    cut-off index step, in either float32 version."""
-    if gc is None:
-        return torch.zeros_like(err, dtype=torch.bool)
-    return (err > off_tol) & (gc.to(err.device) < width)
+    row's largest error, above ``off_tol``) whose decision margin
+    ``margins[name]`` (float64, or None) lies within ``widths[name]`` of
+    its edge — a loop of TAUT_Z0_GC that may leave at another iteration
+    or a cut-off index step ("gc"), or a PEAK_ANG peak that may move to
+    another direction maximum ("peak"), in either float32 version."""
+    out = torch.zeros_like(err, dtype=torch.bool)
+    for name, m in margins.items():
+        if m is not None and widths.get(name, 0.0) > 0.0:
+            out |= (err > off_tol) & (m.to(err.device) < widths[name])
+    return out
 
 
 def advect_kernel_vs_plain(kw: dict, device, seed: int = 0) -> dict:
@@ -389,17 +483,18 @@ def point_errors(got, want) -> torch.Tensor:
             / want.abs().amax(1, keepdim=True).clamp(min=1e-30)).amax(0)
 
 
-def physics_kernel_vs_plain(kw: dict, device, *, forcing=None,
-                            gc_width: float = 0.0,
+def physics_kernel_vs_plain(kw: dict, device, *, forcing=None, phys=None,
+                            gc_width: float = 0.0, peak_width: float = 0.0,
                             off_tol: float = 0.0) -> tuple:
     """One minimal-mode physics step (see :func:`_physics_step`): kernel
     against plain, (spectrum, stress) as max|k−p| over each field's
     maximum, and the number of rows held out: above ``off_tol`` on a
-    gravity-capillary decision edge (:func:`gc_held` within
-    ``gc_width``)."""
-    got, want, _, gc = _physics_step(kw, device, full=False,
-                                     forcing=forcing)
-    keep = ~gc_held(gc, point_errors(got[1], want[1]), off_tol, gc_width)
+    gravity-capillary decision edge or a peak tie (:func:`held` within
+    ``gc_width`` and ``peak_width``)."""
+    got, want, _, margins = _physics_step(kw, device, full=False,
+                                          forcing=forcing, phys=phys)
+    keep = ~held(margins, dict(gc=gc_width, peak=peak_width),
+                 point_errors(got[1], want[1]), off_tol)
     return (spectrum_error(got, want, keep),
             float(row_errors(got[1][:, keep], want[1][:, keep]).max()),
             int((~keep).sum()))
@@ -417,17 +512,16 @@ def compact_inputs(model: FastWaveModel):
 
 
 def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
-                            width: float, forcing=None,
-                            gc_width: float = 0.0,
+                            width: float, forcing=None, phys=None,
+                            gc_width: float = 0.0, peak_width: float = 0.0,
                             off_tol: float = 0.0) -> dict:
     """The compact entry (kernel C) against its plain version on the state
-    of ``build_model(**kw)`` after two plain steps under the golden
+    of ``build(kw, device, phys)`` after two plain steps under the golden
     forcing (with ``forcing(ms)``'s keywords, if given): the spectrum
-    error, the
-    largest output-row error, and the xllws bins that differ on and off
-    the mask's edge (:func:`full_errors` with ``width``), over the points
-    off a gravity-capillary decision edge (:func:`gc_held`)."""
-    ms = build_model(device=device, **kw)
+    error, the largest output-row error, and the xllws bins that differ on
+    and off the mask's edge (:func:`full_errors` with ``width``), over the
+    points off a decision edge (:func:`held`)."""
+    ms = build(kw, device, phys)
     f_kw = forcing(ms) if forcing is not None else {}
     m = FastWaveModel(ms, provider(golden_forcing(ms.n_real, **f_kw),
                                    900.0), START, plain=True)
@@ -442,13 +536,14 @@ def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
     if not bool(torch.isfinite(got[0]).all()):
         raise AssertionError("compact kernel: non-finite spectrum")
     n = got[0].shape[-1]
-    gc = None
-    if cfg.params.llgcbz0:
-        env, frc, stress = ipk._unpack_inputs(
-            cfg, args[1].double(), args[2].double())
-        gc = impl.implsch(cfg, args[0].double(), env, frc,
-                          *stress)[1]["gc_margin"]
-    keep = ~gc_held(gc, point_errors(got[1], want[1]), off_tol, gc_width)
+    margins = {}
+    if has_decisions(cfg):
+        env, frc, stress = ipk._unpack_inputs(cfg, args[1].double(),
+                                              args[2].double())
+        margins = decision_margins(
+            impl.implsch(cfg, args[0].double(), env, frc, *stress)[1])
+    keep = ~held(margins, dict(gc=gc_width, peak=peak_width),
+                 point_errors(got[1], want[1]), off_tol)
     r = dict(spec=float((got[0] - want[0])[..., keep].abs().max()
                         / want[0][..., keep].abs().max()),
              bins=got[0].numel(), xllws=0, off_edge=0, margin=0.0,
@@ -469,19 +564,21 @@ def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
 
 
 def full_kernel_vs_plain(kw: dict, device, *, width: float, forcing=None,
-                         gc_width: float = 0.0,
+                         phys=None, gc_width: float = 0.0,
+                         peak_width: float = 0.0,
                          off_tol: float = 0.0) -> dict:
     """One full-mode physics step (see :func:`_physics_step`): kernel
     against plain.  Returns the spectrum error, {row name: error} over the
     SCAL_OUT_FULL rows, and the xllws bins that differ on and off the
     mask's edge (:func:`full_errors` with ``width``) with the largest
-    |margin| among them, over the rows off a gravity-capillary decision
-    edge (:func:`gc_held`, rows above ``off_tol`` within ``gc_width``;
+    |margin| among them, over the rows off a decision edge (:func:`held`,
+    rows above ``off_tol`` within ``gc_width`` or ``peak_width``;
     ``held`` counts them)."""
-    got, want, margin_at, gc = _physics_step(kw, device, full=True,
-                                             forcing=forcing)
+    got, want, margin_at, margins = _physics_step(kw, device, full=True,
+                                                  forcing=forcing, phys=phys)
     n = got[0].shape[0]
-    keep = ~gc_held(gc, point_errors(got[1], want[1]), off_tol, gc_width)
+    keep = ~held(margins, dict(gc=gc_width, peak=peak_width),
+                 point_errors(got[1], want[1]), off_tol)
     kept = torch.nonzero(keep).flatten()
     fe = full_errors(got[1][:, keep], want[1][:, keep], got[3][..., keep],
                      want[3][..., keep], lambda pts: margin_at(kept[pts]),

@@ -169,7 +169,11 @@ def build_model(
     gravity-capillary roughness closure (``llgcbz0``), normalised growth
     (``llnormagam``), the capped Charnock parameter (``llcapchnk``), the
     SDICE3 sea-ice attenuation (``lciwa3``) and the sea-ice scaling of the
-    sources (``lciscal``).  The dense/OTF weight modes are not ported.
+    sources (``lciscal``); ``iphys`` 0/1 and ``isnonlin`` 0/1/2 select the
+    input physics and the DIA enhancement.  As in the reference, the
+    options without a keyword here (SDICE1/2, LSTRN, LBIWBK, LICERUN,
+    LMASKICE) are set on the returned setup's ``phys``
+    (``cases.with_phys``).  The dense/OTF weight modes are not ported.
     """
     if weights_mode != "fused":
         raise NotImplementedError(f"weights_mode={weights_mode!r}: only the "

@@ -11,7 +11,8 @@ form: gathers over the frequency axis, direction coupling by
 Shallow-water enhancement:
   - ISNONLIN=0  depth/mean-wavenumber factor (snonlin.F90:127-136)
   - ISNONLIN=1  TRANSF per-frequency factor  (transf.F90:40-69), the default
-ISNONLIN=2 (PEAK_ANG spread dependence) is not ported yet.
+  - ISNONLIN=2  TRANSF_SNL, the factor with the spread dependence of
+                PEAK_ANG (transf_snl.F90:30-85, peak_ang.F90:60-160)
 """
 
 from __future__ import annotations
@@ -23,12 +24,15 @@ import numpy as np
 import torch
 
 from ecwam_tpu_torch.core import constants as c
+from ecwam_tpu_torch.core import spectral as sp
 from ecwam_tpu_torch.core.dispersion import BATHYMAX
+from ecwam_tpu_torch.ops.physics import const
 
 ALAMD = 0.25             # DIA lambda (nlweigt.F90:69)
 CON = 3000.0             # numerical constant (nlweigt.F90:70)
 ENH_MAX = 10.0
 ENH_MIN = 0.1
+XKDMIN = 0.75            # minimum kd for TRANSF_SNL (yowshal.F90:23)
 
 
 def _jafu(cl: float, j: int, ian: int) -> int:
@@ -409,7 +413,120 @@ def enhancement_xk(dia: DiaTables, tb) -> np.ndarray:
     return c.GM1 * (tb.zpifr[-1] * tb.fratio ** (next_f - dia.nfre)) ** 2
 
 
-def _enhancement(dia: DiaTables, tb, wavnum, depth, akmean, isnonlin: int):
+def peak_window(tb) -> int:
+    """NSH, the half-width of PEAK_ANG's frequency window: the frequencies
+    within a factor 1.5 of the peak (peak_ang.F90:73)."""
+    return 1 + int(math.log(1.5) / math.log(tb.fratio))
+
+
+def _column_max(fl1):
+    """Per point, the direction maxima of the interior frequencies m =
+    1..nfre−2 (0-based; Fortran 2..NFRE−1), the peak search range of
+    PEAK_ANG: (nfre−2, npts)."""
+    return torch.amax(fl1[:, 1:fl1.shape[1] - 1, :], dim=0)
+
+
+def peak_ang(fl1, tb):
+    """Frequency spread ν and directional spread σθ at the peak
+    (peak_ang.F90:60-160), the inputs of the ISNONLIN=2 enhancement.
+
+    fl1 (nang, nfre, npts) → (xnu, sig_th), each (npts,).  The peak is the
+    first maximum over the interior frequencies (as ``argmax`` takes it).
+    1 − r1 = 1 − s2/s1 is accumulated as s1 − s2 = Σ 2·sin²((θ − θm)/2)·F·Δf
+    (the same algebra), which keeps narrow spectra free of cancellation.
+    """
+    dt = fl1.dtype
+    nang, nfre, npts = fl1.shape
+    zeps = 10.0 * torch.finfo(dt).eps
+    nsh = peak_window(tb)
+
+    dfim = const(tb.dfim, fl1)
+    temp = torch.sum(fl1, dim=0)                      # (nfre, npts)
+    sum0 = zeps + torch.sum(dfim[:, None] * temp, dim=0)
+    sum1 = torch.sum(const(tb.dfimfr, fl1)[:, None] * temp, dim=0)
+    sum2 = torch.sum(const(tb.dfimfr2, fl1)[:, None] * temp, dim=0)
+    t_last = temp[-1]
+    sum0 = sum0 + sp.WETAIL * tb.fr[-1] * tb.delth * t_last
+    sum1 = sum1 + sp.WP1TAIL * tb.delth * tb.fr[-1] ** 2 * t_last
+    sum2 = sum2 + sp.WP2TAIL * tb.delth * tb.fr[-1] ** 3 * t_last
+    xnu = torch.where(
+        sum0 > zeps,
+        torch.sqrt(torch.clamp(sum2 * sum0 / sum1**2 - 1.0, min=zeps)),
+        torch.full_like(sum0, zeps))
+
+    # spectral-peak index over m = 1..nfre−2, first on ties
+    # (peak_ang.F90:88-103)
+    colmax = _column_max(fl1)
+    xmax, arg = torch.max(colmax, dim=0)
+    mmax = torch.where(xmax > 0.0, arg + 1, torch.ones_like(arg))
+
+    sinth = const(tb.sinth, fl1)[:, None]
+    costh = const(tb.costh, fl1)[:, None]
+    th = const(tb.th, fl1)[:, None]
+    sum_s = torch.zeros_like(xnu)
+    sum_c = torch.full_like(xnu, zeps)
+    s1 = torch.full_like(xnu, zeps)
+    d = torch.full_like(xnu, zeps)                    # s1 − s2
+    # the running THMEAN update is sequential in m (peak_ang.F90:134-148)
+    for off in range(-nsh, nsh + 1):
+        m = mmax + off
+        valid = (m >= 0) & (m <= nfre - 1)
+        mc = torch.clamp(m, 0, nfre - 1)
+        flm = torch.gather(fl1, 1, mc[None, None, :].expand(nang, 1, npts)
+                           )[:, 0, :]
+        flm = torch.where(valid[None, :], flm, torch.zeros_like(flm))
+        dfim_m = torch.where(valid, dfim[mc], torch.zeros_like(xnu))
+        sum_s = sum_s + torch.sum(sinth * flm, dim=0)
+        sum_c = sum_c + torch.sum(costh * flm, dim=0)
+        thmean = torch.atan2(sum_s, sum_c)
+        s1 = s1 + torch.sum(flm, dim=0) * dfim_m
+        h = torch.sin(0.5 * (th - thmean[None, :]))
+        d = d + torch.sum(2.0 * h * h * flm, dim=0) * dfim_m
+    sig_th = torch.where(
+        s1 > zeps, torch.sqrt(2.0 * torch.clamp(d / s1, min=0.0)),
+        torch.zeros_like(s1))
+    return xnu, sig_th
+
+
+def peak_margin(fl1):
+    """Per point, the relative gap between the largest and the
+    second-largest direction maximum over PEAK_ANG's search range:
+    (max − second)/max, +inf where the spectrum there is zero.  Where it
+    is tiny, a last-bit change of the spectrum may move the peak."""
+    top = torch.topk(_column_max(fl1), 2, dim=0).values
+    return torch.where(top[0] > 0.0, (top[0] - top[1]) / top[0],
+                       torch.full_like(top[0], torch.inf))
+
+
+def transf_snl(xk0, depth, xnu, sig_th):
+    """Shallow-water SNL enhancement with spread dependence
+    (transf_snl.F90:30-85)."""
+    x0 = xk0 * depth
+    xk = torch.maximum(xk0, XKDMIN / depth)
+    x = torch.clamp(xk * depth, max=c.DKMAX)       # guard sinh overflow
+    t0 = torch.tanh(x)
+    t0sq = t0**2
+    om = torch.sqrt(c.G * xk * t0)
+    c0 = om / xk
+    cs_sq = c.G * depth
+    vg = torch.where(x < 1.0e-4, c0,
+                     0.5 * c0 * (1.0 + 2.0 * x / torch.sinh(2.0 * x)))
+    vg_sq = vg**2
+    dvg = (t0 - x * (1.0 - t0sq)) ** 2 + 4.0 * x**2 * t0sq * (1.0 - t0sq)
+    xnl1 = (9.0 * t0sq**2 - 10.0 * t0sq + 9.0) / (8.0 * t0sq * t0)
+    xnl2 = ((2.0 * vg - 0.5 * c0) ** 2 / (cs_sq - vg_sq) + 1.0) / x
+    xnl4 = 1.0 / (4.0 * t0) * (2.0 * c0 + vg * (1.0 - t0sq)) ** 2 / \
+        (cs_sq - vg_sq)
+    alp = (1.0 - vg_sq / cs_sq) * c0**2 / vg_sq
+    zfac = sig_th**2 / (sig_th**2 + alp * xnu**2)
+    xnl = xnl1 - xnl2 + zfac * xnl4
+    val = torch.clamp(xnl**2 / (dvg * t0sq**4), 0.1, 10.0)
+    return torch.where((depth < BATHYMAX) & (depth > 0.0) & (x0 <= c.DKMAX),
+                       val, torch.ones_like(val))
+
+
+def _enhancement(dia: DiaTables, tb, wavnum, depth, akmean, isnonlin: int,
+                 fl1=None):
     """ENH(mc, npts) factor (snonlin.F90:123-165), vectorized over MC."""
     npts = depth.shape[0]
     if isnonlin == 0:
@@ -417,12 +534,16 @@ def _enhancement(dia: DiaTables, tb, wavnum, depth, akmean, isnonlin: int):
         enhfr = 1.0 + (5.5 / enhfr) * (1.0 - 0.833 * enhfr) * torch.exp(
             -1.25 * enhfr)
         return enhfr[None, :].expand(dia.mlsthg, npts)
+    if isnonlin not in (1, 2):
+        raise ValueError(f"unknown ISNONLIN={isnonlin}")
+    xk_ext = torch.as_tensor(enhancement_xk(dia, tb), dtype=wavnum.dtype,
+                             device=wavnum.device)
+    xk = torch.cat([wavnum, xk_ext[:, None].expand(-1, npts)], dim=0)
     if isnonlin == 1:
-        xk_ext = torch.as_tensor(enhancement_xk(dia, tb), dtype=wavnum.dtype,
-                                 device=wavnum.device)
-        xk = torch.cat([wavnum, xk_ext[:, None].expand(-1, npts)], dim=0)
         return torch.clamp(transf(xk, depth[None, :]), ENH_MIN, ENH_MAX)
-    raise NotImplementedError(f"ISNONLIN={isnonlin} is not ported")
+    # the spread-dependent enhancement (snonlin.F90:151-165)
+    xnu, sig_th = peak_ang(fl1, tb)
+    return transf_snl(xk, depth[None, :], xnu[None, :], sig_th[None, :])
 
 
 def snonlin(fl1, fld, sl, wavnum, depth, akmean, tb, dia: DiaTables,
@@ -435,7 +556,7 @@ def snonlin(fl1, fld, sl, wavnum, depth, akmean, tb, dia: DiaTables,
     """
     dt, dev = fl1.dtype, fl1.device
     pr = build_dia_projection(dia)
-    enh = _enhancement(dia, tb, wavnum, depth, akmean, isnonlin)
+    enh = _enhancement(dia, tb, wavnum, depth, akmean, isnonlin, fl1=fl1)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dt,

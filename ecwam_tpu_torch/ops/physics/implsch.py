@@ -7,11 +7,14 @@ version that the CUDA kernel of :mod:`.implsch_cuda` is held against.
 The chain: depth limit → means → 2×SINFLX → SDISSIP → SNONLIN → SDIWBK →
 SBOTTOM → implicit update with growth limiter → means → IMPHFTAIL →
 SETICE, and in full mode (the output dates) WNFLUXES and STOKESTRN.
-Ported for iphys=1 and isnonlin 0/1 with ECMWF's cycle-49/50 options:
-the gravity-capillary closure (LLGCBZ0, with HALPHAP on the first
-SINFLX call), LLNORMAGAM, LLCAPCHNK, LCISCAL and the SDICE3 sea-ice
-attenuation (LCIWA3).  iphys=0, isnonlin=2, SDICE1/2 and icode_wnd 1/2
-raise NotImplementedError (ROADMAP A4).
+Both input physics (iphys=1: SINPUT/SDISSIP ARD; iphys=0: Janssen's
+SINPUT_JAN and the cycle-4 SDISSIP_JAN), all three DIA enhancements
+(isnonlin 0/1/2), ECMWF's cycle-49/50 options (the gravity-capillary
+closure LLGCBZ0 with HALPHAP on the first SINFLX call, LLNORMAGAM,
+LLCAPCHNK, LCISCAL), the three sea-ice attenuation models (SDICE1/2/3,
+LCIWA1/2/3), the sea-ice strain (LSTRN) and the LBIWBK, LICERUN and
+LMASKICE switches are ported.  u*-driven forcing (icode_wnd 1/2) raises
+NotImplementedError (ROADMAP A9).
 
 Layout: fl1 (nang, nfre, npts).
 """
@@ -114,16 +117,10 @@ def make_physics_config(tables, params: pp.PhysParams, idelt: float,
 
 
 def check_ported(cfg: PhysicsConfig) -> None:
-    """Raise for the physics options this port does not cover yet."""
-    p = cfg.params
-    missing = [name for name, on in (
-        ("iphys=0", p.iphys != 1),
-        ("isnonlin=2", cfg.isnonlin not in (0, 1)),
-        ("sea-ice attenuation lciwa1/lciwa2", cfg.lciwa1 or cfg.lciwa2),
-        ("icode_wnd 1/2", cfg.icode_wnd != 3)) if on]
-    if missing:
-        raise NotImplementedError("not ported (ROADMAP A4): "
-                                  + ", ".join(missing))
+    """Raise for the physics options this port does not cover yet: the
+    u*-driven forcing (icode_wnd 1/2) of the dense model."""
+    if cfg.icode_wnd != 3:
+        raise NotImplementedError("not ported (ROADMAP A9): icode_wnd 1/2")
 
 
 def growth_factor(wswave, params: pp.PhysParams):
@@ -171,7 +168,9 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
     ngst = 1 if icall < ncall else 2
     llsneg = icall >= ncall
     llphiwa = icall >= ncall
-    fld, sl, spos, xllws, margin = sinput_mod.sinput_ard(
+    sinput = (sinput_mod.sinput_ard if params.iphys == 1
+              else sinput_mod.sinput_jan)
+    fld, sl, spos, xllws, margin = sinput(
         fl1, env["wavnum"], env["cinv"], env["xk2cg"],
         frc["wdwave"], frc["wswave"], ufric, z0m,
         coswdif, sinwdif2, raorw, frc["wstar"], rnfac,
@@ -206,7 +205,9 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
     it is tiny the cut, and with it the stress, flips on a last-bit
     change of the inputs — ``xllws_margin``, the signed distance of each
     mask bin from the mask's edge in the second SINFLX call (see
-    :func:`.sinput.sinput_ard`) — and, with ``cfg.lcflx``/``cfg.lstokes``
+    :func:`.sinput.sinput_ard`), with ISNONLIN=2 ``peak_margin``, the
+    relative gap of PEAK_ANG's peak over the next direction maximum
+    (:func:`.dia.peak_margin`) — and, with ``cfg.lcflx``/``cfg.lstokes``
     (full mode), the WNFLUXES and STOKESTRN fields.
     """
     check_ported(cfg)
@@ -242,9 +243,16 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
     mij, xllws, fmeanws = st["mij"], st["xllws"], st["fmeanws"]
     xllws_margin = st["xllws_margin"]
 
-    fld, sl = sdissip_mod.sdissip_ard(
-        fl1, fld, sl, env["wavnum"], env["xk2cg"], ufric, st["coswdif"],
-        st["raorw"], tb, cfg.params, cfg.sat_indices, cfg.sat_weights)
+    if cfg.params.iphys == 1:
+        fld, sl = sdissip_mod.sdissip_ard(
+            fl1, fld, sl, env["wavnum"], env["xk2cg"], ufric,
+            st["coswdif"], st["raorw"], tb, cfg.params, cfg.sat_indices,
+            cfg.sat_weights)
+    else:
+        fld, sl = sdissip_mod.sdissip_jan(
+            fl1, fld, sl, env["wavnum"], emean, f1mean, xkmean, tb,
+            cfg.params)
+    peak = dia_mod.peak_margin(fl1) if cfg.isnonlin == 2 else None
     # the flux-relevant source contribution (implsch.F90:281-306)
     ssource = sl if (cfg.lcflx and not cfg.lwvflx_snl) else None
     fld, sl = dia_mod.snonlin(
@@ -321,6 +329,8 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         **flux_diag)
     if cfg.params.llgcbz0:
         state["gc_margin"] = torch.minimum(*gc_margins)
+    if peak is not None:
+        state["peak_margin"] = peak
     if cfg.lstokes:
         cithick = frc.get("cithick", torch.zeros_like(frc["cicover"]))
         stokfac = env.get("stokfac")

@@ -26,6 +26,11 @@ ECMWF's cycle-49/50 physics options (the gravity-capillary closure
 LLGCBZ0 with HALPHAP, LLNORMAGAM, LLCAPCHNK, LCISCAL and the SDICE3
 sea-ice attenuation LCIWA3) run in a separate instantiation of the kernel
 (``OPTS``), so the default configuration's code is untouched by them.
+The rest of the physics (iphys=0's Janssen input and cycle-4
+dissipation, ISNONLIN 0/2, SDICE1/2, the sea-ice strain LSTRN and the
+LBIWBK/LICERUN/LMASKICE switches off) runs in the ``EXT``
+instantiations (with ``JAN`` for iphys=0), so that neither earlier
+instantiation changes.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ecwam_tpu_torch.ops.physics import gc as gc_mod
 from ecwam_tpu_torch.ops.physics import implsch as impl
 from ecwam_tpu_torch.ops.physics import sdice as sdice_mod
 from ecwam_tpu_torch.ops.physics import sdissip as sdissip_mod
+from ecwam_tpu_torch.ops.physics import sinput as sinput_mod
 from ecwam_tpu_torch.ops.physics import stokes as stokes_mod
 from ecwam_tpu_torch.ops.physics.airsea import EPS1, WSPMIN_DEFAULT
 from ecwam_tpu_torch.ops.physics.shallow import DEPTHTRS
@@ -102,11 +108,21 @@ PAR_NAMES = (
     "rn1_rn", "dthrn_a", "dthrn_u", "gamnconst", "alphapmax", "xnlev",
     "rnukappam1", "sqrtgosurft", "xkm0", "xlogkratiom1", "acdlin", "bcdlin",
     "alphamax", "constn", "cdice2", "logfr_last", "fr_nm3", "halp_tail",
-    "g4pi")
+    "g4pi",
+    # iphys=0, ISNONLIN 0/2, SDICE1/2 and CIMSSTRN
+    "conss", "delta_sdis", "cvis", "const3", "xkappad", "nsh", "coef_fr2",
+    "xkdmin", "ticmin", "dtic", "nict", "hicmin", "dhic", "nich", "cdicwa",
+    "ficstf_c", "rdh_c", "aki_max", "f1lim")
 
 # option bits of the kernel's ``opts`` argument, in the order of
-# csrc/implsch.cu's Opt enum
-OPT_FLAGS = ("llgcbz0", "llnormagam", "llcapchnk", "lciwa3", "lciscal")
+# csrc/implsch.cu's Opt enum: the cycle-49/50 options (the OPTS
+# instantiation), then those of the EXT instantiations — iphys=0 (JAN),
+# ISNONLIN 0/2, SDICE1/2, LSTRN and the three switches switched off
+OPT_FLAGS = ("llgcbz0", "llnormagam", "llcapchnk", "lciwa3", "lciscal",
+             "iphys0", "isnonlin0", "isnonlin2", "lciwa1", "lciwa2", "lstrn",
+             "no_lbiwbk", "no_licerun", "no_lmaskice")
+EXT_BITS = sum(1 << i for i in range(5, len(OPT_FLAGS)))
+LSTRN_BIT = 1 << OPT_FLAGS.index("lstrn")
 # gravity-capillary tables the kernel reads, NWAV values each, in the
 # order of csrc/implsch.cu's GcTab enum
 GC_TABLES = ("logxk", "cm", "om3gmkm", "xkmsqrtvgoc2", "delkcc_omxkm3",
@@ -140,30 +156,31 @@ def pack_scal_out(state: dict, *, full: bool):
 
 
 def option_bits(cfg: impl.PhysicsConfig) -> int:
-    """The ``opts`` bit mask of the configuration's cycle-49/50 options
-    (OPT_FLAGS order); 0 runs the default instantiation."""
+    """The ``opts`` bit mask of the configuration (OPT_FLAGS order): 0
+    runs the default instantiation, bits of EXT_BITS the EXT ones."""
     p = cfg.params
-    on = (p.llgcbz0, p.llnormagam, p.llcapchnk, cfg.lciwa3, cfg.lciscal)
+    on = (p.llgcbz0, p.llnormagam, p.llcapchnk, cfg.lciwa3, cfg.lciscal,
+          p.iphys == 0, cfg.isnonlin == 0, cfg.isnonlin == 2, cfg.lciwa1,
+          cfg.lciwa2, cfg.lstrn, not cfg.lbiwbk, not cfg.licerun,
+          not cfg.lmaskice)
     return sum(1 << i for i, v in enumerate(on) if v)
 
 
 def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False) -> None:
     """Raise for configurations the kernel does not take."""
     impl.check_ported(cfg)
-    if cfg.isnonlin != 1:
-        raise NotImplementedError("the physics kernel runs isnonlin=1 only")
-    if not (cfg.lbiwbk and cfg.licerun and cfg.lmaskice):
-        raise NotImplementedError("the physics kernel needs lbiwbk, licerun "
-                                  "and lmaskice")
+    if cfg.isnonlin not in (0, 1, 2):
+        raise ValueError(f"unknown ISNONLIN={cfg.isnonlin}")
     if cfg.tables.nang > 64:
-        raise NotImplementedError("the physics kernel takes nang <= 64")
+        raise NotImplementedError("the physics kernel takes nang <= 64 "
+                                  "(ROADMAP)")
     if WSPMIN_DEFAULT != 1.0:
         raise NotImplementedError("the physics kernel assumes WSPMIN=1")
     if full and not (cfg.lcflx and cfg.lstokes and cfg.lwvflx_snl
-                     and not cfg.lstrn and cfg.tables.nfre <= 64):
+                     and cfg.tables.nfre <= 64):
         raise NotImplementedError(
             "the full-mode kernel computes lcflx, lstokes and lwvflx_snl, "
-            "without lstrn, for nfre <= 64")
+            "for nfre <= 64")
 
 
 def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
@@ -218,7 +235,19 @@ def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
         acdlin=c.ACDLIN, bcdlin=c.BCDLIN, alphamax=pp.ALPHAMAX,
         constn=tb.delth / (pp.XKAPPA * c.ZPI), cdice2=2.0 * sdice_mod.CDICE,
         logfr_last=math.log(fr[-1]), fr_nm3=fr[tb.nfre - 3],
-        halp_tail=c.ZPI4GM2 * fr[-1] ** 5, g4pi=c.G / (4.0 * c.PI))
+        halp_tail=c.ZPI4GM2 * fr[-1] ** 5, g4pi=c.G / (4.0 * c.PI),
+        conss=p.cdis * c.ZPI, delta_sdis=p.delta_sdis,
+        cvis=pp.RNU * p.cdisvis,
+        const3=sinput_mod.IDAMPING * 2.0 * pp.XKAPPA / p.betamaxoxkappa2,
+        xkappad=1.0 / pp.XKAPPA, nsh=dia_mod.peak_window(tb),
+        coef_fr2=sp.WP2TAIL * tb.delth * fr[-1] ** 3, xkdmin=dia_mod.XKDMIN,
+        **{k: float(v) for k, v in sdice_mod.load_cideac().items()
+           if k != "cideac"},
+        cdicwa=sdice_mod.CDICWA * sdice_mod.ZALPFACB,
+        ficstf_c=stokes_mod.YMICE / (12.0 * (1.0 - stokes_mod.RMUICE**2))
+        / c.ROWATER,
+        rdh_c=stokes_mod.RHOI / c.ROWATER, aki_max=stokes_mod.AKI_MAX,
+        f1lim=FLMIN / tb.delth)
     return np.array([v[k] for k in PAR_NAMES], np.float64)
 
 
@@ -242,7 +271,7 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
     swellft = tables.tabu_swellft()
     ftabs = [tb.fr, tb.dfim, tb.dfimofr, tb.dfimfr, tb.zpifr, tb.fr5,
              tb.cofrm4, tb.rhowg_dfim, impl._flmax(tb, cfg.params),
-             tb.dfim_sim, np.asarray(tb.fr) ** 4.5]
+             tb.dfim_sim, np.asarray(tb.fr) ** 4.5, tb.dfimfr2]
     wmat = sdissip_mod.saturation_matrix(tb.nang, cfg.sat_indices,
                                          cfg.sat_weights)
     ftab = np.concatenate(
@@ -251,7 +280,8 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
            np.asarray(cfg.wtauhf, np.float64), _gc_block().reshape(-1),
            dia.af11,
            np.asarray(dia.rnl, np.float64).reshape(-1),
-           dia_mod.enhancement_xk(dia, tb)])
+           dia_mod.enhancement_xk(dia, tb),
+           sdice_mod.load_cideac()["cideac"].reshape(-1)])
     shifts = dia_mod.build_dia_projection(dia).shifts
     itab = np.concatenate(
         [dia.ic, dia.ip, dia.ip1, dia.im, dia.im1, dia.ikm, dia.ikm1,
@@ -260,7 +290,8 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
         tab=torch.as_tensor(ftab.astype(np.float32), device=device),
         itab=torch.as_tensor(itab.astype(np.int32), device=device),
         mlsthg=int(dia.mlsthg), niab=int(swellft.shape[0]),
-        nwav=int(gc_mod.gc_tables().nwav), opts=option_bits(cfg))
+        nwav=int(gc_mod.gc_tables().nwav),
+        opts=option_bits(cfg) & ~LSTRN_BIT)
 
 
 
@@ -389,7 +420,8 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
         tables_dev = pack_tables(cfg, dev)
     if tables_dev["tab"].device != dev:
         raise ValueError("physics tables on another device")
-    if tables_dev["opts"] != option_bits(cfg):
+    opts = option_bits(cfg)
+    if tables_dev["opts"] != opts & ~LSTRN_BIT:
         raise ValueError("physics tables packed for other options")
     keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
     out = torch.empty((len(keys), nrows), dtype=torch.float32, device=dev)
@@ -404,7 +436,7 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
             xllws.data_ptr() if full else None,
             tables_dev["tab"].data_ptr(), tables_dev["itab"].data_ptr(),
             nrows, nang, nfre, nfr, cfg.nfre_red, tables_dev["mlsthg"],
-            tables_dev["niab"], tables_dev["nwav"], tables_dev["opts"],
+            tables_dev["niab"], tables_dev["nwav"], opts,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"implsch kernel launch failed: CUDA error {err}")

@@ -1,9 +1,10 @@
-"""Whitecapping dissipation S_ds (Ardhuin et al. 2010).
+"""Whitecapping dissipation S_ds.
 
-Port of ``ecwam_tpu/ops/physics/sdissip.py: sdissip_ard``
-(sdissip_ard.F90:70-256).  The cumulative-breaking term is compiled out
-in the reference (SSDSC3=0, yowphys.F90:140).  The cycle-4 dissipation
-(iphys=0) is not ported yet.
+Port of ``ecwam_tpu/ops/physics/sdissip.py``: ``sdissip_ard``, the
+saturation-based dissipation of Ardhuin et al. (2010)
+(sdissip_ard.F90:70-256; the cumulative-breaking term is compiled out in
+the reference, SSDSC3=0, yowphys.F90:140), and ``sdissip_jan``, the WAM
+cycle-4 mean-steepness dissipation of iphys=0 (sdissip_jan.F90:50-120).
 """
 
 from __future__ import annotations
@@ -56,3 +57,17 @@ def sdissip_ard(fl1, fld, sl, wavnum, xk2cg, ufric, coswdif, raorw,
         d = d - facwtrb[None, :, :] * coswdif[:, None, :]
 
     return fld + d, sl + d * fl1
+
+
+def sdissip_jan(fl1, fld, sl, wavnum, emean, f1mean, xkmean,
+                tb, params: pp.PhysParams):
+    """WAM cycle-4 dissipation (sdissip_jan.F90:50-120) from the mean
+    parameters of the step's first FKMEAN."""
+    conss = params.cdis * c.ZPI
+    sds = conss * f1mean * emean**2 * xkmean**4           # (npts,)
+    x = wavnum / xkmean[None, :]                          # (nfre, npts)
+    cvis = pp.RNU * params.cdisvis
+    temp1 = (sds[None, :] * x * ((1.0 - params.delta_sdis)
+                                 + params.delta_sdis * x)
+             + cvis * wavnum**2)
+    return fld + temp1[None, :, :], sl + temp1[None, :, :] * fl1

@@ -1,13 +1,16 @@
-"""Wind-input source term S_in (Ardhuin et al. 2010).
+"""Wind-input source term S_in.
 
-Port of ``ecwam_tpu/ops/physics/sinput.py: sinput_ard``
-(sinput_ard.F90:88-434): positive input with gustiness averaging,
-tail-stress sheltering carried low→high frequency by a sequential
-frequency loop, the LLNORMAGAM growth normalisation, and the negative
-(swell damping) part.  The Janssen input (iphys=0) is not ported yet.
+Port of ``ecwam_tpu/ops/physics/sinput.py``:
+  - ``sinput_ard`` (Ardhuin et al. 2010, sinput_ard.F90:88-434): positive
+    input with gustiness averaging, tail-stress sheltering carried
+    low→high frequency by a sequential frequency loop, the LLNORMAGAM
+    growth normalisation, and the negative (swell damping) part;
+  - ``sinput_jan`` (Janssen's quasi-linear input of WAM cycle 4, iphys=0,
+    sinput_jan.F90:84-280): frequency-parallel, two gusts, the LLNORMAGAM
+    normalisation and the negative part.
 
 Layout: fl1 (nang, nfre, npts); per-frequency env (nfre, npts); scalars
-(npts,).  Returns (fld, sl, spos, xllws, margin) with fld = ∂S/∂F
+(npts,).  Both return (fld, sl, spos, xllws, margin) with fld = ∂S/∂F
 diagonal, sl = S_in, spos = positive part only, xllws = windsea mask, and
 margin the mask test's distance from its edge: over the gusts, the
 largest min(cos − 0.01, −zlog), so that xllws = (margin > 0).  Where
@@ -23,6 +26,8 @@ from ecwam_tpu_torch.core import physparams as pp
 from ecwam_tpu_torch.ops.physics import tables
 from ecwam_tpu_torch.ops.physics import const
 from ecwam_tpu_torch.ops.physics.airsea import wsigstar
+
+IDAMPING = 1              # mpuserin.F90:609
 
 
 def _swellft_interp(zorb):
@@ -189,3 +194,74 @@ def sinput_ard(fl1, wavnum, cinv, xk2cg,
         xllws[:, m] = xllws_m
         margin[:, m] = margin_m
     return fld, sl, spos, xllws, margin
+
+
+def sinput_jan(fl1, wavnum, cinv, xk2cg,
+               wdwave, wswave, ufric, z0m,
+               coswdif, sinwdif2, raorw, wstar, rnfac,
+               tb, params: pp.PhysParams,
+               *, ngst: int = 2, llsneg: bool = True):
+    """Janssen quasi-linear wind input (sinput_jan.F90:84-280).
+
+    The windsea mask is ``coswdif > 0.01 & zlog < 0`` in either gust;
+    ``margin`` is its distance from the edge as in :func:`sinput_ard`."""
+    zpifr = const(tb.zpifr, fl1)[:, None]           # (nfre, 1)
+    const1 = params.betamaxoxkappa2
+    const3 = IDAMPING * 2.0 * pp.XKAPPA / const1
+    constn = tb.delth / (pp.XKAPPA * c.ZPI)
+    xkappad = 1.0 / pp.XKAPPA
+
+    lz = coswdif > 0.01                              # (nang, npts)
+    if ngst > 1:
+        sig_n = wsigstar(wswave, ufric, z0m, wstar, params)
+        sigdev = torch.stack([1.0 - sig_n, 1.0 + sig_n])
+        wsin = (0.5, 0.5)
+    else:
+        sigdev = torch.ones_like(ufric)[None, :]
+        wsin = (1.0,)
+    us = ufric[None, :] * sigdev                     # (ngst, npts)
+    ustpm1 = 1.0 / torch.clamp(us, min=c.EPSUS)
+
+    ztanhkd = zpifr**2 / (c.G * wavnum)              # (nfre, npts)
+    cnsn = zpifr * const1 * ztanhkd * raorw[None, :]
+    cstrnfac = constn * rnfac / raorw if params.llnormagam else None
+    zcn = torch.log(wavnum * z0m[None, :])
+    cosw = torch.where(lz, coswdif, torch.ones_like(coswdif))[:, None, :]
+
+    ufac1 = torch.zeros_like(fl1)
+    ufac2 = torch.zeros_like(fl1)
+    xllws = torch.zeros_like(fl1)
+    margin = torch.full_like(fl1, -torch.inf)
+    for igst in range(len(wsin)):
+        us_g = us[igst]
+        ucn = us_g[None, :] * cinv + params.zalp     # (nfre, npts)
+        const3_ucn2 = const3 * ucn**2
+        ucnd = 1.0 / ucn
+        xvd = 1.0 / (-us_g[None, :] * xkappad * zcn * cinv)
+
+        zlog = zcn[None, :, :] + pp.XKAPPA / cosw * ucnd[None, :, :]
+        active = lz[:, None, :] & (zlog < 0.0)
+        x = coswdif[:, None, :] * ucn[None, :, :]
+        zlog2x = zlog * zlog * x
+        gam0 = torch.where(
+            active, zlog2x * zlog2x * torch.exp(zlog) * cnsn[None, :, :],
+            torch.zeros_like(zlog))
+        xllws = torch.maximum(xllws, active.to(fl1.dtype))
+        margin = torch.maximum(margin, torch.minimum(
+            (coswdif - 0.01)[:, None, :], -zlog))
+
+        if params.llnormagam:
+            sumf = torch.sum(gam0 * fl1, dim=0)      # (nfre, npts)
+            sumfsin2 = torch.sum(gam0 * fl1 * sinwdif2[:, None, :], dim=0)
+            znz = (cstrnfac[None, :] * xk2cg) * ustpm1[igst][None, :]
+            gam0 = gam0 * ((1.0 + znz * sumfsin2)
+                           / (1.0 + znz * sumf))[None, :, :]
+
+        ufac1 = ufac1 + wsin[igst] * gam0
+        if llsneg:
+            zbeta = const3_ucn2[None, :, :] * (
+                coswdif[:, None, :] - xvd[None, :, :])
+            ufac2 = ufac2 + wsin[igst] * zbeta
+
+    fld = ufac1 + ufac2 * cnsn[None, :, :]
+    return fld, fld * fl1, ufac1 * fl1, xllws, margin

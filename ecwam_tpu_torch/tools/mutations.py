@@ -14,9 +14,11 @@ trajectory and the O320 slice; for ``options`` (kernel B with the
 cycle-49/50 options) the shallow cy50r1 and golden cy49r1 physics steps
 in both modes and the full-mode slice of ``cases.o320_options``; for
 ``currents`` (kernel A with currents) the currents grids' passes and CFL
-retry mask, the golden currents trajectory and the O320 options pass.
-The sound copy reads them all.  Prints one JSON line per copy: the
-readings and the checks it fails.
+retry mask, the golden currents trajectory and the O320 options pass; for
+``legacy`` (kernel B's EXT and JAN instantiations) the physics steps of
+``cases.LEGACY_CASES`` in both modes and the full-mode slice of
+``cases.o320_legacy``.  The sound copy reads them all.  Prints one JSON
+line per copy: the readings and the checks it fails.
 """
 
 import json
@@ -34,7 +36,7 @@ IMPLSCH, ADVECT = "implsch.cu", "advect.cu"
 # name: (checks, source, text, replacement); the sound copy reads every
 # kind of check
 MUTATIONS = {
-    "sound": (("full", "options", "currents"), None, None, None),
+    "sound": (("full", "options", "currents", "legacy"), None, None, None),
     # the FLMAX cap's term left out of the flux source
     "no_cap_flux": (("full",), IMPLSCH,
         "if (FULL) W.fld[b] = P[P_DELTM] * fminf(T.flmax[m] - f, 0.f);",
@@ -69,11 +71,11 @@ MUTATIONS = {
         "? 1.f : 1.f;"),
     # SDICE3's ice attenuation left out
     "no_sdice3": (("options",), IMPLSCH,
-        "const bool ciwa3 = opts & OPT_LCIWA3;",
+        "const bool ciwa3 = icerun && (opts & OPT_LCIWA3);",
         "const bool ciwa3 = false;"),
     # LCISCAL's open-water scaling of the sources left out
     "no_lciscal": (("options",), IMPLSCH,
-        "if (opts & OPT_LCISCAL) {",
+        "if (icerun && (opts & OPT_LCISCAL)) {",
         "if (false) {"),
     # the σ̇ inflow from frequency m−1 dropped
     "no_sdot_mm1": (("currents",), ADVECT,
@@ -87,6 +89,34 @@ MUTATIONS = {
     "no_cfl_flag": (("currents",), ADVECT,
         "if (bad) atomicOr(&cfl_s[it], 1);",
         "if (false) atomicOr(&cfl_s[it], 1);"),
+    # SINPUT_JAN's growth term with one zlog²·x factor dropped
+    "jan_growth": (("legacy",), IMPLSCH,
+        "gam[q] = active ? zlog2x * zlog2x * expf(zlog) * cnsn : 0.f;",
+        "gam[q] = active ? zlog2x * expf(zlog) * cnsn : 0.f;"),
+    # SDISSIP_JAN without its leading k/k̄ factor
+    "sdissip_jan_x": (("legacy",), IMPLSCH,
+        "const float t = sds * x * ((1.f - dsd) + dsd * x)",
+        "const float t = sds * ((1.f - dsd) + dsd * x)"),
+    # PEAK_ANG's peak one frequency too high
+    "peak_off_by_one": (("legacy",), IMPLSCH,
+        "const int mmax = best > 0.f ? ib : 1;",
+        "const int mmax = best > 0.f ? ib + 1 : 1;"),
+    # TRANSF_SNL's upper clip at 2 instead of 10
+    "transf_snl_clip": (("legacy",), IMPLSCH,
+        "(dvg * (t4 * t4)), 0.1f), 10.f);",
+        "(dvg * (t4 * t4)), 0.1f), 2.f);"),
+    # SDICE1's second period cell one too far
+    "sdice1_index": (("legacy",), IMPLSCH,
+        "const int it1 = min(it + 1, nict - 1);",
+        "const int it1 = min(it + 2, nict - 1);"),
+    # SDICE2's wave height halved
+    "sdice2_ewh": (("legacy",), IMPLSCH,
+        "const float ewh = 4.f * sqrtf(fmaxf(P[P_EPSMIN], f * T.dfim[m]));",
+        "const float ewh = 2.f * sqrtf(fmaxf(P[P_EPSMIN], f * T.dfim[m]));"),
+    # the strain row from e·E in place of e²·E
+    "strain_row": (("legacy",), IMPLSCH,
+        "if (sume > P[P_F1LIM]) part += (e * e) * sume * T.dfim[m];",
+        "if (sume > P[P_F1LIM]) part += e * sume * T.dfim[m];"),
 }
 
 
@@ -94,14 +124,18 @@ def readings(kinds) -> dict:
     """The checks of chip_smoke.py of ``kinds`` on the tree at
     sys.path[0]."""
     import torch
+    from ecwam_tpu_torch import _build
     out, fails = {}, []
     dev = torch.device("cuda")
+    _build.build()                  # every library at once, in parallel
     if "full" in kinds:
         _full(dev, out, fails)
     if "options" in kinds:
         _options(dev, out, fails)
     if "currents" in kinds:
         _currents(dev, out, fails)
+    if "legacy" in kinds:
+        _legacy(dev, out, fails)
     out["fails"] = fails
     return out
 
@@ -211,6 +245,47 @@ def _currents(dev, out, fails):
     out["o320_options_advect"] = a[0]
     if a[0] > cs.ADVECT_TOL:
         fails.append("o320 options advect")
+
+
+def _legacy(dev, out, fails):
+    """Kernel B's checks with the rest of the physics."""
+    import chip_smoke as cs
+    from ecwam_tpu_torch.model import cases
+    for name in cases.LEGACY_CASES:
+        c = cases.legacy_case(name)
+        hold = dict(forcing=c["forcing"], phys=c["phys"],
+                    gc_width=cs.GC_WIDTH, peak_width=cs.PEAK_WIDTH,
+                    off_tol=cs.STRESS_TOL)
+        spec, stress, held = cases.physics_kernel_vs_plain(c["kw"], dev,
+                                                           **hold)
+        f = cases.full_kernel_vs_plain(c["kw"], dev, width=cs.MASK_WIDTH,
+                                       **hold)
+        worst = max(f["rows"], key=f["rows"].get)
+        out[name] = dict(spec=spec, stress=stress, held=held,
+                         full_spec=f["spec"], worst=worst,
+                         rows=f["rows"][worst], full_held=f["held"],
+                         xllws_off=f["off_edge"])
+        if spec > cs.PHYS_TOL or f["spec"] > cs.PHYS_TOL:
+            fails.append(f"{name} spectrum")
+        if stress > cs.STRESS_TOL or f["rows"][worst] > cs.FULL_ROW_TOL:
+            fails.append(f"{name} rows")
+        if max(held, f["held"]) > 1:
+            fails.append(f"{name} rows held")
+        if f["off_edge"] > 0:
+            fails.append(f"{name} xllws")
+    ms, model = cases.o320_legacy(dev)
+    model.advance(2)
+    r = cs.slice_check(ms, model, dev, True, above_cut=0.0,
+                       r0=cs.ice_slice(ms))
+    worst = max(r["rows"], key=r["rows"].get)
+    out["o320_legacy"] = dict(
+        spec=r["spec_rel"], stress=r["stress_rel"], worst=worst,
+        rows=r["rows"][worst], n_off=r["n_off"], n_peak=r["n_peak"],
+        n_tie=r["n_tie"], xllws_off=r["xllws_off"])
+    try:
+        cs.check_slice(r, True, "o320 legacy")
+    except AssertionError:
+        fails.append("o320 legacy slice")
 
 
 def main():

@@ -1,14 +1,15 @@
-"""Time kernels A and B of the default configuration on the O320 state.
+"""Time kernels A and B on the O320 state, default and cy50r1.
 
     python3 ecwam_tpu_torch/tools/time_physics.py               # this tree
     python3 ecwam_tpu_torch/tools/time_physics.py --ab OTHER    # A/B
 
-Run from a repository root on a machine with one CUDA card.  The state is
-``chip_smoke.o320_model``'s after two steps (one physics step); kernel B
-is timed in minimal mode on every SRL row and in full mode over every row
-in chunks of 65,536 (the output date's launches), and kernel A as one
-all-band pass, each with CUDA events over ``--reps`` runs on fresh
-copies.  With
+Run from a repository root on a machine with one CUDA card.  For each
+configuration — ``default``, ``chip_smoke.o320_model``, and ``options``,
+``cases.o320_options`` (cy50r1, irefra 2, polar ice) — the state is the
+model's after two steps (one physics step); kernel B is timed in minimal
+mode on every SRL row and in full mode over every row in chunks of 65,536
+(the output date's launches), and kernel A as one all-band pass, each
+with CUDA events over ``--reps`` runs on fresh copies.  With
 ``--ab OTHER`` (the root of another checkout, e.g. the parent commit
 unpacked with ``git archive``) the two trees run in turns, each in its own
 process, OTHER, this, this, OTHER, so that both are measured on one card.
@@ -30,10 +31,25 @@ def run(root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
     import chip_smoke as cs
+    from ecwam_tpu_torch.model import cases
+    dev = torch.device("cuda")
+    out = dict(root=root, card=cs.card_line(), reps=reps)
+    for name, build in (("default", cs.o320_model),
+                        ("options", cases.o320_options)):
+        ms, model = build(dev)
+        out[name] = time_model(cs, ms, model, reps)
+        del ms, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_model(cs, ms, model, reps: int) -> dict:
+    """Kernel B (minimal on all rows, full in chunks) and kernel A (one
+    pass) on ``model``'s state after two steps."""
+    import torch
     from ecwam_tpu_torch.ops import propagation_cuda as pcu
     from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
-    dev = torch.device("cuda")
-    ms, model = cs.o320_model(dev)
+    dev = ms.device
     model.advance(2)
     fp = model.fp
     cfg = ipk.minimal_config(ms.phys)
@@ -61,9 +77,8 @@ def run(root: str, reps: int) -> dict:
               irefra=ms.irefra)
     advect_ms = cs.cuda_ms(lambda _: pcu.advect(f0, fp.tabs, fp.lc, **kw),
                            reps)
-    return dict(root=root, card=cs.card_line(), rows=int(nsrl), reps=reps,
-                minimal_all_rows_ms=ms_all, full_all_rows_ms=full_ms,
-                advect_pass_ms=advect_ms)
+    return dict(rows=int(nsrl), minimal_all_rows_ms=ms_all,
+                full_all_rows_ms=full_ms, advect_pass_ms=advect_ms)
 
 
 def main():

@@ -134,3 +134,12 @@ def test_copy_names_its_source(module):
     assert f"``{rel}``" in mod.__doc__
     assert mod.__name__ == orig.__name__.replace("ecwam_tpu",
                                                  "ecwam_tpu_torch", 1)
+
+
+def test_cideac_copy_matches_original():
+    """``ecwam_tpu_torch/data/cideac.npz``, SDICE1's deactivation table,
+    is a copy of ``ecwam_tpu/data/cideac.npz``."""
+    from ecwam_tpu.ops.physics import sdice as j_sdice
+    from ecwam_tpu_torch.ops.physics import sdice as t_sdice
+    _same(j_sdice.load_cideac(), t_sdice.load_cideac(), "cideac")
+    assert t_sdice.load_cideac()["cideac"].shape == (16, 36)

@@ -19,9 +19,12 @@ same limits as chip_smoke.py):
                            mask's edge (float64), ≤ XLLWS_SHARE of all
   4-step golden trajectory fl1 ≤ TRAJ_TOL; stress ≤ TRAJ_STRESS_TOL
   CFL current retry        the kernel's mask equals the plain version's
+  op classes (kernel D)    equal for the layout classes, 1e-6 of max for
+                           the others
 With the cycle-49/50 options, a row off the limits whose
 gravity-capillary decision margin (float64) lies within GC_WIDTH of its
-edge is held out, at most one a grid.
+edge is held out, at most one a grid; with ISNONLIN=2 likewise a row whose
+PEAK_ANG peak lies within PEAK_WIDTH of the next direction maximum.
 """
 
 import dataclasses
@@ -42,6 +45,7 @@ from ecwam_tpu_torch.model.cases import (compact_kernel_vs_plain,
 from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+from ecwam_tpu_torch.tools import opclass as oc
 
 ADVECT_TOL = 1e-5
 PHYS_TOL = 2e-5
@@ -52,6 +56,7 @@ MASK_WIDTH = 1e-4
 TRAJ_TOL = 2.5e-4
 TRAJ_STRESS_TOL = 5e-3
 GC_WIDTH = 1e-4
+PEAK_WIDTH = 1e-5
 
 
 def refraction_kw():
@@ -206,6 +211,38 @@ def test_option_physics_kernels_match_plain_on_card(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(cases.LEGACY_CASES))
+def test_legacy_physics_kernels_match_plain_on_card(cuda, name):
+    """Kernels B (both modes) and C (both modes) with the rest of the
+    physics: iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN and the switches."""
+    c = cases.legacy_case(name)
+    hold = dict(forcing=c["forcing"], phys=c["phys"], gc_width=GC_WIDTH,
+                peak_width=PEAK_WIDTH, off_tol=STRESS_TOL)
+    spec, stress, held = physics_kernel_vs_plain(c["kw"], cuda, **hold)
+    assert spec <= PHYS_TOL and stress <= STRESS_TOL and held <= 1
+    r = full_kernel_vs_plain(c["kw"], cuda, width=MASK_WIDTH, **hold)
+    assert r["spec"] <= PHYS_TOL and r["held"] <= 1
+    for key, e in r["rows"].items():
+        assert e <= FULL_ROW_TOL, key
+    assert r["off_edge"] == 0
+    for full in (False, True):
+        k = compact_kernel_vs_plain(c["kw"], cuda, full=full,
+                                    width=MASK_WIDTH, **hold)
+        assert k["spec"] <= PHYS_TOL and k["off_edge"] == 0
+        assert k["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", oc.CLASSES)
+def test_opclass_kernel_matches_plain_on_card(cuda, name):
+    """Kernel D, each op class at K=8 over 16,384 lanes."""
+    n0 = oc.opclass.launches
+    r = oc.check(name, oc.start(16384, cuda), 8)
+    assert oc.opclass.launches == n0 + 1
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
 def test_currents_trajectory_matches_plain_on_card(cuda):
     err, launched = golden_kernel_vs_plain(
         cuda, kw=golden_kw(3, currents=True))
@@ -248,8 +285,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(KeyError):                  # currents need uv
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, irefra=2))
     cfg = ipk.minimal_config(ms.phys)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        ipk.kernel_supports(dataclasses.replace(cfg, lciwa1=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ipk.kernel_supports(dataclasses.replace(cfg, icode_wnd=1))
     env2d = torch.zeros((3 * ms.tb.nfre, f.shape[0]), device=cuda)
     scal = torch.zeros((len(ipk.SCAL_IN), f.shape[0]), device=cuda)
     with pytest.raises(ValueError):

@@ -232,15 +232,26 @@ def test_implsch_minimal_matches_reference_f64(prob):
 
 def test_unported_physics_options_raise(prob):
     from ecwam_tpu_torch.core import physparams as t_pp
-    cfg = t_impl.make_physics_config(
-        prob.tb, t_pp.set_phys_params(iphys=0, nang=prob.tb.nang),
-        idelt=900.0)
-    with pytest.raises(NotImplementedError, match="iphys=0"):
+    from ecwam_tpu_torch.core.spectral import build_spectral_tables
+    cfg = t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,
+                                     icode_wnd=1)
+    with pytest.raises(NotImplementedError, match="icode_wnd"):
         t_impl.check_ported(cfg)
-    # full mode is ported: the default configuration passes
-    t_impl.check_ported(t_impl.make_physics_config(prob.tb, prob.params,
-                                                   idelt=900.0))
-    with pytest.raises(NotImplementedError, match="isnonlin"):
-        t_ipk.kernel_supports(t_ipk.minimal_config(
-            t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,
-                                       isnonlin=0)))
+    # iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN and the switches are ported,
+    # in the plain chain and in the kernel, in both modes
+    t_impl.check_ported(t_impl.make_physics_config(
+        prob.tb, t_pp.set_phys_params(iphys=0, nang=prob.tb.nang),
+        idelt=900.0))
+    for kw in (dict(isnonlin=0), dict(isnonlin=2),
+               dict(lciwa1=True, lciwa2=True, lstrn=True, lbiwbk=False,
+                    licerun=False, lmaskice=False)):
+        c = t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,
+                                       **kw)
+        t_impl.check_ported(c)
+        t_ipk.kernel_supports(c, full=True)
+        t_ipk.kernel_supports(t_ipk.minimal_config(c))
+    # the kernel takes at most 64 directions
+    tb72 = build_spectral_tables(nang=72, nfre=prob.tb.nfre)
+    with pytest.raises(NotImplementedError, match="nang"):
+        t_ipk.kernel_supports(t_impl.make_physics_config(
+            tb72, t_pp.set_phys_params(iphys=1, nang=72), idelt=900.0))

@@ -112,8 +112,8 @@ def test_pad_point_field_replicates_point_zero():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tsetup.build_model(grid_name="12.0", nang=12, nfre=8, iphys=0,
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tsetup.build_model(grid_name="12.0", nang=12, nfre=8, icode_wnd=1,
                            device="cpu")
     with pytest.raises(NotImplementedError):
         tsetup.build_model(grid_name="12.0", nang=12, nfre=8,
