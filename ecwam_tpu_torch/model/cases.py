@@ -364,7 +364,9 @@ def advect_kernel_vs_plain(kw: dict, device, seed: int = 0) -> dict:
     start under random 6–12 m/s winds from ``seed``, each as max|k−p| over
     max|p|; the CFL current-retry mask (irefra 2/3) the kernel computed
     for the setup against the plain version's, as the number of SRL rows
-    that differ and the number masked; and both CHECKCFL readings."""
+    that differ and the number masked (0 and 0 without currents); both
+    CHECKCFL readings; and ``obs``, whether the pass read the obstruction
+    table (the kernel's ``OBS`` route)."""
     ms = build_model(device=device, **kw)
     n0 = pcu.advect.launches
     fk = FusedPropagation(ms)
@@ -386,10 +388,12 @@ def advect_kernel_vs_plain(kw: dict, device, seed: int = 0) -> dict:
         got = pcu.advect(f, fk.tabs, lc, **a)
         want = pcu.advect_plain(f, fk.tabs, lc, **a)
         err.append(float((got - want).abs().max() / want.abs().max()))
+    cur = fk.cfl_bad is not None
     r = dict(main=err[0], sub=err[1] if len(err) > 1 else None,
-             cfl_differ=int((fk.cfl_bad != fpl.cfl_bad).sum()),
-             cfl_masked=int(fk.cfl_bad.sum()),
-             diag=fk.cfl_diagnostics(), diag_plain=fpl.cfl_diagnostics())
+             cfl_differ=int((fk.cfl_bad != fpl.cfl_bad).sum()) if cur else 0,
+             cfl_masked=int(fk.cfl_bad.sum()) if cur else 0,
+             diag=fk.cfl_diagnostics(), diag_plain=fpl.cfl_diagnostics(),
+             obs=not fk.tabs["obs_ones"])
     return r
 
 

@@ -56,8 +56,9 @@ class FastWaveModel:
     ``forcing_provider(date14) -> dict`` returns host arrays of shape
     (n_real,) for keys wswave, wdwave, aird, wstar, cicover (optional
     cithick, and ucur/vcur, the surface currents, for irefra 2/3).
-    ``fl1`` (compact (nang, nfre, n_pad) numpy) and ``stress`` (dict of
-    (n_pad,) numpy) carry a state across; without ``fl1`` the
+    ``fl1`` (compact (nang, nfre, n_pad)) and ``stress`` (dict of
+    (n_pad,) fields), numpy arrays or tensors on any device, carry a
+    state across; without ``fl1`` the
     JONSWAP cold start is built in the SRL layout on the device.
     ``plain=True`` runs the plain PyTorch versions of both kernels.
     """
@@ -90,8 +91,6 @@ class FastWaveModel:
             self.fl1 = fl1
         if stress is None:
             stress = initial_stress(setup, wind)
-        else:
-            stress = self._to_device(stress)
         (self._env2d, self._denv, self._frc6,
          self._stress6) = fp.build_phys_srl(self.frc, stress)
         self.state = {}
@@ -121,10 +120,14 @@ class FastWaveModel:
                 dtype=self.setup.dtype), np.float64) for k in ("ucur", "vcur"))
         return out, cur
 
+    def _as_tensor(self, value) -> torch.Tensor:
+        """A numpy array or a tensor on any device as the model's dtype on
+        its device."""
+        return torch.as_tensor(value, dtype=self.setup.dtype,
+                               device=self.setup.device)
+
     def _to_device(self, fields: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v), dtype=self.setup.dtype,
-                                   device=self.setup.device)
-                for k, v in fields.items()}
+        return {k: self._as_tensor(v) for k, v in fields.items()}
 
     def newwind(self, date):
         """Swap forcing in and cap TAUW where the new wind is weak
@@ -197,8 +200,7 @@ class FastWaveModel:
     @fl1.setter
     def fl1(self, value):
         fp, tb = self.fp, self.setup.tb
-        f = torch.as_tensor(np.asarray(value), dtype=self.setup.dtype,
-                            device=self.setup.device)
+        f = self._as_tensor(value)
         self._f_srl = fp.to_srl(f)
         self._tail = None
         if fp.LT:
@@ -227,6 +229,12 @@ class FastWaveModel:
     def stress(self) -> dict:
         rows = self.fp.extract_state(self._stress6)
         return {k: rows[i] for i, k in enumerate(ipk.STRESS_KEYS)}
+
+    @stress.setter
+    def stress(self, value):
+        """The six STRESS_KEYS fields, each (n_pad,), into the SRL rows
+        (the land slot replicates point 0, as at construction)."""
+        self._stress6 = self.fp.stress_srl(value)
 
     # -- diagnostics ------------------------------------------------------
     def swh(self) -> np.ndarray:

@@ -28,6 +28,7 @@ from ecwam_tpu_torch.model import preset as preset_mod
 from ecwam_tpu_torch.ops import propagation as prop
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
 from ecwam_tpu_torch.ops import propagation_fused as pfz
+from ecwam_tpu_torch.ops import propagation_rebase as prb
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 
 
@@ -109,6 +110,7 @@ class FusedPropagation:
         fe = setup.fused_env
         tabs = pfz.device_tables(ft, dt, device)
         tabs.update(cg_srl=t(fe["cg_srl"]), cg_land=t(fe["cg_land"]))
+        tabs.update(prb.kernel_tables(prb.rebase(ft), dt, device))
         if setup.irefra:
             tabs["pf"] = t(fe["pf"])
         fs = np.asarray(ft.from_srl)
@@ -222,8 +224,16 @@ class FusedPropagation:
         env, src = self.setup.env, self.tabs["srl_src"]
         env2d = torch.cat([env[k + "_ext"][:, src] for k in ipk.ENV_FIELDS])
         denv = torch.stack([env["depth_ext"][src], env["emaxdpt_ext"][src]])
-        return env2d, denv, self.frc_srl(frc), _rows(stress, ipk.STRESS_KEYS,
-                                                     src)
+        return env2d, denv, self.frc_srl(frc), self.stress_srl(stress)
+
+    def stress_srl(self, stress):
+        """Stress-state rows (6, nsrl) in SRL order from the STRESS_KEYS
+        fields, each (n_pad,) numpy or a tensor on any device; the land
+        slot replicates point 0."""
+        return _rows({k: torch.as_tensor(stress[k], dtype=self.dtype,
+                                         device=self.device)
+                      for k in ipk.STRESS_KEYS}, ipk.STRESS_KEYS,
+                     self.tabs["srl_src"])
 
     def frc_srl(self, frc):
         """Forcing rows (6, nsrl) in SRL order (NEWWIND update); absent

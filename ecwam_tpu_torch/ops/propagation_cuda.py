@@ -29,6 +29,7 @@ import torch
 from ecwam_tpu_torch.core import constants as c
 from ecwam_tpu_torch import _build
 from ecwam_tpu_torch.ops import propagation_fused as pfz
+from ecwam_tpu_torch.ops import propagation_rebase as prb
 
 # lane-constant rows the kernel reads, in the order of csrc/advect.cu's Lc
 LC_ROWS = ("s", "cth", "east", "north", "dt", "sp", "sm", "sd_p", "cd_p",
@@ -36,8 +37,9 @@ LC_ROWS = ("s", "cth", "east", "north", "dt", "sp", "sm", "sd_p", "cd_p",
            "nf_sc", "nf_cc", "nf_ss", "dfp", "dfm")
 CMTODEG = 360.0 / c.CIRC
 
-_F32_TABLES = ("cg_srl", "cg_land", "taps_dn", "taps_up", "sea_own",
-               "cgland", "geom", "valid", "obs")
+# the float tables kernel A reads (obs only where some factor is not 1)
+_F32_TABLES = ("cg_srl", "cg_land", "ktaps", "sea_own", "cgland", "geom",
+               "valid", "obs")
 
 
 def lane_tensors(lc_np: dict, dtype, device) -> dict:
@@ -89,21 +91,35 @@ def _lib():
     lib = _build.load("advect")
     fn = lib.advect_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 11
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.advect_smem.argtypes = [ctypes.c_int] * 6
+        lib.advect_smem.restype = ctypes.c_long
+    return lib
+
+
+def tile_rows(lib, nft, nf, ew2, S, cur, cfl, smem_max) -> int:
+    """Rows a tile: the largest of 32, 16, 8 that divides S and whose
+    double-buffered tiles fit the card's shared memory."""
+    for rt in (32, 16, 8):
+        if rt <= S and S % rt == 0 and 0 < lib.advect_smem(
+                nft, nf, ew2, rt, int(cur), int(cfl)) <= smem_max:
+            return rt
+    raise ValueError(f"no advection tile fits {smem_max} bytes of shared "
+                     f"memory (nft={nft}, ew2={ew2}, S={S})")
 
 
 def advect(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
            irefra: int, nw: int | None = None, with_cfl=False):
     """One CTU pass (see the module docstring).  ``tabs`` holds the SRL
     tables (``propagation_fused.device_tables`` plus cg_srl, cg_land and,
-    for irefra ≥ 1, grads and pf, and for irefra 2/3 uv); ``lc`` the lane
+    for irefra ≥ 1, grads and pf, and for irefra 2/3 uv) and the kernel's
+    rebased taps (``propagation_rebase.kernel_tables``); ``lc`` the lane
     tensors of :func:`lane_tensors` for ``nf`` frequencies; ``nw`` (≤ nf,
-    default nf) the frequencies written.  Returns a new tensor, or with
-    ``with_cfl`` (out, cfl mask (nsrl,) bool) and, for ``"stats"``, the
-    three largest Courant numbers as 0-d tensors."""
+    default nf) the frequencies written; ``EW`` the original tap width
+    (the plain version's).  Returns a new tensor, or with ``with_cfl`` (out, cfl mask (nsrl,) bool) and, for
+    ``"stats"``, the three largest Courant numbers as 0-d tensors."""
     if f_in.device.type == "cpu":
         return advect_plain(f_in, tabs, lc, nang=nang, nf=nf, S=S, EW=EW,
                             irefra=irefra, nw=nw, with_cfl=with_cfl)
@@ -120,15 +136,21 @@ def advect(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
         raise ValueError(f"bad advection shape {tuple(f_in.shape)} "
                          f"(nang={nang}, nf={nf}, nw={nw}, S={S})")
     nseg = nsrl // S - 3
+    ktaps = tabs["ktaps"]
+    ew2 = ktaps.shape[2] if ktaps.dim() == 4 else 0
+    use_obs = not tabs["obs_ones"]
     _check("f_in", f_in, (nsrl, lw), f32, dev)
-    shapes = dict(cg_srl=(nsrl, nft), cg_land=(nft,),
-                  taps_dn=(nsrl, 3, EW), taps_up=(nsrl, 3, EW),
-                  sea_own=(nsrl, 2), cgland=(nsrl, 2), geom=(nsrl, 8),
-                  valid=(nsrl,), obs=(nsrl, 8, nft))
+    shapes = dict(cg_srl=(nsrl, nft), cg_land=(nft,), sea_own=(nsrl, 2),
+                  cgland=(nsrl, 2), geom=(nsrl, 8), valid=(nsrl,),
+                  ktaps=(nsrl, 2, ew2, 4), obs=(nsrl, 8, nft))
     for name in _F32_TABLES:
-        _check(name, tabs[name], shapes[name], f32, dev)
-    for name in ("dn_base", "up_base"):
-        _check(name, tabs[name], (nseg,), torch.int32, dev)
+        if name != "obs" or use_obs:
+            _check(name, tabs[name], shapes[name], f32, dev)
+    if not 1 <= ew2 <= EW:
+        raise ValueError(f"rebased tap width {ew2} outside [1, EW={EW}]")
+    for name, shape in (("dn_base", (nseg,)), ("up_base", (nseg,)),
+                        ("kseg", (nseg, 4))):
+        _check(name, tabs[name], shape, torch.int32, dev)
     _check("lc rows", lc["rows"], (len(LC_ROWS), nang * nf), f32, dev)
     pf = grads = uv = None
     if irefra:
@@ -139,24 +161,32 @@ def advect(f_in, tabs, lc, *, nang: int, nf: int, S: int, EW: int,
         uv = tabs["uv"]
         _check("uv", uv, (nsrl, 2), f32, dev)
 
+    lib = _lib()
+    props = torch.cuda.get_device_properties(dev)
+    rt = tile_rows(lib, nft, nf, ew2, S, irefra in (2, 3), bool(with_cfl),
+                   getattr(props, "shared_memory_per_block_optin", 232448))
+    nbands = -(-nang // prb.DIRS_PER_BAND)
     out = torch.empty_like(f_in)
-    cfl = stats = None
+    part = cfl = stats = None
     if with_cfl:
+        part = torch.empty((nbands * 4, nsrl), dtype=torch.int32,
+                           device=dev)
         cfl = torch.empty(nsrl, dtype=torch.int32, device=dev)
         stats = torch.empty((3, nsrl), dtype=f32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        err = _lib()(
+        err = lib.advect_launch(
             ptr(f_in), ptr(out), ptr(tabs["cg_srl"]), ptr(tabs["cg_land"]),
-            ptr(tabs["taps_dn"]), ptr(tabs["taps_up"]), ptr(tabs["sea_own"]),
-            ptr(tabs["cgland"]), ptr(tabs["geom"]), ptr(tabs["valid"]),
-            ptr(tabs["obs"]), ptr(pf), ptr(grads), ptr(uv),
-            ptr(tabs["dn_base"]), ptr(tabs["up_base"]), ptr(lc["rows"]),
-            ptr(cfl), ptr(stats),
-            nsrl, nang, nft, nf, nw, S, EW, irefra, CMTODEG,
-            float(lc["fratio"]), torch.cuda.current_stream(dev).cuda_stream)
+            ptr(ktaps), ptr(tabs["sea_own"]), ptr(tabs["cgland"]),
+            ptr(tabs["geom"]), ptr(tabs["valid"]),
+            ptr(tabs["obs"]) if use_obs else None, ptr(pf), ptr(grads),
+            ptr(uv), ptr(tabs["dn_base"]), ptr(tabs["up_base"]),
+            ptr(tabs["kseg"]), ptr(lc["rows"]), ptr(part), ptr(cfl),
+            ptr(stats), nsrl, nang, nft, nf, nw, S, ew2, rt, nbands, irefra,
+            int(use_obs), CMTODEG, float(lc["fratio"]),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"advect kernel launch failed: CUDA error {err}")
     advect.launches += 1

@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card.  For the
 sound kernels and for each entry of MUTATIONS (one text change in one
 kernel source) it copies the package, chip_smoke.py and the golden
 statistics into a temporary directory outside the repository, applies the
-change there, builds it and reads the checks of chip_smoke.py that cover
+change there, builds it (the unchanged sources' libraries are copied from
+the sound build) and reads the checks of chip_smoke.py that cover
 the changed code, with their limits: for ``full`` (kernel B's full mode)
 the golden and shallow physics steps, the golden statistics.log
 trajectory and the O320 slice; for ``options`` (kernel B with the
@@ -17,7 +18,10 @@ in both modes and the full-mode slice of ``cases.o320_options``; for
 retry mask, the golden currents trajectory and the O320 options pass; for
 ``legacy`` (kernel B's EXT and JAN instantiations) the physics steps of
 ``cases.LEGACY_CASES`` in both modes and the full-mode slice of
-``cases.o320_legacy``.  The sound copy reads them all.  Prints one JSON
+``cases.o320_legacy``; for ``advect`` (kernel A without currents: the
+rebased taps, the staged windows and the OBS route) the golden grid's
+pass (obstructions) and the shallow grid's (open water), the golden
+trajectory and the O320 pass.  The sound copy reads them all.  Prints one JSON
 line per copy: the readings and the checks it fails.
 """
 
@@ -36,7 +40,8 @@ IMPLSCH, ADVECT = "implsch.cu", "advect.cu"
 # name: (checks, source, text, replacement); the sound copy reads every
 # kind of check
 MUTATIONS = {
-    "sound": (("full", "options", "currents", "legacy"), None, None, None),
+    "sound": (("full", "options", "currents", "legacy", "advect"), None,
+              None, None),
     # the FLMAX cap's term left out of the flux source
     "no_cap_flux": (("full",), IMPLSCH,
         "if (FULL) W.fld[b] = P[P_DELTM] * fminf(T.flmax[m] - f, 0.f);",
@@ -79,16 +84,32 @@ MUTATIONS = {
         "if (false) {"),
     # the σ̇ inflow from frequency m−1 dropped
     "no_sdot_mm1": (("currents",), ADVECT,
-        "out = out + w_mm1 * frow[k * nft + mm1];",
-        "out = out + 0.f * frow[k * nft + mm1];"),
+        "out = out + w_mm1 * own[j - m + mm1];",
+        "out = out + 0.f * own[j - m + mm1];"),
     # one downstream corner weight (x reversed, y upstream) zeroed
     "no_downstream_corner": (("currents",), ADVECT,
         "const float wg2 = dxdw_2 * dyup_1 * aream1;",
         "const float wg2 = 0.f;"),
     # the CFL flag never set
     "no_cfl_flag": (("currents",), ADVECT,
-        "if (bad) atomicOr(&cfl_s[it], 1);",
-        "if (false) atomicOr(&cfl_s[it], 1);"),
+        "bad = adx > z || ady > xdella || sumwn > 1.f || sumwn < 0.f;",
+        "bad = false;"),
+    # the rebase offset dropped from the dn window's base
+    "no_rebase_offset": (("advect",), ADVECT,
+        "t.db = (long)g.dn + g.sg.x + (long)tile * a.RT;",
+        "t.db = (long)g.dn + (long)tile * a.RT;"),
+    # the k−1 halo direction taken without the wrap at k = 0
+    "halo_no_wrap": (("advect",), ADVECT,
+        "const int kl = (k0 + a.nang - 1) % a.nang;",
+        "const int kl = k0 - 1;"),
+    # the last dn row of a row tile left unstaged
+    "dn_row_unstaged": (("advect",), ADVECT,
+        "const int nwd = t.ed > 0 ? RT + t.ed - 1 : 0;",
+        "const int nwd = t.ed > 0 ? RT + t.ed - 2 : 0;"),
+    # OBS forced false: the obstruction table never read
+    "obs_off": (("advect",), ADVECT,
+        "const bool use_obs = obs_flag != 0;",
+        "const bool use_obs = false;"),
     # SINPUT_JAN's growth term with one zlog²·x factor dropped
     "jan_growth": (("legacy",), IMPLSCH,
         "gam[q] = active ? zlog2x * zlog2x * expf(zlog) * cnsn : 0.f;",
@@ -136,6 +157,8 @@ def readings(kinds) -> dict:
         _currents(dev, out, fails)
     if "legacy" in kinds:
         _legacy(dev, out, fails)
+    if "advect" in kinds:
+        _advect(dev, out, fails)
     out["fails"] = fails
     return out
 
@@ -247,6 +270,35 @@ def _currents(dev, out, fails):
         fails.append("o320 options advect")
 
 
+def _advect(dev, out, fails):
+    """Kernel A's checks without currents: the golden (obstructions) and
+    shallow grids' passes, the golden trajectory and the O320 pass."""
+    import chip_smoke as cs
+    from ecwam_tpu_torch.model import cases
+    for name, kw in (("golden", cases.golden_kw()),
+                     ("shallow", cases.shallow_kw())):
+        a = cases.advect_kernel_vs_plain(kw, dev)
+        out[f"advect_{name}"] = dict(main=a["main"], sub=a["sub"],
+                                     obs=a["obs"],
+                                     violations=a["diag"]["n_violations"])
+        if max(a["main"], a["sub"] or 0.0) > cs.ADVECT_TOL:
+            fails.append(f"advect {name}")
+        if a["obs"] != (name == "golden"):
+            fails.append(f"advect {name} OBS route")
+        if a["diag"]["n_violations"] != a["diag_plain"]["n_violations"]:
+            fails.append(f"advect {name} CHECKCFL")
+    err, _ = cases.golden_kernel_vs_plain(dev)
+    out["golden_trajectory"] = dict(err)
+    if (err.pop("fl1") > cs.TRAJ_TOL
+            or max(err.values()) > cs.TRAJ_STRESS_TOL):
+        fails.append("golden trajectory")
+    ms, model = cs.o320_model(dev)
+    a = cs.advect_check(model, ms.fused, ms.irefra)
+    out["o320_advect"] = a[0]
+    if a[0] > cs.ADVECT_TOL:
+        fails.append("o320 advect")
+
+
 def _legacy(dev, out, fails):
     """Kernel B's checks with the rest of the physics."""
     import chip_smoke as cs
@@ -294,13 +346,20 @@ def main():
         print(json.dumps(readings(sys.argv[2].split(","))), flush=True)
         return
     names = sys.argv[1:] or list(MUTATIONS)
+    # the sound libraries, built once here: each copy reuses those whose
+    # source it leaves unchanged (a library is keyed by its source)
+    sys.path.insert(0, HERE)
+    from ecwam_tpu_torch import _build
+    _build.build()
     for name in names:
         kinds, source, text, repl = MUTATIONS[name]
-        tmp = tempfile.mkdtemp(prefix=f"implsch_{name}_")
+        tmp = tempfile.mkdtemp(prefix=f"kernel_{name}_")
         try:
             shutil.copytree(os.path.join(HERE, "ecwam_tpu_torch"),
                             os.path.join(tmp, "ecwam_tpu_torch"),
                             ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copytree(_build.BUILD_DIR,
+                            os.path.join(tmp, "build", "ecwam_tpu_torch"))
             shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
             os.makedirs(os.path.join(tmp, "tests", "golden"))
             shutil.copy(os.path.join(HERE, "tests", "golden",

@@ -73,10 +73,12 @@ def time_model(cs, ms, model, reps: int) -> dict:
                             tables_dev=tabs)
     full_ms = cs.cuda_ms(full_all, reps, fresh)
     f0 = model._f_srl.clone()
-    kw = dict(nang=fp.nang, nf=fp.nfre_red, S=ms.fused.S, EW=ms.fused.EW,
-              irefra=ms.irefra)
-    advect_ms = cs.cuda_ms(lambda _: pcu.advect(f0, fp.tabs, fp.lc, **kw),
-                           reps)
+    # through the step's own pass, whose arguments both trees share
+    advect_ms = cs.cuda_ms(lambda _: fp._pass(f0, fp.nfre_red, fp.lc), reps)
+    n0 = pcu.advect.launches
+    fp._pass(f0, fp.nfre_red, fp.lc)
+    if pcu.advect.launches != n0 + 1:
+        raise AssertionError("the pass did not launch kernel A")
     return dict(rows=int(nsrl), minimal_all_rows_ms=ms_all,
                 full_all_rows_ms=full_ms, advect_pass_ms=advect_ms)
 

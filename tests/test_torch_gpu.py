@@ -18,7 +18,10 @@ same limits as chip_smoke.py):
                            bins differ only within MASK_WIDTH of the
                            mask's edge (float64), ≤ XLLWS_SHARE of all
   4-step golden trajectory fl1 ≤ TRAJ_TOL; stress ≤ TRAJ_STRESS_TOL
-  CFL current retry        the kernel's mask equals the plain version's
+  CFL current retry        the kernel's mask equals the plain version's;
+                           CHECKCFL's violation count equal
+  kernel A's OBS route     taken on the golden grid (obstructions), not
+                           on open water
   op classes (kernel D)    equal for the layout classes, 1e-6 of max for
                            the others
 With the cycle-49/50 options, a row off the limits whose
@@ -116,6 +119,44 @@ def test_advect_kernel_matches_plain_on_card(cuda, name):
     want = fpl.advect_srl(fpl.to_srl(f))
     err = (got - want).abs().max() / want.abs().max()
     assert float(err) <= ADVECT_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["golden", "shallow"])
+def test_advect_obs_routes_match_plain_on_card(cuda, name):
+    """Kernel A with obstructions (the golden grid: the OBS route) and on
+    open water (the shallow grid: no obstruction table read), a pass and a
+    sub-band pass, with the CHECKCFL pass."""
+    kw = golden_kw() if name == "golden" else shallow_kw()
+    a = cases.advect_kernel_vs_plain(kw, cuda)
+    assert a["obs"] == (name == "golden")
+    assert a["main"] <= ADVECT_TOL
+    assert (a["sub"] or 0.0) <= ADVECT_TOL
+    assert a["diag"]["n_violations"] == a["diag_plain"]["n_violations"]
+
+
+@pytest.mark.gpu
+def test_state_setters_take_card_tensors(cuda):
+    """Fault C1 on the card: ``m.fl1 = m.fl1`` and ``m.stress =
+    m.stress`` with the model's own CUDA tensors leave the state as it
+    was, and a restart from them runs on."""
+    from ecwam_tpu_torch.model.driver import FastWaveModel
+    ms = cases.build_model(device=cuda, **golden_kw())
+    prov = cases.provider(cases.golden_forcing(ms.n_real), 900.0)
+    m = FastWaveModel(ms, prov, cases.START).advance(2, wind_every=2)
+    fl1, stress = m.fl1.clone(), {k: v.clone() for k, v in m.stress.items()}
+    assert fl1.is_cuda
+    m.fl1 = m.fl1
+    m.stress = m.stress
+    assert torch.equal(m.fl1, fl1)
+    for k in ipk.STRESS_KEYS:
+        assert torch.equal(m.stress[k], stress[k]), k
+    again = FastWaveModel(ms, prov, m.date, fl1=m.fl1, stress=m.stress)
+    again.advance(2, wind_every=2)
+    straight = FastWaveModel(ms, prov, cases.START).advance(4, wind_every=2)
+    assert torch.equal(again.fl1, straight.fl1)
+    for k in ipk.STRESS_KEYS:
+        assert torch.equal(again.stress[k], straight.stress[k]), k
 
 
 PHYSICS_CONFIGS = {
@@ -284,6 +325,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, nw=fp.nfre_red + 1))
     with pytest.raises(KeyError):                  # currents need uv
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, irefra=2))
+    with pytest.raises(ValueError):                # taps wider than EW
+        pcu.advect(f, fp.tabs, fp.lc, **dict(kw, EW=0))
     cfg = ipk.minimal_config(ms.phys)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         ipk.kernel_supports(dataclasses.replace(cfg, icode_wnd=1))
