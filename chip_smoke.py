@@ -204,9 +204,10 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     """Float32 operations of the IMPLSCH chain on one row, counted by stage
     from csrc/implsch.cu.  Each add, subtract, multiply, min, max or
     compare is one operation (an FMA two, as the peak rate counts it);
-    each division, square root and transcendental one.  Work the kernel
-    repeats (the saturation sum B(k) of SDISSIP, the scalar chains on all
-    32 lanes) is counted once.  Data-dependent work is counted as this
+    each division, square root and transcendental one.  Work a kernel may
+    repeat (the scalar chains on a row's lanes) is counted once, and the
+    saturation sum B(k) of SDISSIP over the nonzero band of W only.
+    Data-dependent work is counted as this
     run's data needs it: ``above_cut`` is the mean number of frequencies
     above the cut (IMPHFTAIL), ``shallow`` the share of rows shallower than
     BATHYMAX (SBOTTOM), ``windsea`` the share of bins in the windsea mask
@@ -235,9 +236,11 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     # SINPUT: call 1 with one gust (26 a bin), call 2 with two gusts and
     # the swell damping (33 a bin and gust), 9 a bin for the sums
     ops += (10 + 21 * f + 35 * nb) + (71 + 51 * f + 76 * nb)
-    # SDISSIP: B(k) = Σ_j W(k, j)·F(j) once per bin, its maximum, the
+    # SDISSIP: B(k) = Σ_j W(k, j)·F(j) once per bin over W's band of
+    # 2·NSDSNTH+1 directions (W is 0 outside it), its maximum, the
     # dissipation of each bin
-    ops += f * (2 * a * a + 12 * a + 9)
+    nsat = cfg.sat_indices.shape[1]
+    ops += f * (2 * a * nsat + 12 * a + 9)
     # SNONLIN: TRANSF per extended frequency; per (KH, MC, direction) 32
     # for the transfer terms, 4 for the centre bin inside the ladder and 8
     # for each target bin inside it
@@ -286,7 +289,7 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
         # ARD; the first FKMEAN's mean wavenumbers (2 sums)
         ops -= (10 + 21 * f + 35 * nb) + (71 + 51 * f + 76 * nb)
         ops += (10 + 15 * f + 23 * nb) + (20 + 30 * f + 45 * nb)
-        ops -= f * (2 * a * a + 12 * a + 9)
+        ops -= f * (2 * a * nsat + 12 * a + 9)
         ops += 8 * nb + 10 + (8 * f + 10)
     if cfg.isnonlin == 0:
         # one factor from depth and akmean for every MC, not TRANSF

@@ -1,4 +1,5 @@
-// Fused IMPLSCH physics step, minimal or full mode — one warp per row.
+// Fused IMPLSCH physics step, minimal or full mode — one row a warp on a
+// persistent grid, the tables in shared memory.
 //
 // Replaces ecwam_tpu/ops/physics/implsch_pallas.py:implsch_pallas_srl
 // (kernel B, the SRL entry) and implsch_pallas.py:implsch_pallas (kernel
@@ -26,7 +27,7 @@
 // STOKESTRN with STOKFAC derived from wavnum and depth.  It writes the 30
 // SCAL_OUT_FULL rows and the windsea mask xllws as float 0/1 into
 // (nang, nfre, nrows); each lane keeps its directions' mask bits in a 64-bit
-// register word (nfre <= 64), and writes them point-fastest across warps.
+// register word (nfre <= 64).
 //
 // ECMWF's cycle-49/50 options (template flag OPTS, a separate
 // instantiation so that the default configuration's code is untouched;
@@ -34,10 +35,9 @@
 //  * LLGCBZ0, the gravity-capillary roughness closure: HALPHAP on the
 //    first call, and TAUT_Z0_GC's two fixed-point loops of NITER steps,
 //    each step summing STRESS_GC over the NWAV = 82 gc wavenumbers.  That
-//    sum is split over the warp's lanes (3 wavenumbers a lane) and closed
-//    with a warp sum; the loop control stays scalar and redundant, as
-//    elsewhere.  TAU_PHI_HF's stress integral stops at the gc cut-off and
-//    the TAUW cap is dropped;
+//    sum is split over the row's lanes and closed with a row sum; the loop
+//    control stays scalar and redundant, as elsewhere.  TAU_PHI_HF's
+//    stress integral stops at the gc cut-off and the TAUW cap is dropped;
 //  * LLNORMAGAM: per gust and frequency the direction sums Σ gam0·F and
 //    Σ gam0·F·sin² normalise the growth rate (SINPUT), and the tail
 //    integrals take the same normalisation;
@@ -52,7 +52,7 @@
 // the options are further bits of ``opts``):
 //  * iphys=0 (template flag JAN, with EXT): Janssen's SINPUT_JAN in place
 //    of SINPUT ARD, frequency-parallel, the same per-frequency loop with
-//    the lanes over directions and warp sums for LLNORMAGAM and the
+//    the lanes over directions and row sums for LLNORMAGAM and the
 //    STRESSO/FEMEANWS sums; the cycle-4 SDISSIP_JAN in place of SDISSIP
 //    ARD.  Its STRESSO has no sheltering: iphys=0 sets TAUWSHELTER = 0,
 //    and STRESSO's sheltered branch with TAUWSHELTER = 0 is the
@@ -61,9 +61,9 @@
 //  * ISNONLIN=0, the DIA enhancement from depth and the mean wavenumber;
 //    ISNONLIN=2, TRANSF_SNL with PEAK_ANG's spreads: the peak is the
 //    lowest-index maximum over (k, m = 1..nfre−2) — lane maxima, then a
-//    warp reduction that keeps the lowest index on ties — and the window
+//    row reduction that keeps the lowest index on ties — and the window
 //    of 2·NSH+1 frequencies updates THMEAN in order, each step closed by
-//    warp sums; 1 − r1 is accumulated as Σ 2·sin²(Δθ/2)·F·Δf, free of
+//    row sums; 1 − r1 is accumulated as Σ 2·sin²(Δθ/2)·F·Δf, free of
 //    cancellation for narrow spectra;
 //  * SDICE1 (a bilinear lookup per frequency in the 16×36 CIDEAC table
 //    in global memory, through the read-only cache, and the per-row floe
@@ -78,22 +78,55 @@
 // What bounds it: arithmetic and transcendentals.  Its only bulk traffic
 // is one read and one write of each spectrum row (≈2·nang·nfre·4 bytes);
 // everything else is a few hundred bytes of per-row env/forcing.  The
-// design keeps the whole row's spectrum and its two source arrays
-// (fld, sl) in shared memory, so the ~30 passes the plain version makes
-// over device memory become on-chip work:
-//  * elementwise work strides the 32 lanes over the nang·nfre bins;
-//  * direction sums per frequency put one lane on each frequency and sum
-//    over directions in order;
-//  * the sequential chains (the Newton loop, the sheltering scan, the
-//    JTOT tail integral, the SDIWBK Newton) run redundantly on every lane
-//    of the warp, with warp-shuffle sums broadcast from lane 0, so no lane
-//    ever waits on a block barrier;
-//  * DIA: per (KH, MC) term each lane computes the four transfer values of
-//    its directions, then each lane adds them into its own directions'
-//    target bins — one writer per bin, fixed order, bit-reproducible.
-// Left for later: the redundant scalar chains, the dense (nang×nang)
-// saturation sum, 36 directions over 32 lanes (lanes 0-3 do double work),
-// and occupancy (≈18 KB of shared memory per row at 36×36).
+// whole row's spectrum and its two source arrays (fl, fld, sl) stay in
+// shared memory, so the ~30 passes the plain version makes over device
+// memory become on-chip work.  The design for Hopper answers the parent
+// kernel's time by stage (one warp per row, every table read from global
+// memory; ecwam_tpu_torch/tools/implsch_stages.py, PERF.md): SNONLIN 41 %,
+// SINPUT 24 %, SDISSIP 17 %, TAUT_Z0_GC 13 % with the options, each other
+// stage 2–6 %, the load and store 3 %:
+//  * a persistent grid of one block per SM (where shared memory allows
+//    only one) whose warps step through the rows; each block first copies
+//    the parameter block, the per-frequency and per-direction tables, the
+//    saturation matrix W, the DIA weights and index tables and (OPTS) the
+//    gc tables into shared memory, so no inner loop reads a table from
+//    global memory;
+//  * RL = 32 lanes a row, one row a warp, twelve warps (rows) an SM at
+//    36×36, as many as shared memory holds (≈18 KB a row).  The kernel is
+//    latency-bound: half the warps take 1.7–1.8× the time.  Two rows a warp
+//    (RL = 16, the rows in flight as many) keep 75 % of the lanes busy in
+//    the per-direction stages, where one row a warp leaves 28 of 32 idle
+//    in the second pass over 36 directions, and share each instruction of
+//    a sequential chain between two rows; but they halve the warps, and
+//    ran 1.27× slower by default and 1.56× with the options (PERF.md), so
+//    RPW = 32 / RL rows a warp stays a constant of this file.  The chains
+//    (TAUT_Z0's Newton steps, the sheltering scan, the JTOT tail
+//    integrals, the SDIWBK Newton) run redundantly on a row's lanes: by
+//    default they cost 2–3 % each of the parent's time, and one lane per
+//    row would put block barriers between the stages;
+//  * fl, fld and sl with an odd direction pitch nfp (nfre, odd), so the
+//    lanes' direction-strided and frequency-strided accesses are free of
+//    bank conflicts; rows 16 banks apart where that costs no warp;
+//  * bin loops carry (k, m) from one bin to the next: no division;
+//  * SDISSIP ARD (17 %): B(k, m) once per bin over W's band of
+//    2·NSDSNTH+1 directions (was twice over all), bins over the lanes,
+//    between the two SINFLX calls, where the first call's source arrays
+//    are dead: sl holds B, fld the rate d, and the second SINPUT forms
+//    fld + d and sl + d·F as the reference orders them;
+//  * SNONLIN (41 %): the direction wraps of the taps by compare-and-
+//    subtract, once per row and KH; weights and indices from shared
+//    memory; each lane reads the old values of its five target bins
+//    before it writes any (they are distinct, pack_tables checks); one
+//    writer per bin in a fixed order, no atomics;
+//  * SINPUT (24 %): the two gusts of the second call side by side in one
+//    direction pass; the first call writes no source arrays (the second
+//    overwrites them) and full mode's PHIWA terms only in the second;
+//  * per-frequency factors of the per-bin stages (SBOTTOM's rate, the
+//    group speed and the sea-ice rates of SDICE1/3, IMPHFTAIL's ratio)
+//    once per frequency, not per bin; the converged Newton loops of
+//    TAUT_Z0_GC's second stage and SDIWBK stop once nothing changes.
+// Load and store take 3 % of the parent's time, so the row is copied with
+// plain coalesced loads, not cp.async.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,7 +146,7 @@ enum Par {
   P_ONE_M_SSDSC6,
   P_FLMIN, P_CITHRSH, P_CITHRSH_TAIL, P_BATHYMAX, P_DKMAX, P_DEPTHTRS,
   P_ROWATERM1, P_ZPI4GM2, P_SBOT_C, P_ABMIN, P_DELABM1, P_ENH_MIN,
-  P_ENH_MAX,
+  P_ENH_MAX, P_NSDSNTH,
   // full mode only
   P_DELTM, P_ZPI4GM1, P_COEFA, P_COEFX, P_WSEMEAN_MIN,
   P_LWAMRSETCI, P_ZCITHRS, P_CITHRSH_INV, P_ZMAXEXP, P_EFD_FAC, P_FFD_FAC,
@@ -147,6 +180,9 @@ constexpr int OPT_EXT = 32 * 511;            // the EXT instantiations' bits
 // implsch_cuda.GC_TABLES
 enum GcTab { G_LOGXK, G_CM, G_OM3GMKM, G_XKMSQRTVGOC2, G_DELKCC_OMXKM3,
              G_C2OSQRTVG, G_DNS_OMXKM3, G_OMEGA, NGCTAB };
+// the tables STRESS_GC reads for every wavenumber, staged in shared
+// memory; the others are read at one index a call, from global memory
+constexpr int NGCSTAGE = G_C2OSQRTVG;
 
 // per-frequency tables following the parameters, in this order
 enum FreqTab { T_FR, T_DFIM, T_DFIMOFR, T_DFIMFR, T_ZPIFR, T_FR5, T_COFRM4,
@@ -160,16 +196,19 @@ enum Out { O_UFRIC, O_TAUW, O_TAUWDIR, O_Z0M, O_Z0B, O_CHRNCK, O_MIJ,
            O_TAUOCXD, O_TAUOCYD, O_TAUOC, O_PHIOCD, O_PHIEPS, O_PHIAW,
            O_EM_OC, O_F1_OC, O_USTOKES, O_VSTOKES, O_STRNMS, NOUT_FULL };
 
-constexpr int WARPS = 2;     // rows (warps) per block
-// blocks per SM that shared memory allows at 36×36 (≈18 KB a row): as a
-// launch bound it steers ptxas's register allocation, and the minimal
-// kernel on all O320 rows ran 4 % faster with it than without (PERF.md)
-constexpr int MIN_BLOCKS = 6;
-constexpr int KPL = 2;       // directions per lane: nang <= 64
-constexpr int JTOT = 19;     // tail-integral nodes (tables.JTOT_TAUHF)
-constexpr int NITER = 18;    // TAUT_Z0 Newton steps
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int RL = 32;          // lanes a row
+constexpr int RPW = 32 / RL;    // rows a warp
+constexpr int KPL = 64 / RL;    // directions a lane: nang <= 64
+constexpr int MAX_WARPS = 12;   // warps a block (the launch takes fewer
+                                // where shared memory holds fewer)
+constexpr int JTOT = 19;        // tail-integral nodes (tables.JTOT_TAUHF)
+constexpr int NITER = 18;       // TAUT_Z0 Newton steps
+constexpr unsigned ALL = 0xffffffffu;
 
+// The parameter block and tables.  implsch_launch fills it with pointers
+// into the packed device arrays; each block of the kernel copies the
+// tables its inner loops read into shared memory and points it there
+// (stage_tables), and adds the bin walk's constants.
 struct Tabs {
   const float* par;
   const float* fr; const float* dfim; const float* dfimofr;
@@ -178,38 +217,66 @@ struct Tabs {
   const float* dfimsim; const float* fr45;
   const float* th; const float* sinth; const float* costh;
   const float* wmat; const float* swellft; const float* wtauhf;
-  const float* gc;
+  const float* gc;                             // GcTab's first NGCSTAGE
+  const float* gcx;                            // every GcTab, global
   const float* af11; const float* rnl; const float* xk_ext;
   const int* ic; const int* ip; const int* ip1; const int* im;
   const int* im1; const int* ikm; const int* ikm1; const int* ikp;
   const int* ikp1; const int* shifts;
   int nang, nfre, nred, mlsthg, niab, nwav, opts;
   const float* dfimfr2; const float* cideac;   // EXT only
+  // the bin walk (for_bins): the direction pitch of fl/fld/sl (nfre,
+  // odd), the step RL = dk·nfre + dm, and the lane's first bin (k0, m0)
+  int nfp, dk, dm, k0, m0;
 };
 
-// sum over the warp, the same value (lane 0's) on every lane
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return __shfl_sync(FULL, v, 0);
+// sum over a row's RL lanes, the same value (its first lane's) on each
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = RL / 2; o > 0; o >>= 1) v += __shfl_xor_sync(ALL, v, o, RL);
+  return __shfl_sync(ALL, v, 0, RL);
 }
 
 // Σ_m f(m) over the frequency ladder (lanes stride m)
 template <class F>
 __device__ __forceinline__ float msum(int nfre, int lane, F f) {
   float s = 0.f;
-  for (int m = lane; m < nfre; m += 32) s += f(m);
-  return warp_sum(s);
+  for (int m = lane; m < nfre; m += RL) s += f(m);
+  return row_sum(s);
 }
 
 // out[m] = Σ_k a[k, m], one lane per frequency, directions in order
 __device__ __forceinline__ void colsum(const float* a, float* out, int nang,
-                                       int nfre, int lane) {
-  for (int m = lane; m < nfre; m += 32) {
+                                       int nfre, int nfp, int lane) {
+  for (int m = lane; m < nfre; m += RL) {
     float s = 0.f;
-    for (int k = 0; k < nang; ++k) s += a[k * nfre + m];
+    for (int k = 0; k < nang; ++k) s += a[k * nfp + m];
     out[m] = s;
   }
   __syncwarp();
+}
+
+// f(b, k, m) on the lane's bins k·nfre + m = lane, lane + RL, ... (b =
+// k·nfp + m, its place in fl/fld/sl): (k, m) is carried from one bin to
+// the next, so the loop divides nothing
+template <class F>
+__device__ __forceinline__ void for_bins(const Tabs& T, F f) {
+  const int nfre = T.nfre, nfp = T.nfp, n = T.nang * nfre;
+  int k = T.k0, m = T.m0;
+  for (int i = T.k0 * nfre + T.m0; i < n; i += RL) {
+    f(k * nfp + m, k, m);
+    m += T.dm;
+    k += T.dk;
+    if (m >= nfre) {
+      m -= nfre;
+      ++k;
+    }
+  }
+}
+
+// i in [0, 2n) wrapped into [0, n)
+__device__ __forceinline__ int wrap(int i, int n) {
+  return i >= n ? i - n : i;
 }
 
 __device__ __forceinline__ float sgn(float x) {
@@ -303,14 +370,14 @@ __device__ __forceinline__ int ns_gc(const Tabs& T, float ustar) {
 
 // STRESS_GC (stress_gc.F90:63-103): the gc-range wave stress for
 // (ustar, z0).  The sum over the NWAV wavenumbers is split over the
-// lanes; every lane returns the same value
+// row's lanes; every lane of the row returns the same value
 __device__ float stress_gc(const Tabs& T, int lane, float ang, float ustar,
                            float z0, float z0min, float halp, float rnfac) {
   const float* P = T.par;
   const float* G = T.gc;
   const int nw = T.nwav;
   const int ns = ns_gc(T, ustar);
-  const float c2_ns = G[G_C2OSQRTVG * nw + ns];
+  const float c2_ns = T.gcx[G_C2OSQRTVG * nw + ns];
   const float tauwcg_min = (ustar * (z0min / z0)) * (ustar * (z0min / z0));
   const float u4 = (ustar * ustar) * (ustar * ustar);
   const float logxl = logf(1.f + 0.25f * tanhf(4.f * u4));
@@ -319,7 +386,7 @@ __device__ float stress_gc(const Tabs& T, int lane, float ang, float ustar,
       ? rnfac * P[P_BMAXOKAP] * halp * c2_ns / fmaxf(ustar, P[P_EPSUS]) : 0.f;
   const float logz0 = logf(z0);
   float part = 0.f;
-  for (int i = lane; i < nw; i += 32) {
+  for (int i = lane; i < nw; i += RL) {
     if (i < ns) continue;
     const float x = ustar * G[G_CM * nw + i];
     const float xlog = G[G_LOGXK * nw + i] + logz0
@@ -329,10 +396,10 @@ __device__ float stress_gc(const Tabs& T, int lane, float ang, float ustar,
     const float gam_w = zlog2x * zlog2x * expf(xlog) * G[G_OM3GMKM * nw + i];
     const float zn = cn * G[G_XKMSQRTVGOC2 * nw + i] * gam_w;
     const float g = gam_w * ((1.f + P[P_RN1_RN] * zn) / (1.f + zn));
-    part += g * (i == ns ? G[G_DNS_OMXKM3 * nw + i]
+    part += g * (i == ns ? T.gcx[G_DNS_OMXKM3 * nw + i]
                          : G[G_DELKCC_OMXKM3 * nw + i]);
   }
-  return fmaxf(zabhrc * warp_sum(part), tauwcg_min);
+  return fmaxf(zabhrc * row_sum(part), tauwcg_min);
 }
 
 // the empirical neutral drag curve CDM (taut_z0 cdm.func.h)
@@ -459,6 +526,7 @@ __device__ void taut_z0_gc(const Tabs& T, int lane, float utop, float udir,
       ustold = ust_n;
     }
     done = done_new;
+    if (done) break;                           // nothing changes after
   }
   if (done) {
     const float um1 = 1.f / fmaxf(ust2, P[P_EPSUS]);
@@ -506,32 +574,73 @@ __device__ float transf(const float* P, float xk, float depth) {
   return on ? val : 1.f;
 }
 
-// per-warp working set in shared memory
-// (full mode adds sp, sumt, sumx, sumy)
+// Per-row working set in shared memory: fl, fld, sl (nang rows of pitch
+// nfp each), five per-frequency arrays, sx/sy (SNONLIN's factors enh over
+// them once STRESSO is done), the three per-direction rows and dx
+// (SNONLIN's four transfer arrays; in full mode, each in its own stage,
+// also sp, the flux-source sums sumt/sumx/sumy and the windsea-mask words
+// of the second FEMEANWS)
 struct Work {
   float* fl; float* fld; float* sl;
-  float* wav; float* cinv; float* xk2cg; float* tm; float* ws; float* sx;
-  float* sy;
-  float* cosw; float* sin2; float* flm; float* dx; float* enh;
-  float* sp; float* sumt; float* sumx; float* sumy;
+  float* wav; float* cinv; float* xk2cg; float* tm; float* ws;
+  float* sx; float* sy; float* enh;
+  float* cosw; float* sin2; float* flm;
+  float* dx; float* sp; float* sumt; float* sumx; float* sumy;
 };
 
-__host__ __device__ __forceinline__ int work_floats(int nang, int nfre,
-                                                    int mlsthg, bool full) {
-  return 3 * nang * nfre + (full ? 11 : 7) * nfre + 7 * nang + mlsthg;
+__host__ __device__ __forceinline__ int sxy_floats(int nfre, int mlsthg) {
+  return 2 * nfre > mlsthg ? 2 * nfre : mlsthg;
+}
+
+__host__ __device__ __forceinline__ int dx_floats(int nang, int nfre,
+                                                  bool full) {
+  return full && nfre > nang ? 4 * nfre : 4 * nang;
+}
+
+// floats a row takes, rounded to whole bank rows
+__host__ __device__ __forceinline__ int row_floats(int nang, int nfre,
+                                                   int mlsthg, bool full) {
+  const int n = 3 * nang * (nfre | 1) + 5 * nfre + sxy_floats(nfre, mlsthg)
+      + 3 * nang + dx_floats(nang, nfre, full);
+  return (n + 31) & ~31;
+}
+
+__device__ __forceinline__ Work work_at(float* w, const Tabs& T) {
+  const int nfre = T.nfre, nb = T.nang * T.nfp;
+  Work W;
+  W.fl = w;
+  W.fld = w + nb;
+  W.sl = w + 2 * nb;
+  W.wav = w + 3 * nb;
+  W.cinv = W.wav + nfre;
+  W.xk2cg = W.cinv + nfre;
+  W.tm = W.xk2cg + nfre;
+  W.ws = W.tm + nfre;
+  W.sx = W.ws + nfre;
+  W.sy = W.sx + nfre;
+  W.enh = W.sx;
+  W.cosw = W.sx + sxy_floats(nfre, T.mlsthg);
+  W.sin2 = W.cosw + T.nang;
+  W.flm = W.sin2 + T.nang;
+  W.dx = W.flm + T.nang;
+  W.sp = W.dx;                                 // FULL only, as are
+  W.sumt = W.dx + nfre;                        // sumt, sumx and sumy
+  W.sumx = W.sumt + nfre;
+  W.sumy = W.sumx + nfre;
+  return W;
 }
 
 // HALPHAP (halphap.F90:54-99): half the Phillips parameter of the
 // downwind half of the spectrum; uses W.tm and W.ws as scratch
 __device__ float halphap(const Tabs& T, const Work& W, int lane) {
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre;
-  for (int m = lane; m < nfre; m += 32) {
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
+  for (int m = lane; m < nfre; m += RL) {
     float s1 = 0.f, s2 = 0.f;
     for (int k = 0; k < nang; ++k) {
       const float c = W.cosw[k];
       const float wd = 0.5f + 0.5f * (c > 0.f ? 1.f : (c < 0.f ? -1.f : 0.f));
-      const float v = W.fl[k * nfre + m] * wd;
+      const float v = W.fl[k * nfp + m] * wd;
       s1 += v;
       s2 += fmaxf(v, P[P_EPSMIN]);
     }
@@ -555,37 +664,44 @@ __device__ float halphap(const Tabs& T, const Work& W, int lane) {
   return 0.5f * fminf(ok ? spec : tail, P[P_ALPHAPMAX]);
 }
 
-// SINPUT ARD (sinput_ard.F90:88-434): fld and sl in full, and per
-// frequency ws = Σ_k xllws·F (FEMEANWS), sx/sy = Σ_k spos·sin/cos (STRESSO).
-// FULL also keeps sp = Σ_k spos per frequency, the xllws bits of the lane's
+// SINPUT ARD (sinput_ard.F90:88-434) in SINFLX call 1 or 2 (``second``):
+// per frequency
+// ws = Σ_k xllws·F (FEMEANWS), sx/sy = Σ_k spos·sin/cos (STRESSO); the
+// second call also forms the step's sources, fld = fm + d and sl = fm·F +
+// d·F, with SDISSIP's rate d that fld holds (sdissip_ard).  The first
+// call's gust is one, the second's two, side by side in one direction
+// pass (each gust's sheltering scan is its own).  FULL's second call also
+// keeps sp = Σ_k spos per frequency, the xllws bits of the lane's
 // directions (bit m of xbits[q]) and phw = Σ (sl − spos)·ρwgΔfΔθ, the
-// first term of PHIWA (stresso.F90:71-78)
-// OPTS adds LLNORMAGAM: the growth rate of each gust and frequency is
-// normalised by its direction sums Σ gam0·F and Σ gam0·F·sin² (with
-// cstrnfac = constn·rnfac/raorw)
+// first term of PHIWA (stresso.F90:71-78).  OPTS adds LLNORMAGAM: the
+// growth rate of each gust and frequency is normalised by its direction
+// sums Σ gam0·F and Σ gam0·F·sin² (with cstrnfac = constn·rnfac/raorw)
 template <bool FULL, bool OPTS>
-__device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
-                           bool llsneg, float wswave, float wdwave,
-                           float ufric, float z0m, float raorw, float wstar,
-                           float rnfac, unsigned long long* xbits,
-                           float& phw) {
+__device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lane,
+                           bool second,
+                           float wswave, float wdwave, float ufric,
+                           float z0m, float raorw, float wstar, float rnfac,
+                           unsigned long long* xbits, float& phw) {
+  constexpr int NG = 2;                        // gusts, at most
+  const int ng = second ? 2 : 1;
+  const bool neg = second;                     // llsneg, the swell damping
+  const bool fw = FULL && second;              // full mode's sums
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre;
-  const float avg = ngst > 1 ? 0.5f : 1.f;
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
+  const float avg = ng > 1 ? 0.5f : 1.f;
   const bool normagam = OPTS && (T.opts & OPT_LLNORMAGAM);
   const float cstrnfac = P[P_CONSTN] * rnfac / raorw;
-  float ustp0[2];
-  if (ngst > 1) {
+  float ustp0[NG];
+  if (ng > 1) {
     const float sig_n = wsigstar<OPTS>(P, T.opts, wswave, ufric, z0m, wstar);
     ustp0[0] = ufric * (1.f + sig_n);
     ustp0[1] = ufric * (1.f - sig_n);
   } else {
-    ustp0[0] = ufric;
-    ustp0[1] = ufric;
+    ustp0[0] = ustp0[1] = ufric;
   }
   float pturb = 0.f, temp2 = 0.f, aird_pvisc = 0.f;
-  if (llsneg) {
-    colsum(W.fl, W.tm, nang, nfre, lane);
+  if (neg) {
+    colsum(W.fl, W.tm, nang, nfre, nfp, lane);
     const float uorbt = 2.f * sqrtf(P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
       return (T.dfim[m] * (T.zpifr[m] * T.zpifr[m])) * W.tm[m]; }));
     const float aorb = 2.f * sqrtf(P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
@@ -601,15 +717,19 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
   }
   const float tws = fabsf(P[P_TAUWSHELTER]);
   const float swd = sinf(wdwave), cwd = cosf(wdwave);
-  float taux[2], tauy[2], xs[2] = {0.f, 0.f}, ys[2] = {0.f, 0.f};
-  for (int g = 0; g < 2; ++g) {
+  float taux[NG], tauy[NG], xs[NG], ys[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    if (g == ng) break;
     const float u2 = ustp0[g] * ustp0[g];
     taux[g] = u2 * swd;
     tauy[g] = u2 * cwd;
+    xs[g] = ys[g] = 0.f;
   }
   const float rogoroair = P[P_G] / raorw;
-  if (FULL) {
-    xbits[0] = xbits[1] = 0ull;
+  if (fw) {
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) xbits[q] = 0ull;
     phw = 0.f;
   }
 
@@ -618,7 +738,7 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
     const float zcn = logf(W.wav[m] * z0m);
     const float cnsn = (zp * P[P_CONST1]) * raorw;
     float dstab1 = 0.f, temp1 = 0.f;
-    if (llsneg) {
+    if (neg) {
       const float coef_v = P[P_SWF16] * (zp * zp) / P[P_G];
       const float coef5_v = P[P_SWF5_2] * sqrtf(P[P_TWO_NU] * zp);
       dstab1 = coef5_v * aird_pvisc * W.wav[m];
@@ -626,137 +746,177 @@ __device__ void sinput_ard(const Tabs& T, const Work& W, int lane, int ngst,
     }
     const float cim = W.cinv[m];
     const float constf = rogoroair * cim * T.dfim[m];
-    float fldacc[KPL] = {0.f, 0.f}, sposacc[KPL] = {0.f, 0.f};
-    float xll[KPL] = {0.f, 0.f};
-    for (int g = 0; g < ngst; ++g) {
-      const float tx = taux[g] - tws * xs[g];
-      const float ty = tauy[g] - tws * ys[g];
-      const float r2 = tx * tx + ty * ty;
-      const float ustp = powf(r2, 0.25f);
-      const float um1 = 1.f / fmaxf(ustp, P[P_EPSUS]);
-      const float ucn = ustp * cim;
-      const float ucnzalpd = P[P_XKAPPA] / (ucn + P[P_ZALP]);
-      float px = 0.f, py = 0.f;
-      if (!OPTS) {
+    // each gust's sheltered stress and friction velocity
+    float tx[NG], ty[NG], r2[NG], ustp[NG], um1[NG], ucn[NG], ucnzalpd[NG];
 #pragma unroll
-        for (int q = 0; q < KPL; ++q) {
-          const int k = lane + 32 * q;
-          if (k >= nang) continue;
-          const float coslp = r2 > 0.f
-              ? (T.sinth[k] * tx + T.costh[k] * ty) * (um1 * um1) : T.costh[k];
-          const float x = coslp * ucn;
-          const float zlog = zcn + ucnzalpd / (coslp > 0.01f ? coslp : 1.f);
+    for (int g = 0; g < NG; ++g) {
+      if (g == ng) break;
+      tx[g] = taux[g] - tws * xs[g];
+      ty[g] = tauy[g] - tws * ys[g];
+      r2[g] = tx[g] * tx[g] + ty[g] * ty[g];
+      ustp[g] = powf(r2[g], 0.25f);
+      um1[g] = 1.f / fmaxf(ustp[g], P[P_EPSUS]);
+      ucn[g] = ustp[g] * cim;
+      ucnzalpd[g] = P[P_XKAPPA] / (ucn[g] + P[P_ZALP]);
+    }
+    float fldacc[KPL], sposacc[KPL], xll[KPL], px[NG], py[NG];
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) fldacc[q] = sposacc[q] = xll[q] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) px[g] = py[g] = 0.f;
+    if (!OPTS) {
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + RL * q;
+        if (k >= nang) continue;
+        const float sk = T.sinth[k], ck = T.costh[k];
+        const float f = W.fl[k * nfp + m];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if (g == ng) break;
+          const float coslp = r2[g] > 0.f
+              ? (sk * tx[g] + ck * ty[g]) * (um1[g] * um1[g]) : ck;
+          const float x = coslp * ucn[g];
+          const float zlog = zcn + ucnzalpd[g] / (coslp > 0.01f ? coslp : 1.f);
           const bool active = coslp > 0.01f && zlog < 0.f;
           const float zlog2x = zlog * zlog * x;
           const float gam0 = active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
           if (active) xll[q] = 1.f;
-          const float dstab = llsneg
+          const float dstab = neg
               ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD] * coslp)
-                                                      * ustp))
+                                                      * ustp[g]))
               : 0.f;
-          const float slp = gam0 * W.fl[k * nfre + m];
-          px += slp * T.sinth[k];
-          py += slp * T.costh[k];
+          const float slp = gam0 * f;
+          px[g] += slp * sk;
+          py[g] += slp * ck;
           sposacc[q] += slp;
           fldacc[q] += gam0 + dstab;
         }
-      } else {
-        // the growth rates first, then their normalisation, then the sums
-        float gam[KPL], cl[KPL];
-        float s1 = 0.f, s2 = 0.f;
+      }
+    } else {
+      // the growth rates first, then their normalisation, then the sums
+      float gam[NG][KPL], cl[NG][KPL], s1[NG], s2[NG];
 #pragma unroll
-        for (int q = 0; q < KPL; ++q) {
-          const int k = lane + 32 * q;
-          gam[q] = cl[q] = 0.f;
-          if (k >= nang) continue;
-          const float coslp = r2 > 0.f
-              ? (T.sinth[k] * tx + T.costh[k] * ty) * (um1 * um1) : T.costh[k];
-          const float x = coslp * ucn;
-          const float zlog = zcn + ucnzalpd / (coslp > 0.01f ? coslp : 1.f);
+      for (int g = 0; g < NG; ++g) s1[g] = s2[g] = 0.f;
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + RL * q;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) gam[g][q] = cl[g][q] = 0.f;
+        if (k >= nang) continue;
+        const float sk = T.sinth[k], ck = T.costh[k];
+        const float f = W.fl[k * nfp + m];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if (g == ng) break;
+          const float coslp = r2[g] > 0.f
+              ? (sk * tx[g] + ck * ty[g]) * (um1[g] * um1[g]) : ck;
+          const float x = coslp * ucn[g];
+          const float zlog = zcn + ucnzalpd[g] / (coslp > 0.01f ? coslp : 1.f);
           const bool active = coslp > 0.01f && zlog < 0.f;
           const float zlog2x = zlog * zlog * x;
-          gam[q] = active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
-          cl[q] = coslp;
+          gam[g][q] = active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
+          cl[g][q] = coslp;
           xll[q] = fmaxf(xll[q], active ? 1.f : 0.f);
-          const float gf = gam[q] * W.fl[k * nfre + m];
-          s1 += gf;
-          s2 += gf * W.sin2[k];
-        }
-        if (normagam) {
-          const float sumf = warp_sum(s1), sumfsin2 = warp_sum(s2);
-          const float znz = cstrnfac * W.xk2cg[m] * um1;
-          const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
-#pragma unroll
-          for (int q = 0; q < KPL; ++q) gam[q] = gam[q] * gn;
-        }
-#pragma unroll
-        for (int q = 0; q < KPL; ++q) {
-          const int k = lane + 32 * q;
-          if (k >= nang) continue;
-          const float dstab = llsneg
-              ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD] * cl[q])
-                                                      * ustp))
-              : 0.f;
-          const float slp = gam[q] * W.fl[k * nfre + m];
-          px += slp * T.sinth[k];
-          py += slp * T.costh[k];
-          sposacc[q] += slp;
-          fldacc[q] += gam[q] + dstab;
+          const float gf = gam[g][q] * f;
+          s1[g] += gf;
+          s2[g] += gf * W.sin2[k];
         }
       }
-      xs[g] = xs[g] + warp_sum(px) * constf;
-      ys[g] = ys[g] + warp_sum(py) * constf;
+      if (normagam) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if (g == ng) break;
+          const float sumf = row_sum(s1[g]), sumfsin2 = row_sum(s2[g]);
+          const float znz = cstrnfac * W.xk2cg[m] * um1[g];
+          const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
+#pragma unroll
+          for (int q = 0; q < KPL; ++q) gam[g][q] = gam[g][q] * gn;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + RL * q;
+        if (k >= nang) continue;
+        const float sk = T.sinth[k], ck = T.costh[k];
+        const float f = W.fl[k * nfp + m];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if (g == ng) break;
+          const float dstab = neg
+              ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD]
+                                                    * cl[g][q]) * ustp[g]))
+              : 0.f;
+          const float slp = gam[g][q] * f;
+          px[g] += slp * sk;
+          py[g] += slp * ck;
+          sposacc[q] += slp;
+          fldacc[q] += gam[g][q] + dstab;
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (g == ng) break;
+      xs[g] = xs[g] + row_sum(px[g]) * constf;
+      ys[g] = ys[g] + row_sum(py[g]) * constf;
     }
     float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
-      const int k = lane + 32 * q;
+      const int k = lane + RL * q;
       if (k >= nang) continue;
-      const int b = k * nfre + m;
+      const int b = k * nfp + m;
       const float f = W.fl[b];
       const float fm = avg * fldacc[q];
       const float sp = avg * sposacc[q];
-      W.fld[b] = fm;
-      W.sl[b] = fm * f;
+      if (neg) {
+        const float d = W.fld[b];              // SDISSIP's rate
+        W.fld[b] = fm + d;
+        W.sl[b] = fmaf(d, f, fm * f);
+      }
       wsp += xll[q] * f;
       sxp += sp * T.sinth[k];
       syp += sp * T.costh[k];
-      if (FULL) {
+      if (fw) {
         spp += sp;
         dph += (fm * f - sp) * T.rhowg[m];
         if (xll[q] != 0.f) xbits[q] |= 1ull << m;
       }
     }
-    wsp = warp_sum(wsp);
-    sxp = warp_sum(sxp);
-    syp = warp_sum(syp);
-    if (FULL) {
-      spp = warp_sum(spp);
-      phw += warp_sum(dph);
+    wsp = row_sum(wsp);
+    sxp = row_sum(sxp);
+    syp = row_sum(syp);
+    if (fw) {
+      spp = row_sum(spp);
+      phw += row_sum(dph);
     }
     if (lane == 0) {
       W.ws[m] = wsp;
       W.sx[m] = sxp;
       W.sy[m] = syp;
-      if (FULL) W.sp[m] = spp;
+      if (fw) W.sp[m] = spp;
     }
   }
   __syncwarp();
 }
 
 // STRESSO + TAU_PHI_HF's stress integral (stresso.F90:63-160,
-// tau_phi_hf.F90:73-255): the total wave stress and its direction.  FULL
-// also completes PHIWA: phiwa comes in as sinput_ard's phw and leaves with
-// Σ ρwgΔfΔθ-to-the-cut · sp and the tail's energy flux PHIHF added.  OPTS
-// adds LLGCBZ0 (the stress integral stops at the gc cut-off; no TAUW cap)
-// and LLNORMAGAM (both integrals normalised as in SINPUT)
+// tau_phi_hf.F90:73-255) in SINFLX call 1 or 2: the total wave stress and
+// its direction.  FULL's second call also completes PHIWA: phiwa comes in
+// as sinput_ard's phw and leaves with Σ ρwgΔfΔθ-to-the-cut · sp and the
+// tail's energy flux PHIHF added.  OPTS adds LLGCBZ0 (the stress integral
+// stops at the gc cut-off; no TAUW cap) and LLNORMAGAM (both integrals
+// normalised as in SINPUT)
 template <bool FULL, bool OPTS>
-__device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
+__device__ void stresso(const Tabs& T, const Work& W, int lane, bool second,
+                        int mij,
                         float ufric, float z0m, float aird, float wdwave,
                         float rnfac, float& tauw, float& tauwdir,
                         float& phiwa) {
+  const bool fw = FULL && second;
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre;
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
   auto rhowgdfth = [&](int m) {
     if (m > mij) return 0.f;
     const float w = T.rhowg[m];
@@ -767,7 +927,7 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
   float yst = msum(nfre, lane, [&](int m) {
     return rhowgdfth(m) * W.cinv[m] * W.sy[m]; });
   const float af = fmaxf(aird, 1.f);
-  if (FULL)
+  if (fw)
     phiwa += msum(nfre, lane, [&](int m) { return rhowgdfth(m) * W.sp[m]; });
   xst = xst / af;
   yst = yst / af;
@@ -787,18 +947,18 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
   float part = 0.f, part2 = 0.f;
 #pragma unroll
   for (int q = 0; q < KPL; ++q) {
-    const int k = lane + 32 * q;
+    const int k = lane + RL * q;
     if (k >= nang) continue;
     const float cw = fmaxf(W.cosw[k], 0.f);
-    const float fc2 = W.fl[k * nfre + mij] * (cw * cw);
+    const float fc2 = W.fl[k * nfp + mij] * (cw * cw);
     part += fc2 * cw;
-    if (FULL) part2 += fc2;
+    if (fw) part2 += fc2;
   }
-  const float f1dcos3 = P[P_DELTH] * warp_sum(part);
+  const float f1dcos3 = P[P_DELTH] * row_sum(part);
   const float delz_phi = fmaxf((0.f - zinf) / (float)(JTOT - 1), 0.f);
   float delz = delz_phi;
   if (OPTS && (T.opts & OPT_LLGCBZ0)) {
-    const float oms = T.gc[G_OMEGA * T.nwav + ns_gc(T, ufric)];
+    const float oms = T.gcx[G_OMEGA * T.nwav + ns_gc(T, ufric)];
     const float zsup = fminf(logf(oms * sqrtz0og), 0.f);
     delz = fmaxf((zsup - zinf) / (float)(JTOT - 1), 0.f);
   }
@@ -809,15 +969,15 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
     float ps = 0.f, pt = 0.f;
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
-      const int k = lane + 32 * q;
+      const int k = lane + RL * q;
       if (k >= nang) continue;
-      const float f = W.fl[k * nfre + mij];
+      const float f = W.fl[k * nfp + mij];
       ps += f * W.sin2[k];
       pt += f;
     }
     const float confg = P[P_GAMNCONST] * T.fr5[mij] * rnfac * sqrtgz0;
-    c1 = confg * (P[P_DELTH] * warp_sum(ps));
-    c2 = confg * (P[P_DELTH] * warp_sum(pt));
+    c1 = confg * (P[P_DELTH] * row_sum(ps));
+    c2 = confg * (P[P_DELTH] * row_sum(pt));
   }
   float taul = ust * ust, ustc = ust, tauhf = 0.f;
   for (int j = 0; j < JTOT; ++j) {
@@ -837,10 +997,10 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
     ustc = sqrtf(taul);
     tauhf += fnc2;
   }
-  if (FULL) {
+  if (fw) {
     // PHIHF: the full range up to log 1 = 0, afresh from the sheltered u*
     // (tau_phi_hf.F90:200-254)
-    const float f1dcos2 = P[P_DELTH] * warp_sum(part2);
+    const float f1dcos2 = P[P_DELTH] * row_sum(part2);
     float taup = ust * ust, ustph = ust, acc = 0.f;
     for (int j = 0; j < JTOT; ++j) {
       const float y = expf(zinf + (float)j * delz_phi);
@@ -868,31 +1028,46 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, int mij,
   tauwdir = atan2f(xst, yst);
 }
 
-// SDISSIP ARD (sdissip_ard.F90:70-256), one lane per frequency
+// SDISSIP ARD (sdissip_ard.F90:70-256), run between the two SINFLX calls:
+// the spectrum the dissipation reads is final after the first call's tail
+// floor, and the first call's source arrays are dead.  The saturation
+// B(k, m) = facsat(m)·Σ_j W(k, j)·F(j, m) is summed once per bin over W's
+// band j = k−NSDSNTH..k+NSDSNTH (the other entries are 0), bins over the
+// lanes, into sl; then its maximum over the directions per frequency,
+// and the rate d of each bin into fld, which the second call's SINPUT
+// adds to its own terms
 __device__ void sdissip_ard(const Tabs& T, const Work& W, int lane) {
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre;
-  for (int m = lane; m < nfre; m += 32) {
-    const float facsat = W.wav[m] * P[P_TPIINV] * W.xk2cg[m];
-    const float zc2 = P[P_SSDSC2] * T.zpifr[m];
-    auto bth = [&](int k) {
-      float acc = 0.f;
-      for (int j = 0; j < nang; ++j)
-        acc += T.wmat[k * nang + j] * W.fl[j * nfre + m];
-      return acc * facsat;
-    };
-    float bth0 = -INFINITY;
-    for (int k = 0; k < nang; ++k) bth0 = fmaxf(bth0, bth(k));
-    const float t0 = fmaxf(0.f, bth0 * P[P_TMP03] - P[P_SSDSC4]);
-    const float d0 = zc2 * P[P_SSDSC6] * (t0 * t0);
-    for (int k = 0; k < nang; ++k) {
-      const float t = fmaxf(0.f, bth(k) * P[P_TMP03] - P[P_SSDSC4]);
-      const float d = d0 + zc2 * P[P_ONE_M_SSDSC6] * (t * t);
-      const int b = k * nfre + m;
-      W.sl[b] += d * W.fl[b];
-      W.fld[b] += d;
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
+  const int ns = (int)P[P_NSDSNTH];
+  for (int m = lane; m < nfre; m += RL)
+    W.tm[m] = W.wav[m] * P[P_TPIINV] * W.xk2cg[m];
+  __syncwarp();
+  for_bins(T, [&](int b, int k, int m) {
+    const float* wk = T.wmat + k * nang;
+    int j = k - ns < 0 ? k - ns + nang : k - ns;
+    float acc = 0.f;
+    for (int o = -ns; o <= ns; ++o) {
+      acc += wk[j] * W.fl[j * nfp + m];
+      j = j + 1 == nang ? 0 : j + 1;
     }
+    W.sl[b] = acc * W.tm[m];
+  });
+  __syncwarp();
+  for (int m = lane; m < nfre; m += RL) {
+    float bth0 = -INFINITY;
+    for (int k = 0; k < nang; ++k) bth0 = fmaxf(bth0, W.sl[k * nfp + m]);
+    const float zc2 = P[P_SSDSC2] * T.zpifr[m];
+    const float t0 = fmaxf(0.f, bth0 * P[P_TMP03] - P[P_SSDSC4]);
+    W.tm[m] = zc2 * P[P_SSDSC6] * (t0 * t0);
   }
+  __syncwarp();
+  for_bins(T, [&](int b, int k, int m) {
+    const float zc2 = P[P_SSDSC2] * T.zpifr[m];
+    const float t = fmaxf(0.f, W.sl[b] * P[P_TMP03] - P[P_SSDSC4]);
+    const float d0 = W.tm[m];
+    W.fld[b] = d0 + zc2 * P[P_ONE_M_SSDSC6] * (t * t);
+  });
   __syncwarp();
 }
 
@@ -931,13 +1106,17 @@ __device__ float transf_snl(const float* P, float xk0, float depth,
 
 // SNONLIN DIA with the TRANSF enhancement (snonlin.F90:70-470); EXT adds
 // ISNONLIN=0 (one factor ``enhfr`` for every MC) and ISNONLIN=2
-// (TRANSF_SNL with PEAK_ANG's ``xnu`` and ``sig_th``)
+// (TRANSF_SNL with PEAK_ANG's ``xnu`` and ``sig_th``).  Per KH the lane's
+// directions' tap directions k + s and k − s are wrapped once; per MC each
+// lane computes the four transfer values of its directions into dx, then
+// adds them into its own directions' target bins: one writer per bin,
+// MC in order, bit-reproducible
 template <bool EXT>
 __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
                         float enhfr, float xnu, float sig_th) {
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre, ml = T.mlsthg;
-  for (int mc = lane; mc < ml; mc += 32) {
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp, ml = T.mlsthg;
+  for (int mc = lane; mc < ml; mc += RL) {
     const float xk = mc < nfre ? W.wav[mc] : T.xk_ext[mc - nfre];
     if (EXT && (T.opts & OPT_ISNONLIN0))
       W.enh[mc] = enhfr;
@@ -949,6 +1128,7 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
   }
   __syncwarp();
   const float* r = T.rnl;
+  const float* fl = W.fl;
   float* ad = W.dx;
   float* delad = W.dx + nang;
   float* delap = W.dx + 2 * nang;
@@ -956,6 +1136,21 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
   for (int kh = 0; kh < 2; ++kh) {
     const int s1 = T.shifts[4 * kh], s11 = T.shifts[4 * kh + 1];
     const int s2 = T.shifts[4 * kh + 2], s21 = T.shifts[4 * kh + 3];
+    // rows of fl at k + s, and the directions k − s (shifts in [0, nang))
+    int r1[KPL], r11[KPL], r2[KPL], r21[KPL];
+    int u1[KPL], u11[KPL], u2[KPL], u21[KPL];
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = min(lane + RL * q, nang - 1);
+      r1[q] = wrap(k + s1, nang) * nfp;
+      r11[q] = wrap(k + s11, nang) * nfp;
+      r2[q] = wrap(k + s2, nang) * nfp;
+      r21[q] = wrap(k + s21, nang) * nfp;
+      u1[q] = wrap(k - s1 + nang, nang);
+      u11[q] = wrap(k - s11 + nang, nang);
+      u2[q] = wrap(k - s2 + nang, nang);
+      u21[q] = wrap(k - s21 + nang, nang);
+    }
     for (int j = 0; j < ml; ++j) {
       auto w = [&](int i) { return r[i * ml + j]; };
       const int ic = T.ic[j], ip = T.ip[j], ip1 = T.ip1[j];
@@ -963,14 +1158,13 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
       const float ftemp = T.af11[j] * W.enh[j];
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
-        const int k = lane + 32 * q;
+        const int k = lane + RL * q;
         if (k >= nang) continue;
-        auto R = [&](int s, int m) { return W.fl[((k + s) % nang) * nfre + m]; };
-        const float sap = w(1) * R(s1, ip) + w(2) * R(s11, ip)
-            + w(3) * R(s1, ip1) + w(4) * R(s11, ip1);
-        const float sam = w(13) * R(s2, im) + w(14) * R(s21, im)
-            + w(15) * R(s2, im1) + w(16) * R(s21, im1);
-        const float fij = W.fl[k * nfre + ic] * w(0);
+        const float sap = w(1) * fl[r1[q] + ip] + w(2) * fl[r11[q] + ip]
+            + w(3) * fl[r1[q] + ip1] + w(4) * fl[r11[q] + ip1];
+        const float sam = w(13) * fl[r2[q] + im] + w(14) * fl[r21[q] + im]
+            + w(15) * fl[r2[q] + im1] + w(16) * fl[r21[q] + im1];
+        const float fij = fl[k * nfp + ic] * w(0);
         float fad1 = fij * (sap + sam);
         const float fad2 = fad1 - 2.f * sap * sam;
         fad1 = fad1 + fad2;
@@ -981,36 +1175,61 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
         delam[k] = (fij - 2.f * sap) * P[P_DAL2] * fcen;
       }
       __syncwarp();
+      // the MC's target frequencies: its own (inside the ladder) and the
+      // four of ikm, ikm1, ikp, ikp1 inside it, distinct (pack_tables
+      // checks), so each lane first reads every old value and transfer
+      // term it needs, then adds and writes
+      const int tm = T.ikm[j] - 1, tm1 = T.ikm1[j] - 1;
+      const int tp = T.ikp[j] - 1, tp1 = T.ikp1[j] - 1;
+      const bool c0 = j < nfre, cm = tm >= 0 && tm < nfre;
+      const bool cm1 = tm1 >= 0 && tm1 < nfre, cp = tp >= 0 && tp < nfre;
+      const bool cp1 = tp1 >= 0 && tp1 < nfre;
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
-        const int k = lane + 32 * q;
+        const int k = lane + RL * q;
         if (k >= nang) continue;
-        auto ur = [&](const float* x, int s) { return x[(k - s + nang) % nang]; };
-        float* slk = W.sl + k * nfre;
-        float* fldk = W.fld + k * nfre;
-        if (j < nfre) {
-          slk[j] += -2.f * ad[k];
-          fldk[j] += -2.f * delad[k];
+        float* slk = W.sl + k * nfp;
+        float* fldk = W.fld + k * nfp;
+        float os[5], of[5], a[10];
+        os[0] = c0 ? slk[j] : 0.f;
+        of[0] = c0 ? fldk[j] : 0.f;
+        os[1] = cm ? slk[tm] : 0.f;
+        of[1] = cm ? fldk[tm] : 0.f;
+        os[2] = cm1 ? slk[tm1] : 0.f;
+        of[2] = cm1 ? fldk[tm1] : 0.f;
+        os[3] = cp ? slk[tp] : 0.f;
+        of[3] = cp ? fldk[tp] : 0.f;
+        os[4] = cp1 ? slk[tp1] : 0.f;
+        of[4] = cp1 ? fldk[tp1] : 0.f;
+        a[0] = ad[k];
+        a[1] = delad[k];
+        a[2] = ad[u2[q]];
+        a[3] = ad[u21[q]];
+        a[4] = delam[u2[q]];
+        a[5] = delam[u21[q]];
+        a[6] = ad[u1[q]];
+        a[7] = ad[u11[q]];
+        a[8] = delap[u1[q]];
+        a[9] = delap[u11[q]];
+        if (c0) {
+          slk[j] = os[0] + -2.f * a[0];
+          fldk[j] = of[0] + -2.f * a[1];
         }
-        int t = T.ikm[j];
-        if (t >= 1 && t <= nfre) {
-          slk[t - 1] += w(20) * ur(ad, s2) + w(19) * ur(ad, s21);
-          fldk[t - 1] += w(23) * ur(delam, s2) + w(24) * ur(delam, s21);
+        if (cm) {
+          slk[tm] = os[1] + (w(20) * a[2] + w(19) * a[3]);
+          fldk[tm] = of[1] + (w(23) * a[4] + w(24) * a[5]);
         }
-        t = T.ikm1[j];
-        if (t >= 1 && t <= nfre) {
-          slk[t - 1] += w(17) * ur(ad, s2) + w(18) * ur(ad, s21);
-          fldk[t - 1] += w(21) * ur(delam, s2) + w(22) * ur(delam, s21);
+        if (cm1) {
+          slk[tm1] = os[2] + (w(17) * a[2] + w(18) * a[3]);
+          fldk[tm1] = of[2] + (w(21) * a[4] + w(22) * a[5]);
         }
-        t = T.ikp[j];
-        if (t >= 1 && t <= nfre) {
-          slk[t - 1] += w(8) * ur(ad, s1) + w(7) * ur(ad, s11);
-          fldk[t - 1] += w(11) * ur(delap, s1) + w(12) * ur(delap, s11);
+        if (cp) {
+          slk[tp] = os[3] + (w(8) * a[6] + w(7) * a[7]);
+          fldk[tp] = of[3] + (w(11) * a[8] + w(12) * a[9]);
         }
-        t = T.ikp1[j];
-        if (t >= 1 && t <= nfre) {
-          slk[t - 1] += w(5) * ur(ad, s1) + w(6) * ur(ad, s11);
-          fldk[t - 1] += w(9) * ur(delap, s1) + w(10) * ur(delap, s11);
+        if (cp1) {
+          slk[tp1] = os[4] + (w(5) * a[6] + w(6) * a[7]);
+          fldk[tp1] = of[4] + (w(9) * a[8] + w(10) * a[9]);
         }
       }
       __syncwarp();
@@ -1019,21 +1238,27 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
 }
 
 // SINPUT_JAN (sinput_jan.F90:84-280), Janssen's quasi-linear input of WAM
-// cycle 4 (iphys=0): frequency-parallel, no sheltering, gusts ordered
-// (1 − σ, 1 + σ).  The same outputs as sinput_ard: fld and sl in full, per
-// frequency ws, sx and sy, and in FULL sp, the mask bits and phw.  OPTS
-// adds LLNORMAGAM as in sinput_ard
+// cycle 4 (iphys=0) in SINFLX call 1 or 2: frequency-parallel, no
+// sheltering, gusts ordered (1 − σ, 1 + σ).  The same outputs as
+// sinput_ard (the second call's fld and sl are the input's alone: the
+// cycle-4 dissipation comes after both calls), and in FULL's second call
+// sp, the mask bits and phw.  OPTS adds LLNORMAGAM as in sinput_ard
 template <bool FULL, bool OPTS>
-__device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
-                           bool llsneg, float wswave, float ufric, float z0m,
-                           float raorw, float wstar, float rnfac,
+__device__ __forceinline__ void sinput_jan(const Tabs& T, const Work& W, int lane,
+                           bool second,
+                           float wswave, float ufric, float z0m, float raorw,
+                           float wstar, float rnfac,
                            unsigned long long* xbits, float& phw) {
+  constexpr int NG = 2;
+  const int ng = second ? 2 : 1;
+  const bool neg = second;
+  const bool fw = FULL && second;
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre;
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
   const bool normagam = OPTS && (T.opts & OPT_LLNORMAGAM);
   const float cstrnfac = P[P_CONSTN] * rnfac / raorw;
-  float us[2], wsin = 1.f;
-  if (ngst > 1) {
+  float us[NG], wsin = 1.f;
+  if (ng > 1) {
     const float sig_n = wsigstar<OPTS>(P, T.opts, wswave, ufric, z0m, wstar);
     us[0] = ufric * (1.f - sig_n);
     us[1] = ufric * (1.f + sig_n);
@@ -1041,8 +1266,9 @@ __device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
   } else {
     us[0] = us[1] = ufric;
   }
-  if (FULL) {
-    xbits[0] = xbits[1] = 0ull;
+  if (fw) {
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) xbits[q] = 0ull;
     phw = 0.f;
   }
   for (int m = 0; m < nfre; ++m) {
@@ -1050,16 +1276,20 @@ __device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
     const float cnsn = (zp * P[P_CONST1]) * ((zp * zp) / (P[P_G] * wav))
         * raorw;
     const float zcn = logf(wav * z0m);
-    float u1[KPL] = {0.f, 0.f}, u2[KPL] = {0.f, 0.f};
-    float xll[KPL] = {0.f, 0.f};
-    for (int g = 0; g < ngst; ++g) {
+    float u1[KPL], u2[KPL], xll[KPL];
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) u1[q] = u2[q] = xll[q] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (g == ng) break;
       const float ucn = us[g] * cim + P[P_ZALP];
       const float ucnd = 1.f / ucn;
-      float gam[KPL] = {0.f, 0.f};
+      float gam[KPL];
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
-        const int k = lane + 32 * q;
+        const int k = lane + RL * q;
+        gam[q] = 0.f;
         if (k >= nang) continue;
         const float cw = W.cosw[k];
         const bool lz = cw > 0.01f;
@@ -1070,13 +1300,13 @@ __device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
         gam[q] = active ? zlog2x * zlog2x * expf(zlog) * cnsn : 0.f;
         xll[q] = fmaxf(xll[q], active ? 1.f : 0.f);
         if (normagam) {
-          const float gf = gam[q] * W.fl[k * nfre + m];
+          const float gf = gam[q] * W.fl[k * nfp + m];
           s1 += gf;
           s2 += gf * W.sin2[k];
         }
       }
       if (normagam) {
-        const float sumf = warp_sum(s1), sumfsin2 = warp_sum(s2);
+        const float sumf = row_sum(s1), sumfsin2 = row_sum(s2);
         const float znz = cstrnfac * W.xk2cg[m]
             * (1.f / fmaxf(us[g], P[P_EPSUS]));
         const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
@@ -1087,44 +1317,46 @@ __device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
       const float xvd = 1.f / (-us[g] * P[P_XKAPPAD] * zcn * cim);
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
-        const int k = lane + 32 * q;
+        const int k = lane + RL * q;
         if (k >= nang) continue;
         u1[q] += wsin * gam[q];
-        if (llsneg) u2[q] += wsin * (c3u2 * (W.cosw[k] - xvd));
+        if (neg) u2[q] += wsin * (c3u2 * (W.cosw[k] - xvd));
       }
     }
     float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
-      const int k = lane + 32 * q;
+      const int k = lane + RL * q;
       if (k >= nang) continue;
-      const int b = k * nfre + m;
+      const int b = k * nfp + m;
       const float f = W.fl[b];
       const float fm = u1[q] + u2[q] * cnsn;
       const float sp = u1[q] * f;
-      W.fld[b] = fm;
-      W.sl[b] = fm * f;
+      if (neg) {
+        W.fld[b] = fm;
+        W.sl[b] = fm * f;
+      }
       wsp += xll[q] * f;
       sxp += sp * T.sinth[k];
       syp += sp * T.costh[k];
-      if (FULL) {
+      if (fw) {
         spp += sp;
         dph += (fm * f - sp) * T.rhowg[m];
         if (xll[q] != 0.f) xbits[q] |= 1ull << m;
       }
     }
-    wsp = warp_sum(wsp);
-    sxp = warp_sum(sxp);
-    syp = warp_sum(syp);
-    if (FULL) {
-      spp = warp_sum(spp);
-      phw += warp_sum(dph);
+    wsp = row_sum(wsp);
+    sxp = row_sum(sxp);
+    syp = row_sum(syp);
+    if (fw) {
+      spp = row_sum(spp);
+      phw += row_sum(dph);
     }
     if (lane == 0) {
       W.ws[m] = wsp;
       W.sx[m] = sxp;
       W.sy[m] = syp;
-      if (FULL) W.sp[m] = spp;
+      if (fw) W.sp[m] = spp;
     }
   }
   __syncwarp();
@@ -1132,39 +1364,39 @@ __device__ void sinput_jan(const Tabs& T, const Work& W, int lane, int ngst,
 
 // SDISSIP_JAN (sdissip_jan.F90:50-120), the cycle-4 dissipation from the
 // first FKMEAN's mean parameters, per bin
-__device__ void sdissip_jan(const Tabs& T, const Work& W, int lane,
-                            float emean, float f1mean, float xkmean) {
+__device__ void sdissip_jan(const Tabs& T, const Work& W, float emean,
+                            float f1mean, float xkmean) {
   const float* P = T.par;
-  const int nfre = T.nfre, nb = T.nang * nfre;
   const float xk2 = xkmean * xkmean;
   const float sds = P[P_CONSS] * f1mean * (emean * emean) * (xk2 * xk2);
   const float dsd = P[P_DELTA_SDIS];
-  for (int b = lane; b < nb; b += 32) {
-    const int m = b % nfre;
+  for_bins(T, [&](int b, int k, int m) {
     const float wav = W.wav[m];
     const float x = wav / xkmean;
     const float t = sds * x * ((1.f - dsd) + dsd * x)
         + P[P_CVIS] * (wav * wav);
     W.fld[b] += t;
     W.sl[b] += t * W.fl[b];
-  }
+  });
   __syncwarp();
 }
 
 // PEAK_ANG (peak_ang.F90:60-160): the frequency spread ν and directional
 // spread σθ at the peak, for TRANSF_SNL; W.tm and W.ws as scratch.  The
 // peak is the lowest-index maximum over (k, m = 1..nfre−2); the window's
-// THMEAN update is sequential in m, each step closed by warp sums;
-// s1 − s2 is summed directly as Σ 2·sin²((θ − θm)/2)·F·Δf
+// THMEAN update is sequential in m, each step closed by row sums (the two
+// rows of a warp walk windows of the same length, the steps outside the
+// ladder adding nothing); s1 − s2 is summed directly as
+// Σ 2·sin²((θ − θm)/2)·F·Δf
 __device__ void peak_ang(const Tabs& T, const Work& W, int lane, float& xnu,
                          float& sig_th) {
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre;
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
   const float zeps = 10.f * 1.1920929e-7f;       // 10·FLT_EPSILON
-  for (int m = lane; m < nfre; m += 32) {
+  for (int m = lane; m < nfre; m += RL) {
     float s = 0.f, mx = -INFINITY;
     for (int k = 0; k < nang; ++k) {
-      const float f = W.fl[k * nfre + m];
+      const float f = W.fl[k * nfp + m];
       s += f;
       mx = fmaxf(mx, f);
     }
@@ -1184,19 +1416,20 @@ __device__ void peak_ang(const Tabs& T, const Work& W, int lane, float& xnu,
   xnu = sum0 > zeps
       ? sqrtf(fmaxf(sum2 * sum0 / (sum1 * sum1) - 1.f, zeps)) : zeps;
 
-  // the peak: lane maxima over m = 1..nfre−2, then the warp's, the
+  // the peak: lane maxima over m = 1..nfre−2, then the row's, the
   // lowest index on ties
   float best = -INFINITY;
   int ib = nfre;
-  for (int m = lane; m < nfre - 1; m += 32) {
+  for (int m = lane; m < nfre - 1; m += RL) {
     if (m >= 1 && W.ws[m] > best) {
       best = W.ws[m];
       ib = m;
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ob = __shfl_xor_sync(FULL, best, o);
-    const int oi = __shfl_xor_sync(FULL, ib, o);
+#pragma unroll
+  for (int o = RL / 2; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(ALL, best, o, RL);
+    const int oi = __shfl_xor_sync(ALL, ib, o, RL);
     if (ob > best || (ob == best && oi < ib)) {
       best = ob;
       ib = oi;
@@ -1206,31 +1439,39 @@ __device__ void peak_ang(const Tabs& T, const Work& W, int lane, float& xnu,
 
   const int nsh = (int)P[P_NSH];
   float ss = 0.f, sc = zeps, s1 = zeps, d = zeps;
-  for (int m = mmax - nsh; m <= mmax + nsh; ++m) {
-    if (m < 0 || m > nfre - 1) continue;
+  for (int i = -nsh; i <= nsh; ++i) {
+    const int m = mmax + i;
+    const bool in = m >= 0 && m <= nfre - 1;
+    const int mm = in ? m : 0;
     float ps = 0.f, pc = 0.f, pf = 0.f;
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
-      const int k = lane + 32 * q;
+      const int k = lane + RL * q;
       if (k >= nang) continue;
-      const float f = W.fl[k * nfre + m];
+      const float f = W.fl[k * nfp + mm];
       ps += T.sinth[k] * f;
       pc += T.costh[k] * f;
       pf += f;
     }
-    ss += warp_sum(ps);
-    sc += warp_sum(pc);
+    ps = row_sum(ps);
+    pc = row_sum(pc);
+    pf = row_sum(pf);
+    if (in) {
+      ss += ps;
+      sc += pc;
+    }
     const float thm = atan2f(ss, sc);
-    s1 += warp_sum(pf) * T.dfim[m];
+    if (in) s1 += pf * T.dfim[mm];
     float pd = 0.f;
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
-      const int k = lane + 32 * q;
+      const int k = lane + RL * q;
       if (k >= nang) continue;
       const float h = sinf(0.5f * (T.th[k] - thm));
-      pd += 2.f * h * h * W.fl[k * nfre + m];
+      pd += 2.f * h * h * W.fl[k * nfp + mm];
     }
-    d += warp_sum(pd) * T.dfim[m];
+    pd = row_sum(pd);
+    if (in) d += pd * T.dfim[mm];
   }
   sig_th = s1 > zeps ? sqrtf(2.f * fmaxf(d / s1, 0.f)) : 0.f;
   __syncwarp();
@@ -1291,41 +1532,17 @@ struct Layout {
   const float* tin; float* tout; int nfr;
 };
 
-template <bool FULL, bool COMPACT, bool OPTS, bool EXT = false,
-          bool JAN = false>
-__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
-implsch_kernel(Layout Lo, const float* __restrict__ env2d,
-               const float* __restrict__ scal, float* __restrict__ out,
-               float* __restrict__ xllws, Tabs T, int nrows) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long p = (long)blockIdx.x * WARPS + warp;
-  if (p >= nrows) return;                      // whole warp leaves together
+// One physics step of row p on the row's RL lanes (``live`` false: a
+// partner row of an odd row count, read from row p and not written)
+template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN>
+__device__ __forceinline__ void row_step(
+    const Layout& Lo, const float* __restrict__ env2d,
+    const float* __restrict__ scal, float* __restrict__ out,
+    float* __restrict__ xllws, const Tabs& T, const Work& W, int lane,
+    long p, bool live, int nrows) {
   const float* P = T.par;
-  const int nang = T.nang, nfre = T.nfre, nb = nang * nfre;
+  const int nang = T.nang, nfre = T.nfre, nfp = T.nfp;
   const int nfr = Lo.nfr, nt = nfre - nfr;
-
-  Work W;
-  W.fl = smem + warp * work_floats(nang, nfre, T.mlsthg, FULL);
-  W.fld = W.fl + nb;
-  W.sl = W.fld + nb;
-  W.wav = W.sl + nb;
-  W.cinv = W.wav + nfre;
-  W.xk2cg = W.cinv + nfre;
-  W.tm = W.xk2cg + nfre;
-  W.ws = W.tm + nfre;
-  W.sx = W.ws + nfre;
-  W.sy = W.sx + nfre;
-  W.cosw = W.sy + nfre;
-  W.sin2 = W.cosw + nang;
-  W.flm = W.sin2 + nang;
-  W.dx = W.flm + nang;
-  W.enh = W.dx + 4 * nang;
-  W.sp = W.enh + T.mlsthg;                     // FULL only
-  W.sumt = W.sp + nfre;
-  W.sumx = W.sumt + nfre;
-  W.sumy = W.sumx + nfre;
 
   // ---- load: the row's advected bins + its tail-block bins
   const float* frow = Lo.fin + p * Lo.f_ps;
@@ -1334,11 +1551,10 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     const int i = k * nfr + m;
     return COMPACT ? (long)i * Lo.f_bs : (long)i;
   };
-  for (int b = lane; b < nb; b += 32) {
-    const int k = b / nfre, m = b - k * nfre;
+  for_bins(T, [&](int b, int k, int m) {
     W.fl[b] = m < nfr ? frow[fidx(k, m)] : trow[k * nt + (m - nfr)];
-  }
-  for (int m = lane; m < nfre; m += 32) {
+  });
+  for (int m = lane; m < nfre; m += RL) {
     W.wav[m] = env2d[(long)m * nrows + p];
     W.cinv[m] = env2d[(long)(nfre + m) * nrows + p];
     W.xk2cg[m] = env2d[(long)(2 * nfre + m) * nrows + p];
@@ -1357,18 +1573,19 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
 
   // ---- SDEPTHLIM (sdepthlim.F90:32-46)
   if (biwbk) {
-    colsum(W.fl, W.tm, nang, nfre, lane);
+    colsum(W.fl, W.tm, nang, nfre, nfp, lane);
     float em = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.tm[m]; });
     em = em + P[P_DELT25] * W.tm[nfre - 1] + P[P_EPSMIN];
     const float scale = fminf(emaxdpt / em, 1.f);
     __syncwarp();
-    for (int b = lane; b < nb; b += 32)
+    for_bins(T, [&](int b, int k, int m) {
       W.fl[b] = fmaxf(W.fl[b] * scale, P[P_EPSMIN]);
+    });
     __syncwarp();
   }
 
   // ---- FKMEAN: emean, fmean (1/f weighted), f1mean (fkmean.F90:60-100)
-  colsum(W.fl, W.tm, nang, nfre, lane);
+  colsum(W.fl, W.tm, nang, nfre, nfp, lane);
   float emean = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
     return T.dfim[m] * W.tm[m]; });
   float fmean = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
@@ -1397,7 +1614,7 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   }
   __syncwarp();
 
-  for (int k = lane; k < nang; k += 32) {
+  for (int k = lane; k < nang; k += RL) {
     const float d = T.th[k] - wdwave;
     const float cw = cosf(d), sw = sinf(d), c2 = fmaxf(0.f, cw);
     W.cosw[k] = cw;
@@ -1411,14 +1628,16 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
   const float rnfac = (opts & OPT_LLNORMAGAM) && (opts & OPT_LLCAPCHNK)
       ? 1.f + P[P_DTHRN_A] * (1.f + tanhf(wswave - P[P_DTHRN_U])) : 1.f;
 
-  // ---- 2×SINFLX (sinflx.F90:190-260)
+  // ---- 2×SINFLX (sinflx.F90:190-260), SDISSIP ARD between the calls
   int mij = nfre - 1;
   float fmeanws = 0.f, phiwa = 0.f, halp = 0.f;
   unsigned long long xbits[KPL];
+#pragma unroll 1
   for (int icall = 1; icall <= 2; ++icall) {
-    if (icall == 1) {
-      for (int k = lane; k < nang; k += 32) {
-        const int b = k * nfre + nfre - 1;
+    const bool second = icall == 2;
+    if (!second) {
+      for (int k = lane; k < nang; k += RL) {
+        const int b = k * nfp + nfre - 1;
         W.fl[b] = fmaxf(W.fl[b], W.flm[k]);
       }
       __syncwarp();
@@ -1426,18 +1645,16 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     }
     if (opts & OPT_LLGCBZ0)
       taut_z0_gc(T, lane, wswave, wdwave, tauw, tauwdir, ufric, halp, rnfac,
-                 icall == 1 ? 0 : 1, ufric, z0m, z0b, chrnck);
+                 second ? 1 : 0, ufric, z0m, z0b, chrnck);
     else
       taut_z0<OPTS>(P, opts, wswave, wdwave, tauw, tauwdir, ufric,
-                    icall == 1 ? 0 : 1, ufric, z0m, z0b, chrnck);
+                    second ? 1 : 0, ufric, z0m, z0b, chrnck);
     if constexpr (JAN)
-      sinput_jan<FULL, OPTS>(T, W, lane, icall == 1 ? 1 : 2, icall == 2,
-                             wswave, ufric, z0m, raorw, wstar, rnfac, xbits,
-                             phiwa);
+      sinput_jan<FULL, OPTS>(T, W, lane, second, wswave, ufric, z0m, raorw,
+                             wstar, rnfac, xbits, phiwa);
     else
-      sinput_ard<FULL, OPTS>(T, W, lane, icall == 1 ? 1 : 2, icall == 2,
-                             wswave, wdwave, ufric, z0m, raorw, wstar, rnfac,
-                             xbits, phiwa);
+      sinput_ard<FULL, OPTS>(T, W, lane, second, wswave, wdwave, ufric, z0m,
+                             raorw, wstar, rnfac, xbits, phiwa);
     // FEMEANWS (femeanws.F90:52-100)
     float emws = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
         + P[P_EPSMIN];
@@ -1453,14 +1670,12 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     mij1 = min(max(mij1, 1), nfre);
     if (!(cicover <= P[P_CITHRSH_TAIL])) mij1 = nfre;
     mij = mij1 - 1;
-    stresso<FULL, OPTS>(T, W, lane, mij, ufric, z0m, aird, wdwave, rnfac,
-                        tauw, tauwdir, phiwa);
+    stresso<FULL, OPTS>(T, W, lane, second, mij, ufric, z0m, aird, wdwave,
+                        rnfac, tauw, tauwdir, phiwa);
+    if (!JAN && !second) sdissip_ard(T, W, lane);
   }
 
-  if constexpr (JAN)
-    sdissip_jan(T, W, lane, emean, f1mean, xkmean);
-  else
-    sdissip_ard(T, W, lane);
+  if constexpr (JAN) sdissip_jan(T, W, emean, f1mean, xkmean);
   // the DIA enhancement of ISNONLIN 0 (snonlin.F90:127-136) or 2
   float enhfr = 0.f, xnu = 0.f, sig_th = 0.f;
   if (EXT && (xo & OPT_ISNONLIN0)) {
@@ -1472,10 +1687,10 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
 
   // ---- WNFLUXES' source sums, SNONLIN included (implsch.F90:297-305)
   if (FULL) {
-    for (int m = lane; m < nfre; m += 32) {
+    for (int m = lane; m < nfre; m += RL) {
       float st = 0.f, sx = 0.f, sy = 0.f;
       for (int k = 0; k < nang; ++k) {
-        const int b = k * nfre + m;
+        const int b = k * nfp + m;
         const float ss = W.sl[b] / fmaxf(1.f - P[P_DELT5] * W.fld[b], 1.f);
         st += ss;
         sx += T.sinth[k] * ss;
@@ -1502,39 +1717,48 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
       if (!done) q_out = q;
       done = done || rel_err < 1.0e-5f;
       if (!done) q_old = q;
+      if (done) break;                         // nothing changes after
     }
     if (depth < P[P_DEPTHTRS] && biwbk)
       sds = 2.f * alph * fminf(q_out, 1.f) * f1mean;
   }
   const bool bottom = depth < P[P_BATHYMAX];
   if (!OPTS) {
-    for (int b = lane; b < nb; b += 32) {
-      const int m = b % nfre;
-      if (m >= T.nred) continue;
+    // SBOTTOM's rate per frequency into W.tm
+    if (bottom)
+      for (int m = lane; m < T.nred; m += RL)
+        W.tm[m] = P[P_SBOT_C] * W.wav[m]
+            / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
+    __syncwarp();
+    for_bins(T, [&](int b, int k, int m) {
+      if (m >= T.nred) return;
       const float f = W.fl[b];
       float s = W.sl[b] + (-sds) * f;
       float d = W.fld[b] + (-sds);
       if (bottom) {
-        const float sbo = P[P_SBOT_C] * W.wav[m]
-            / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
+        const float sbo = W.tm[m];
         s = s + sbo * f;
         d = d + sbo;
       }
       W.sl[b] = s;
       W.fld[b] = d;
-    }
+    });
   } else {
     // SDIWBK, then LCISCAL and SDICE3 on every frequency
     // (implsch.F90, sdice3.F90:55-95), then SBOTTOM; EXT adds SDICE1 and
-    // SDICE2 before SDICE3, and LICERUN
+    // SDICE2 before SDICE3, and LICERUN.  Per frequency first: SBOTTOM's
+    // rate (W.tm), the group speed from (k, d) as implsch.derive_cgroup
+    // (W.sx), and times it SDICE1's rate (W.ws) and SDICE3's (W.sy)
     const float beta = 1.f - cicover;
     const bool ciwa3 = icerun && (opts & OPT_LCIWA3);
     const bool ciwa1 = EXT && icerun && (xo & OPT_LCIWA1);
     const bool ciwa2 = EXT && icerun && (xo & OPT_LCIWA2);
+    const bool ice = ciwa3 || ciwa1 || ciwa2;
     const float h125 = ciwa3 ? powf(cithick, 1.25f) : 0.f;
+    // SDICE1's floe size 1/D and thickness cell (sdice1.F90:65-124)
+    float dinv = 0.f, wh1 = 0.f;
+    int ih = 0;
     if (ciwa1) {
-      // SDICE1's rate per frequency into W.ws (free after SINFLX), with
-      // the row's floe size 1/D and thickness cell (sdice1.F90:65-124)
       const float cidmax = 200.f + 300.f * cicover;
       const float icm = fminf(floorf(logf(cidmax / 20.f) / logf(2.f)), 3.f);
       float sn = 0.f, sd = 0.f, x = 1.f, g = 1.f;
@@ -1546,19 +1770,33 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
         x *= 4.f * 0.955f;
         g *= 2.f;
       }
-      const float dinv = sd / sn;
+      dinv = sd / sn;
       const int nich = (int)P[P_NICH];
-      const int ih = min(max((int)floorf((cithick - P[P_HICMIN])
-                                         / P[P_DHIC]), 0), nich - 1);
-      const float wh1 = fminf(fmaxf((cithick - (P[P_HICMIN] + (float)ih
-                                                * P[P_DHIC])) / P[P_DHIC],
-                                    0.f), 1.f);
-      for (int m = lane; m < nfre; m += 32)
-        W.ws[m] = cithick > 0.f ? sdice1_alpha(T, m, ih, wh1, dinv) : 0.f;
-      __syncwarp();
+      ih = min(max((int)floorf((cithick - P[P_HICMIN]) / P[P_DHIC]), 0),
+               nich - 1);
+      wh1 = fminf(fmaxf((cithick - (P[P_HICMIN] + (float)ih * P[P_DHIC]))
+                        / P[P_DHIC], 0.f), 1.f);
     }
-    for (int b = lane; b < nb; b += 32) {
-      const int m = b % nfre;
+    for (int m = lane; m < nfre; m += RL) {
+      if (bottom && m < T.nred)
+        W.tm[m] = P[P_SBOT_C] * W.wav[m]
+            / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
+      if (ice) {
+        const float xk = W.wav[m];
+        const float akd = xk * depth, akd_s = fminf(akd, 10.f);
+        const float cg = akd <= 10.f
+            ? 0.5f * sqrtf(P[P_G] * tanhf(akd_s) / xk)
+                  * (1.f + 2.f * akd_s / sinhf(2.f * akd_s))
+            : P[P_G4PI] / T.fr[m];
+        W.sx[m] = cg;
+        if (ciwa1)
+          W.ws[m] = -(cithick > 0.f ? sdice1_alpha(T, m, ih, wh1, dinv) : 0.f)
+              * cg;
+        if (ciwa3) W.sy[m] = -(P[P_CDICE2] * h125 * T.fr45[m]) * cg;
+      }
+    }
+    __syncwarp();
+    for_bins(T, [&](int b, int k, int m) {
       const bool low = m < T.nred;
       const float f = W.fl[b];
       float s = W.sl[b], d = W.fld[b];
@@ -1570,49 +1808,40 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
         s = beta * s;
         d = beta * d;
       }
-      if (ciwa3 || ciwa1 || ciwa2) {
-        // the group speed from (k, d), as implsch.derive_cgroup
+      if (ciwa1) {
+        const float fldice = W.ws[m];
+        s = s + cicover * (f * fldice);
+        d = d + cicover * fldice;
+      }
+      if (ciwa2) {
+        // SDICE2 (sdice2.F90:45-70): the drag on each bin's amplitude
         const float xk = W.wav[m];
-        const float akd = xk * depth, akd_s = fminf(akd, 10.f);
-        const float cg = akd <= 10.f
-            ? 0.5f * sqrtf(P[P_G] * tanhf(akd_s) / xk)
-                  * (1.f + 2.f * akd_s / sinhf(2.f * akd_s))
-            : P[P_G4PI] / T.fr[m];
-        if (ciwa1) {
-          const float fldice = -W.ws[m] * cg;
-          s = s + cicover * (f * fldice);
-          d = d + cicover * fldice;
-        }
-        if (ciwa2) {
-          // SDICE2 (sdice2.F90:45-70): the drag on each bin's amplitude
-          const float ewh = 4.f * sqrtf(fmaxf(P[P_EPSMIN], f * T.dfim[m]));
-          const float fldice = -(P[P_CDICWA] * (xk * xk) * ewh) * cg;
-          s = s + cicover * (f * fldice);
-          d = d + cicover * fldice;
-        }
-        if (ciwa3) {
-          const float fldice = -(P[P_CDICE2] * h125 * T.fr45[m]) * cg;
-          s = s + cicover * (f * fldice);
-          d = d + cicover * fldice;
-        }
+        const float ewh = 4.f * sqrtf(fmaxf(P[P_EPSMIN], f * T.dfim[m]));
+        const float fldice = -(P[P_CDICWA] * (xk * xk) * ewh) * W.sx[m];
+        s = s + cicover * (f * fldice);
+        d = d + cicover * fldice;
+      }
+      if (ciwa3) {
+        const float fldice = W.sy[m];
+        s = s + cicover * (f * fldice);
+        d = d + cicover * fldice;
       }
       if (low && bottom) {
-        const float sbo = P[P_SBOT_C] * W.wav[m]
-            / sinhf(fminf(2.f * depth * W.wav[m], 50.f));
+        const float sbo = W.tm[m];
         s = s + sbo * f;
         d = d + sbo;
       }
       W.sl[b] = s;
       W.fld[b] = d;
-    }
+    });
   }
+  __syncwarp();
 
   // ---- semi-implicit update with growth limiter (implsch.F90:260-300);
   // FULL keeps the FLMAX cap's flux term deltm·min(flmax − F, 0) in fld,
   // which is dead after the update
   const float usfm = ufric * fmaxf(fmeanws, fmean);
-  for (int b = lane; b < nb; b += 32) {
-    const int k = b / nfre, m = b - k * nfre;
+  for_bins(T, [&](int b, int k, int m) {
     const float temp = usfm * (T.cofrm4[m] * P[P_DELT]);
     const float gtemp1 = fmaxf(1.f - P[P_DELT5] * W.fld[b], 1.f);
     const float gtemp2 = P[P_DELT] * W.sl[b] / gtemp1;
@@ -1621,16 +1850,19 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     f = fmaxf(f, W.flm[k]);
     if (FULL) W.fld[b] = P[P_DELTM] * fminf(T.flmax[m] - f, 0.f);
     W.fl[b] = fminf(f, T.flmax[m]);
-  }
+  });
   __syncwarp();
 
-  float o[NOUT_FULL];                          // FULL's extra rows
+  // FULL's extra rows go out as they are formed (by the row's first lane)
+  auto put = [&](int i, float v) {
+    if (live && lane == 0) out[i * (long)nrows + p] = v;
+  };
   if (FULL) {
     // the cap term joins the source sums (implsch.F90:375,390)
-    for (int m = lane; m < nfre; m += 32) {
+    for (int m = lane; m < nfre; m += RL) {
       float st = 0.f, sx = 0.f, sy = 0.f;
       for (int k = 0; k < nang; ++k) {
-        const float cap = W.fld[k * nfre + m];
+        const float cap = W.fld[k * nfp + m];
         st += cap;
         sx += T.sinth[k] * cap;
         sy += T.costh[k] * cap;
@@ -1683,21 +1915,21 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
         + (1.f - ooval) * P[P_PHIOC_ICE] * xn;
     const float phieps = fminf(fmaxf(phioc / xn, P[P_PHIEPSMIN]),
                                P[P_PHIEPSMAX]);
-    o[O_TAUXD] = tauxd;
-    o[O_TAUYD] = tauyd;
-    o[O_TAUOCXD] = tauocxd;
-    o[O_TAUOCYD] = tauocyd;
-    o[O_TAUOC] = fminf(fmaxf(tauo / tau, P[P_TAUOCMIN]), P[P_TAUOCMAX]);
-    o[O_PHIOCD] = phieps * xn;
-    o[O_PHIEPS] = phieps;
-    o[O_PHIAW] = ooval * phiwa / xn + (1.f - ooval) * P[P_PHIAW_ICE];
-    o[O_EM_OC] = em_oc;
-    o[O_F1_OC] = f1_oc;
-    o[O_PHIWA] = phiwa;
-    o[O_MIJ] = (float)mij;
+    put(O_TAUXD, tauxd);
+    put(O_TAUYD, tauyd);
+    put(O_TAUOCXD, tauocxd);
+    put(O_TAUOCYD, tauocyd);
+    put(O_TAUOC, fminf(fmaxf(tauo / tau, P[P_TAUOCMIN]), P[P_TAUOCMAX]));
+    put(O_PHIOCD, phieps * xn);
+    put(O_PHIEPS, phieps);
+    put(O_PHIAW, ooval * phiwa / xn + (1.f - ooval) * P[P_PHIAW_ICE]);
+    put(O_EM_OC, em_oc);
+    put(O_F1_OC, f1_oc);
+    put(O_PHIWA, phiwa);
+    put(O_MIJ, (float)mij);
 
     // second FKMEAN (fkmean.F90:60-100) and FEMEANWS on the updated bins
-    colsum(W.fl, W.tm, nang, nfre, lane);
+    colsum(W.fl, W.tm, nang, nfre, nfp, lane);
     float e2 = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
       return T.dfim[m] * W.tm[m]; });
     float fm1 = P[P_EPSMIN] + msum(nfre, lane, [&](int m) {
@@ -1710,22 +1942,31 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
       return sqrtf(W.wav[m]) * T.dfim[m] * W.tm[m]; });
     const float tl = W.tm[nfre - 1];
     e2 = e2 + P[P_DELT25] * tl;
-    o[O_EMEAN] = e2;
-    o[O_FMEAN] = e2 / (fm1 + P[P_DELT2] * tl);
-    o[O_F1MEAN] = (f1 + P[P_COEF1] * tl) / e2;
+    put(O_EMEAN, e2);
+    put(O_FMEAN, e2 / (fm1 + P[P_DELT2] * tl));
+    put(O_F1MEAN, (f1 + P[P_COEF1] * tl) / e2);
     const float ar = e2 / (ak + P[P_COEFA] * tl);
-    o[O_AKMEAN] = ar * ar;
+    put(O_AKMEAN, ar * ar);
     const float xr = (xk + P[P_COEFX] * tl) / e2;
-    o[O_XKMEAN] = xr * xr;
-    for (int m = 0; m < nfre; ++m) {
-      float w = 0.f;
+    put(O_XKMEAN, xr * xr);
+    // the windsea sums Σ_k xllws·F per frequency: each direction's mask
+    // word goes to shared memory (W.dx, free after the flux sums), then
+    // one lane per frequency sums the directions in order
+    unsigned* xw = reinterpret_cast<unsigned*>(W.dx);
 #pragma unroll
-      for (int q = 0; q < KPL; ++q) {
-        const int k = lane + 32 * q;
-        if (k < nang && ((xbits[q] >> m) & 1ull)) w += W.fl[k * nfre + m];
-      }
-      w = warp_sum(w);
-      if (lane == 0) W.ws[m] = w;
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + RL * q;
+      if (k >= nang) continue;
+      xw[2 * k] = (unsigned)xbits[q];
+      xw[2 * k + 1] = (unsigned)(xbits[q] >> 32);
+    }
+    __syncwarp();
+    for (int m = lane; m < nfre; m += RL) {
+      const int word = m >> 5, bit = m & 31;
+      float w = 0.f;
+      for (int k = 0; k < nang; ++k)
+        if ((xw[2 * k + word] >> bit) & 1u) w += W.fl[k * nfp + m];
+      W.ws[m] = w;
     }
     __syncwarp();
     float emws = msum(nfre, lane, [&](int m) { return T.dfim[m] * W.ws[m]; })
@@ -1735,35 +1976,36 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     emws = emws + P[P_DELT25] * W.ws[nfre - 1];
     fmws = fmws + P[P_DELT2] * W.ws[nfre - 1];
     const bool small = emws < P[P_WSEMEAN_MIN];
-    o[O_EMEANWS] = emws;
-    o[O_FMEANWS] = emws / fmws;
-    o[O_WSEMEAN] = small ? P[P_WSEMEAN_MIN] : emws;
-    o[O_WSFMEAN] = small ? 2.f * T.fr[nfre - 1] : emws / fmws;
+    put(O_EMEANWS, emws);
+    put(O_FMEANWS, emws / fmws);
+    put(O_WSEMEAN, small ? P[P_WSEMEAN_MIN] : emws);
+    put(O_WSFMEAN, small ? 2.f * T.fr[nfre - 1] : emws / fmws);
     __syncwarp();
   }
 
   // ---- IMPHFTAIL (imphftail.F90:40-55) + SETICE (setice.F90:38-60)
   const float t_mij = 1.f / (W.xk2cg[mij] * W.wav[mij]);
-  for (int b = lane; b < nb; b += 32) {
-    const int k = b / nfre, m = b - k * nfre;
-    if (m <= mij) continue;
-    const float ratio = (1.f / (W.xk2cg[m] * W.wav[m])) / t_mij;
-    W.fl[b] = fmaxf(ratio * W.fl[k * nfre + mij], W.flm[k]);
-  }
+  for (int m = mij + 1 + lane; m < nfre; m += RL)
+    W.tm[m] = (1.f / (W.xk2cg[m] * W.wav[m])) / t_mij;
+  __syncwarp();
+  for_bins(T, [&](int b, int k, int m) {
+    if (m <= mij) return;
+    W.fl[b] = fmaxf(W.tm[m] * W.fl[k * nfp + mij], W.flm[k]);
+  });
   __syncwarp();
   if (icerun && !(xo & OPT_NO_LMASKICE) && cicover > P[P_CITHRSH]) {
     const float cireduc = fmaxf(P[P_EPSMIN], 1.f - cicover);
-    for (int b = lane; b < nb; b += 32) {
-      const float c2 = fmaxf(0.f, W.cosw[b / nfre]);
+    for_bins(T, [&](int b, int k, int m) {
+      const float c2 = fmaxf(0.f, W.cosw[k]);
       W.fl[b] = cireduc * P[P_FLMIN] * (c2 * c2);
-    }
-    __syncwarp();
+    });
   }
+  __syncwarp();
 
   // ---- STOKESTRN (stokesdrift.F90:95-145), STOKFAC from (k, d)
   if (FULL) {
     const int nodd = nfre - 1 + nfre % 2;
-    for (int m = lane; m < nodd; m += 32) {
+    for (int m = lane; m < nodd; m += RL) {
       const float om = T.zpifr[m], xk = W.wav[m];
       const float akd = xk * depth;
       const float sh = P[P_TWOG] * (xk * xk)
@@ -1773,9 +2015,8 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
     }
     __syncwarp();
     float us = 0.f, vs = 0.f, ut = 0.f, vt = 0.f;
-    for (int b = lane; b < nb; b += 32) {
-      const int k = b / nfre, m = b - k * nfre;
-      if (m >= nodd) continue;
+    for_bins(T, [&](int b, int k, int m) {
+      if (m >= nodd) return;
       const float f3 = W.tm[m] * W.fl[b];
       us += f3 * T.sinth[k];
       vs += f3 * T.costh[k];
@@ -1783,61 +2024,151 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
         ut += T.sinth[k] * W.fl[b];
         vt += T.costh[k] * W.fl[b];
       }
-    }
-    us = warp_sum(us) + P[P_STOKES_C] * warp_sum(ut);
-    vs = warp_sum(vs) + P[P_STOKES_C] * warp_sum(vt);
+    });
+    us = row_sum(us) + P[P_STOKES_C] * row_sum(ut);
+    vs = row_sum(vs) + P[P_STOKES_C] * row_sum(vt);
     if (P[P_LWAMRSETCI] != 0.f && icerun && cicover > P[P_CITHRSH_STOKES]) {
       const float fac = 0.016f * wswave * (1.f - cicover);
       us = fac * sinf(wdwave);
       vs = fac * cosf(wdwave);
     }
-    o[O_USTOKES] = fminf(fmaxf(us, -P[P_STMAX]), P[P_STMAX]);
-    o[O_VSTOKES] = fminf(fmaxf(vs, -P[P_STMAX]), P[P_STMAX]);
-    o[O_STRNMS] = 0.f;
+    put(O_USTOKES, fminf(fmaxf(us, -P[P_STMAX]), P[P_STMAX]));
+    put(O_VSTOKES, fminf(fmaxf(vs, -P[P_STMAX]), P[P_STMAX]));
+    put(O_STRNMS, 0.f);
     if (xo & OPT_LSTRN) {
       // CIMSSTRN (cimsstrn.F90:85-125): one lane per frequency
       float part = 0.f;
-      for (int m = lane; m < nfre; m += 32) {
+      for (int m = lane; m < nfre; m += RL) {
         float sume = 0.f;
-        for (int k = 0; k < nang; ++k) sume += W.fl[k * nfre + m];
+        for (int k = 0; k < nang; ++k) sume += W.fl[k * nfp + m];
         const float xk = W.wav[m];
         const float xki = aki_ice(P, xk, depth, cithick);
         const float e = 0.5f * cithick * (xki * xki * xki) / xk;
         if (sume > P[P_F1LIM]) part += (e * e) * sume * T.dfim[m];
       }
-      o[O_STRNMS] = warp_sum(part);
+      put(O_STRNMS, row_sum(part));
     }
   }
 
   // ---- store
-  float* fdst = Lo.fout + p * Lo.f_ps;
-  float* tdst = nt ? Lo.tout + p * (long)(nang * nt) : nullptr;
-  for (int b = lane; b < nb; b += 32) {
-    const int k = b / nfre, m = b - k * nfre;
-    if (m < nfr) fdst[fidx(k, m)] = W.fl[b];
-    else tdst[k * nt + (m - nfr)] = W.fl[b];
-  }
-  if (lane == 0) {
-    out[O_UFRIC * (long)nrows + p] = ufric;
-    out[O_TAUW * (long)nrows + p] = tauw;
-    out[O_TAUWDIR * (long)nrows + p] = tauwdir;
-    out[O_Z0M * (long)nrows + p] = z0m;
-    out[O_Z0B * (long)nrows + p] = z0b;
-    out[O_CHRNCK * (long)nrows + p] = chrnck;
+  if (live) {
+    float* fdst = Lo.fout + p * Lo.f_ps;
+    float* tdst = nt ? Lo.tout + p * (long)(nang * nt) : nullptr;
+    for_bins(T, [&](int b, int k, int m) {
+      if (m < nfr) fdst[fidx(k, m)] = W.fl[b];
+      else tdst[k * nt + (m - nfr)] = W.fl[b];
+    });
+    if (lane == 0) {
+      out[O_UFRIC * (long)nrows + p] = ufric;
+      out[O_TAUW * (long)nrows + p] = tauw;
+      out[O_TAUWDIR * (long)nrows + p] = tauwdir;
+      out[O_Z0M * (long)nrows + p] = z0m;
+      out[O_Z0B * (long)nrows + p] = z0b;
+      out[O_CHRNCK * (long)nrows + p] = chrnck;
+    }
     if (FULL) {
 #pragma unroll
-      for (int i = O_MIJ; i < NOUT_FULL; ++i) out[i * (long)nrows + p] = o[i];
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + RL * q;
+        if (k >= nang) continue;
+        for (int m = 0; m < nfre; ++m)
+          xllws[(long)(k * nfre + m) * nrows + p] =
+              (float)((xbits[q] >> m) & 1ull);
+      }
     }
   }
-  if (FULL) {
-#pragma unroll
-    for (int q = 0; q < KPL; ++q) {
-      const int k = lane + 32 * q;
-      if (k >= nang) continue;
-      for (int m = 0; m < nfre; ++m)
-        xllws[(long)(k * nfre + m) * nrows + p] =
-            (float)((xbits[q] >> m) & 1ull);
-    }
+  __syncwarp();                                // W is the next row's
+}
+
+// Each block's copy of the tables its inner loops read, in shared memory
+// from ``s``: the parameter block with the per-frequency and per-direction
+// tables and W (contiguous in the packed array), the tail-integral
+// weights, the DIA weights, (OPTS) the gc tables, and the DIA index
+// tables; then the bin walk's constants.  Every thread of the block takes
+// part; it returns the tables pointed there
+template <bool OPTS>
+__host__ __device__ __forceinline__ int table_floats(int nang, int nfre,
+                                                     int mlsthg, int nwav) {
+  const int n = NPAR + NFREQTAB * nfre + 3 * nang + nang * nang + JTOT
+      + 26 * mlsthg + (OPTS ? NGCSTAGE * nwav : 0) + 9 * mlsthg + 8;
+  return (n + 31) & ~31;
+}
+
+template <bool OPTS>
+__device__ Tabs stage_tables(const Tabs& G, float* s) {
+  const int nang = G.nang, nfre = G.nfre, ml = G.mlsthg;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  auto copy = [&](float* d, const float* g, int n) {
+    for (int i = tid; i < n; i += nth) d[i] = g[i];
+  };
+  Tabs T = G;
+  const int n1 = NPAR + NFREQTAB * nfre + 3 * nang + nang * nang;
+  copy(s, G.par, n1);
+  auto at = [&](const float* g) { return s + (g - G.par); };
+  T.par = s;
+  T.fr = at(G.fr); T.dfim = at(G.dfim); T.dfimofr = at(G.dfimofr);
+  T.dfimfr = at(G.dfimfr); T.zpifr = at(G.zpifr); T.fr5 = at(G.fr5);
+  T.cofrm4 = at(G.cofrm4); T.rhowg = at(G.rhowg); T.flmax = at(G.flmax);
+  T.dfimsim = at(G.dfimsim); T.fr45 = at(G.fr45);
+  T.dfimfr2 = at(G.dfimfr2);
+  T.th = at(G.th); T.sinth = at(G.sinth); T.costh = at(G.costh);
+  T.wmat = at(G.wmat);
+  float* q = s + n1;
+  copy(q, G.wtauhf, JTOT);
+  T.wtauhf = q;
+  q += JTOT;
+  copy(q, G.af11, 26 * ml);                    // af11, then rnl
+  T.af11 = q;
+  T.rnl = q + ml;
+  q += 26 * ml;
+  if (OPTS) {
+    copy(q, G.gc, NGCSTAGE * G.nwav);
+    T.gc = q;
+    q += NGCSTAGE * G.nwav;
+  }
+  int* qi = reinterpret_cast<int*>(q);
+  for (int i = tid; i < 9 * ml + 8; i += nth) qi[i] = G.ic[i];
+  T.ic = qi; T.ip = qi + ml; T.ip1 = qi + 2 * ml; T.im = qi + 3 * ml;
+  T.im1 = qi + 4 * ml; T.ikm = qi + 5 * ml; T.ikm1 = qi + 6 * ml;
+  T.ikp = qi + 7 * ml; T.ikp1 = qi + 8 * ml; T.shifts = qi + 9 * ml;
+  const int lane = threadIdx.x & (RL - 1);
+  T.nfp = nfre | 1;
+  T.dk = RL / nfre;
+  T.dm = RL - T.dk * nfre;
+  T.k0 = lane / nfre;
+  T.m0 = lane - T.k0 * nfre;
+  __syncthreads();
+  return T;
+}
+
+// The grid: one or more blocks an SM, each of ``blockDim.x/32`` warps;
+// warp w of block b steps the row groups RPW·i .. RPW·i + RPW − 1, i =
+// b·warps + w, then every gridDim.x·warps groups on; lanes r·RL .. r·RL +
+// RL − 1 take row RPW·i + r.  Each warp's rows have their own working sets
+// after the block's tables
+template <bool FULL, bool COMPACT, bool OPTS, bool EXT = false,
+          bool JAN = false>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 1)
+implsch_kernel(Layout Lo, const float* __restrict__ env2d,
+               const float* __restrict__ scal, float* __restrict__ out,
+               float* __restrict__ xllws, Tabs G, int nrows, int rstride) {
+  extern __shared__ float smem[];
+  const Tabs T = stage_tables<OPTS>(G, smem);
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int sub = (threadIdx.x & 31) / RL;
+  const int lane = threadIdx.x & (RL - 1);
+  const Work W = work_at(
+      smem + table_floats<OPTS>(G.nang, G.nfre, G.mlsthg, G.nwav)
+          + (long)(RPW * warp + sub) * rstride,
+      T);
+  const long groups = ((long)nrows + RPW - 1) / RPW;
+  for (long i = (long)blockIdx.x * warps + warp; i < groups;
+       i += (long)gridDim.x * warps) {
+    const long p = RPW * i + sub;
+    const bool live = p < nrows;
+    row_step<FULL, COMPACT, OPTS, EXT, JAN>(Lo, env2d, scal, out, xllws, T,
+                                            W, lane, live ? p : p - sub, live,
+                                            nrows);
   }
 }
 
@@ -1845,18 +2176,44 @@ template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN>
 int launch(const Layout& Lo, const float* env2d, const float* scal,
            float* out, float* xllws, const Tabs& T, int nrows,
            cudaStream_t stream) {
-  const size_t smem = (size_t)WARPS * work_floats(T.nang, T.nfre, T.mlsthg,
-                                                  FULL) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (nrows + WARPS - 1) / WARPS;
-  implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN>
-      <<<blocks, 32 * WARPS, smem, stream>>>(Lo, env2d, scal, out, xllws, T,
-                                             nrows);
+  auto* kernel = implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN>;
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // as many warps a block as shared memory holds, at most MAX_WARPS; the
+  // rows lie 16 banks apart (the stride an odd number of 16-float halves)
+  // where that costs no warp: with one row a warp it made the default
+  // instantiation 7-9 % faster at 36×36 (PERF.md), and it keeps two rows
+  // a warp apart
+  const long tb = 4L * table_floats<OPTS>(T.nang, T.nfre, T.mlsthg, T.nwav);
+  const int rf = row_floats(T.nang, T.nfre, T.mlsthg, FULL);
+  auto fit = [&](int stride) {
+    const long n = (optin - tb) / (4L * RPW * stride);
+    return (int)(n < MAX_WARPS ? n : MAX_WARPS);
+  };
+  const int rstride = fit(rf + 16) < fit(rf) ? rf : rf + 16;
+  const int warps = fit(rstride);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(tb + 4L * RPW * rstride * warps);
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      32 * warps, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long groups = ((long)nrows + RPW - 1) / RPW;
+  const long need = (groups + warps - 1) / warps;
+  const long fill = (long)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(need < fill ? need : fill);
+  if (blocks == 0) return (int)cudaSuccess;
+  kernel<<<blocks, 32 * warps, smem, stream>>>(Lo, env2d, scal, out, xllws, T,
+                                               nrows, rstride);
   return (int)cudaGetLastError();
 }
 
@@ -1877,7 +2234,7 @@ extern "C" int implsch_launch(
     float* out, float* xllws, const float* tab, const int* itab, int nrows,
     int nang, int nfre, int nfr, int nred, int mlsthg, int niab, int nwav,
     int opts, void* stream) {
-  if (nang > 32 * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre
+  if (nang > RL * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre
       || nred < 1 || nred > nfre || (full && nfre > 64) || nwav < 2
       || (nfr < nfre && (!tin || !tout)))
     return (int)cudaErrorInvalidValue;
@@ -1898,7 +2255,7 @@ extern "C" int implsch_launch(
   T.wmat = t; t += nang * nang;
   T.swellft = t; t += niab;
   T.wtauhf = t; t += JTOT;
-  T.gc = t; t += NGCTAB * nwav;
+  T.gc = T.gcx = t; t += NGCTAB * nwav;
   T.af11 = t; t += mlsthg;
   T.rnl = t; t += 25 * mlsthg;
   T.xk_ext = t;
@@ -1915,11 +2272,19 @@ extern "C" int implsch_launch(
   T.shifts = it;
   T.dfimfr2 = ft[T_DFIMFR2];
   T.cideac = T.xk_ext + (mlsthg - nfre);
+  T.nfp = T.dk = T.dm = T.k0 = T.m0 = 0;       // set in each block
 
   const Layout Lo{fin, fout, f_ps, f_bs, tin, tout, nfr};
   const cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(F, C, O, E, J) \
   launch<F, C, O, E, J>(Lo, env2d, scal, out, xllws, T, nrows, s)
+#ifdef IMPLSCH_MINIMAL_SRL
+  // a build of tools/implsch_stages.py: the two instantiations it times
+  if (full || f_bs != 1 || (opts & OPT_EXT))
+    return (int)cudaErrorInvalidValue;
+  return opts ? LAUNCH(false, false, true, false, false)
+              : LAUNCH(false, false, false, false, false);
+#else
 #define MODES(O, E, J)                                                    \
   if (f_bs != 1)                                                          \
     return full ? LAUNCH(true, true, O, E, J) : LAUNCH(false, true, O, E, J); \
@@ -1931,5 +2296,6 @@ extern "C" int implsch_launch(
   if (opts) { MODES(true, false, false); }
   MODES(false, false, false);
 #undef MODES
+#endif
 #undef LAUNCH
 }

@@ -277,16 +277,22 @@ def provider(forcing_at, idelpro: float):
     return at
 
 
-def _physics_step(kw: dict, device, full: bool, forcing=None, phys=None):
-    """One physics step on every SRL row of ``build(kw, device, phys)``,
-    after two plain steps under the golden forcing — with
+def tile_rows(t, n: int, dim: int = 0):
+    """``t`` with its entries along ``dim`` repeated in order and cut to
+    ``n`` (None stays None)."""
+    if t is None:
+        return None
+    reps = -(-n // t.shape[dim])
+    return torch.cat([t] * reps, dim=dim).narrow(dim, 0, n).contiguous()
+
+
+def physics_state(kw: dict, device, forcing=None, phys=None, rows=None):
+    """The state a physics step of ``build(kw, device, phys)`` starts
+    from after two plain steps under the golden forcing — with
     ``forcing(ms)``'s keywords of :func:`golden_forcing`, or by default
     with sea ice on a fifth of the points (above and below the ice
-    threshold) — through the kernel and through the plain version on
-    ``device``: (kernel result, plain result, ``margin_at`` of
-    :func:`full_errors` on the step's inputs, the per-row decision
-    margins in float64 (:func:`decision_margins`, empty without such
-    decisions), each result (f_srl, rows, tail[, xllws])."""
+    threshold): (setup, (f_srl, env2d, scal, tail)), every SRL row, or
+    ``rows`` of them, the rows repeated in order (:func:`tile_rows`)."""
     ms = build(kw, device, phys)
     n = ms.n_real
     if forcing is None:
@@ -298,13 +304,30 @@ def _physics_step(kw: dict, device, full: bool, forcing=None, phys=None):
     m = FastWaveModel(ms, provider(golden_forcing(n, **f_kw), 900.0),
                       START, plain=True)
     m.advance(2)
-    scal = torch.cat([m._frc6, m._denv, m._stress6])
+    args = (m._f_srl, m._env2d, torch.cat([m._frc6, m._denv, m._stress6]),
+            m._tail)
+    if rows is not None:
+        args = (tile_rows(args[0], rows), tile_rows(args[1], rows, 1),
+                tile_rows(args[2], rows, 1), tile_rows(args[3], rows))
+    return ms, args
+
+
+def _physics_step(kw: dict, device, full: bool, forcing=None, phys=None,
+                  rows=None):
+    """One physics step on the SRL rows of :func:`physics_state` (every
+    row, or ``rows`` of them) through the kernel and through the plain
+    version on ``device``: (kernel result, plain result, ``margin_at`` of
+    :func:`full_errors` on the step's inputs, the per-row decision
+    margins in float64 (:func:`decision_margins`, empty without such
+    decisions), each result (f_srl, rows, tail[, xllws])."""
+    ms, (f_srl, env2d, scal, tail) = physics_state(kw, device, forcing,
+                                                   phys, rows)
     cfg = ms.phys if full else ipk.minimal_config(ms.phys)
     rows = dict(nang=ms.tb.nang, nfre_red=ms.tb.nfre_red, full=full)
 
     def fresh():
-        tail = None if m._tail is None else m._tail.clone()
-        return m._f_srl.clone(), m._env2d, scal, tail
+        return (f_srl.clone(), env2d, scal,
+                None if tail is None else tail.clone())
     want = ipk.implsch_srl_plain(cfg, *fresh(), **rows)
     counter = "full_launches" if full else "launches"
     n0 = getattr(ipk.implsch_srl, counter)
@@ -489,14 +512,15 @@ def point_errors(got, want) -> torch.Tensor:
 
 def physics_kernel_vs_plain(kw: dict, device, *, forcing=None, phys=None,
                             gc_width: float = 0.0, peak_width: float = 0.0,
-                            off_tol: float = 0.0) -> tuple:
-    """One minimal-mode physics step (see :func:`_physics_step`): kernel
-    against plain, (spectrum, stress) as max|k−p| over each field's
-    maximum, and the number of rows held out: above ``off_tol`` on a
-    gravity-capillary decision edge or a peak tie (:func:`held` within
-    ``gc_width`` and ``peak_width``)."""
+                            off_tol: float = 0.0, rows=None) -> tuple:
+    """One minimal-mode physics step (see :func:`_physics_step`, on
+    ``rows`` rows if given): kernel against plain, (spectrum, stress) as
+    max|k−p| over each field's maximum, and the number of rows held out:
+    above ``off_tol`` on a gravity-capillary decision edge or a peak tie
+    (:func:`held` within ``gc_width`` and ``peak_width``)."""
     got, want, _, margins = _physics_step(kw, device, full=False,
-                                          forcing=forcing, phys=phys)
+                                          forcing=forcing, phys=phys,
+                                          rows=rows)
     keep = ~held(margins, dict(gc=gc_width, peak=peak_width),
                  point_errors(got[1], want[1]), off_tol)
     return (spectrum_error(got, want, keep),
@@ -518,12 +542,13 @@ def compact_inputs(model: FastWaveModel):
 def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
                             width: float, forcing=None, phys=None,
                             gc_width: float = 0.0, peak_width: float = 0.0,
-                            off_tol: float = 0.0) -> dict:
+                            off_tol: float = 0.0, rows=None) -> dict:
     """The compact entry (kernel C) against its plain version on the state
     of ``build(kw, device, phys)`` after two plain steps under the golden
-    forcing (with ``forcing(ms)``'s keywords, if given): the spectrum
-    error, the largest output-row error, and the xllws bins that differ on
-    and off the mask's edge (:func:`full_errors` with ``width``), over the
+    forcing (with ``forcing(ms)``'s keywords, if given), on every point or
+    ``rows`` of them (the points repeated in order): the spectrum error,
+    the largest output-row error, and the xllws bins that differ on and
+    off the mask's edge (:func:`full_errors` with ``width``), over the
     points off a decision edge (:func:`held`)."""
     ms = build(kw, device, phys)
     f_kw = forcing(ms) if forcing is not None else {}
@@ -532,6 +557,8 @@ def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
     m.advance(2)
     cfg = ms.phys if full else ipk.minimal_config(ms.phys)
     args = compact_inputs(m)
+    if rows is not None:
+        args = tuple(tile_rows(a, rows, a.dim() - 1) for a in args)
     n0 = ipk.implsch_compact.launches
     got = ipk.implsch_compact(cfg, *args, full=full)
     if got[0].is_cuda and ipk.implsch_compact.launches != n0 + 1:
@@ -570,16 +597,17 @@ def compact_kernel_vs_plain(kw: dict, device, *, full: bool,
 def full_kernel_vs_plain(kw: dict, device, *, width: float, forcing=None,
                          phys=None, gc_width: float = 0.0,
                          peak_width: float = 0.0,
-                         off_tol: float = 0.0) -> dict:
-    """One full-mode physics step (see :func:`_physics_step`): kernel
-    against plain.  Returns the spectrum error, {row name: error} over the
+                         off_tol: float = 0.0, rows=None) -> dict:
+    """One full-mode physics step (see :func:`_physics_step`, on ``rows``
+    rows if given): kernel against plain.  Returns the spectrum error, {row name: error} over the
     SCAL_OUT_FULL rows, and the xllws bins that differ on and off the
     mask's edge (:func:`full_errors` with ``width``) with the largest
     |margin| among them, over the rows off a decision edge (:func:`held`,
     rows above ``off_tol`` within ``gc_width`` or ``peak_width``;
     ``held`` counts them)."""
     got, want, margin_at, margins = _physics_step(kw, device, full=True,
-                                                  forcing=forcing, phys=phys)
+                                                  forcing=forcing, phys=phys,
+                                                  rows=rows)
     n = got[0].shape[0]
     keep = ~held(margins, dict(gc=gc_width, peak=peak_width),
                  point_errors(got[1], want[1]), off_tol)

@@ -95,7 +95,7 @@ PAR_NAMES = (
     "one_m_ssdsc6",
     "flmin", "cithrsh", "cithrsh_tail", "bathymax", "dkmax", "depthtrs",
     "rowaterm1", "zpi4gm2", "sbot_c", "abmin", "delabm1", "enh_min",
-    "enh_max",
+    "enh_max", "nsdsnth",
     # full mode only
     "deltm", "zpi4gm1", "coefa", "coefx", "wsemean_min",
     "lwamrsetci", "zcithrs", "cithrsh_inv", "zmaxexp", "efd_fac", "ffd_fac",
@@ -213,6 +213,7 @@ def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
         sbot_c=-2.0 * 0.038 * c.GM1, abmin=tables.ABMIN,
         delabm1=tables.IAB / (tables.ABMAX - tables.ABMIN),
         enh_min=dia_mod.ENH_MIN, enh_max=dia_mod.ENH_MAX,
+        nsdsnth=(cfg.sat_indices.shape[1] - 1) // 2,
         deltm=1.0 / cfg.idelt, zpi4gm1=c.ZPI4GM1,
         coefa=sp.FRTAIL * tb.delth * math.sqrt(c.G) / c.ZPI,
         coefx=sp.WP1TAIL * tb.delth * fr[-1] ** 2 * c.ZPI / math.sqrt(c.G),
@@ -274,6 +275,14 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
              tb.dfim_sim, np.asarray(tb.fr) ** 4.5, tb.dfimfr2]
     wmat = sdissip_mod.saturation_matrix(tb.nang, cfg.sat_indices,
                                          cfg.sat_weights)
+    # the kernel sums W(k, j) over j = k−NSDSNTH..k+NSDSNTH only
+    ns = (cfg.sat_indices.shape[1] - 1) // 2
+    off = (np.arange(tb.nang)[None, :] - np.arange(tb.nang)[:, None]) \
+        % tb.nang
+    if 2 * ns + 1 > tb.nang or np.any(
+            wmat[np.minimum(off, tb.nang - off) > ns] != 0.0):
+        raise ValueError("the physics kernel sums the saturation over "
+                         "2·NSDSNTH+1 directions")
     ftab = np.concatenate(
         [_parameters(cfg)] + [np.asarray(a, np.float64) for a in ftabs]
         + [tb.th, tb.sinth, tb.costh, wmat.reshape(-1), swellft,
@@ -282,6 +291,15 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
            np.asarray(dia.rnl, np.float64).reshape(-1),
            dia_mod.enhancement_xk(dia, tb),
            sdice_mod.load_cideac()["cideac"].reshape(-1)])
+    # the kernel reads the target bins of each MC before it writes them
+    nfre = tb.nfre
+    for j in range(int(dia.mlsthg)):
+        t = [j] if j < nfre else []
+        t += [int(x) - 1 for x in (dia.ikm[j], dia.ikm1[j], dia.ikp[j],
+                                   dia.ikp1[j]) if 1 <= x <= nfre]
+        if len(set(t)) != len(t):
+            raise ValueError("the physics kernel takes DIA steps whose "
+                             "target frequencies differ")
     shifts = dia_mod.build_dia_projection(dia).shifts
     itab = np.concatenate(
         [dia.ic, dia.ip, dia.ip1, dia.im, dia.im1, dia.ikm, dia.ikm1,

@@ -8,7 +8,8 @@ sound kernels and for each entry of MUTATIONS (one text change in one
 kernel source) it copies the package, chip_smoke.py and the golden
 statistics into a temporary directory outside the repository, applies the
 change there, builds it (the unchanged sources' libraries are copied from
-the sound build) and reads the checks of chip_smoke.py that cover
+the sound build; the copies build in parallel) and then, one copy at a
+time, reads the checks of chip_smoke.py that cover
 the changed code, with their limits: for ``full`` (kernel B's full mode)
 the golden and shallow physics steps, the golden statistics.log
 trajectory and the O320 slice; for ``options`` (kernel B with the
@@ -21,8 +22,11 @@ retry mask, the golden currents trajectory and the O320 options pass; for
 ``cases.o320_legacy``; for ``advect`` (kernel A without currents: the
 rebased taps, the staged windows and the OBS route) the golden grid's
 pass (obstructions) and the shallow grid's (open water), the golden
-trajectory and the O320 pass.  The sound copy reads them all.  Prints one JSON
-line per copy: the readings and the checks it fails.
+trajectory and the O320 pass; for ``minimal`` (kernel B's default
+minimal mode, the main path between output dates) the golden and shallow
+physics steps, the 4-step golden trajectory and the O320 minimal slice.
+The sound copy reads them all.  Prints one JSON line per copy: the
+readings and the checks it fails.
 """
 
 import json
@@ -37,19 +41,21 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join("ecwam_tpu_torch", "csrc")
 IMPLSCH, ADVECT = "implsch.cu", "advect.cu"
 
+# the kinds of check a copy is read against (see the module docstring)
+KINDS = ("full", "options", "currents", "legacy", "advect", "minimal")
+
 # name: (checks, source, text, replacement); the sound copy reads every
 # kind of check
 MUTATIONS = {
-    "sound": (("full", "options", "currents", "legacy", "advect"), None,
-              None, None),
+    "sound": (KINDS, None, None, None),
     # the FLMAX cap's term left out of the flux source
     "no_cap_flux": (("full",), IMPLSCH,
         "if (FULL) W.fld[b] = P[P_DELTM] * fminf(T.flmax[m] - f, 0.f);",
         "if (FULL) W.fld[b] = 0.f;"),
     # the Stokes drift's f^-5 tail term left out
     "no_stokes_tail": (("full",), IMPLSCH,
-        "us = warp_sum(us) + P[P_STOKES_C] * warp_sum(ut);",
-        "us = warp_sum(us) + 0.f * warp_sum(ut);"),
+        "us = row_sum(us) + P[P_STOKES_C] * row_sum(ut);",
+        "us = row_sum(us) + 0.f * row_sum(ut);"),
     # PHIWA without the tail's energy flux PHIHF
     "no_phihf": (("full",), IMPLSCH,
         "phiwa += f1dcos2 * (aird * P[P_ZPI4GM1] * T.fr5[mij]) * sqrtz0og * acc;",
@@ -138,6 +144,41 @@ MUTATIONS = {
     "strain_row": (("legacy",), IMPLSCH,
         "if (sume > P[P_F1LIM]) part += (e * e) * sume * T.dfim[m];",
         "if (sume > P[P_F1LIM]) part += e * sume * T.dfim[m];"),
+    # SDISSIP's maximum saturation bth0 replaced by the bin's own
+    "sdissip_bth0_own": (("minimal",), IMPLSCH,
+        "const float d0 = W.tm[m];",
+        "const float d0 = zc2 * P[P_SSDSC6] * (t * t);"),
+    # one DIA target (ikp1) dropped
+    "dia_ikp1_dropped": (("minimal",), IMPLSCH,
+        "const bool cp1 = tp1 >= 0 && tp1 < nfre;",
+        "const bool cp1 = false;"),
+    # SINPUT's sheltering term tws set to 0
+    "no_sheltering": (("minimal",), IMPLSCH,
+        "const float tws = fabsf(P[P_TAUWSHELTER]);",
+        "const float tws = 0.f;"),
+    # TAUT_Z0 one Newton step short
+    "taut_z0_short": (("minimal",), IMPLSCH,
+        "  for (int it = 0; it < NITER; ++it) {\n"
+        "    const float x = fmaxf(tauwact / tauold, xmin);",
+        "  for (int it = 0; it < NITER - 1; ++it) {\n"
+        "    const float x = fmaxf(tauwact / tauold, xmin);"),
+    # TAUT_Z0 stopped after half its Newton steps
+    "taut_z0_half": (("minimal",), IMPLSCH,
+        "  for (int it = 0; it < NITER; ++it) {\n"
+        "    const float x = fmaxf(tauwact / tauold, xmin);",
+        "  for (int it = 0; it < NITER / 2; ++it) {\n"
+        "    const float x = fmaxf(tauwact / tauold, xmin);"),
+    # the last direction (k = nang−1) skipped in the update
+    "update_last_direction": (("minimal",), IMPLSCH,
+        "    const float temp = usfm * (T.cofrm4[m] * P[P_DELT]);",
+        "    if (k == T.nang - 1) return;\n"
+        "    const float temp = usfm * (T.cofrm4[m] * P[P_DELT]);"),
+    # the row sums' butterfly started one step too wide: with two rows a
+    # warp it adds the other row's lanes, with one row a warp each lane's
+    # own value (out of range), so the sums double
+    "row_sum_both_rows": (("minimal",), IMPLSCH,
+        "  for (int o = RL / 2; o > 0; o >>= 1) v += __shfl_xor_sync(ALL, v, o, RL);",
+        "  for (int o = RL; o > 0; o >>= 1) v += __shfl_xor_sync(ALL, v, o);"),
 }
 
 
@@ -149,18 +190,40 @@ def readings(kinds) -> dict:
     out, fails = {}, []
     dev = torch.device("cuda")
     _build.build()                  # every library at once, in parallel
-    if "full" in kinds:
-        _full(dev, out, fails)
-    if "options" in kinds:
-        _options(dev, out, fails)
-    if "currents" in kinds:
-        _currents(dev, out, fails)
-    if "legacy" in kinds:
-        _legacy(dev, out, fails)
-    if "advect" in kinds:
-        _advect(dev, out, fails)
+    for kind in KINDS:
+        if kind in kinds:
+            CHECKS[kind](dev, out, fails)
     out["fails"] = fails
     return out
+
+
+def _minimal(dev, out, fails):
+    """Kernel B's default minimal mode: the golden and shallow physics
+    steps, the 4-step golden trajectory and the O320 minimal slice."""
+    import chip_smoke as cs
+    from ecwam_tpu_torch.model import cases
+    for name, kw in (("golden", cases.golden_kw()),
+                     ("shallow", cases.shallow_kw())):
+        spec, stress, _ = cases.physics_kernel_vs_plain(kw, dev)
+        out[f"{name}_minimal"] = dict(spec=spec, stress=stress)
+        if spec > cs.PHYS_TOL:
+            fails.append(f"{name} minimal spectrum")
+        if stress > cs.STRESS_TOL:
+            fails.append(f"{name} minimal stress")
+    err, _ = cases.golden_kernel_vs_plain(dev)
+    out["golden_trajectory"] = dict(err)
+    if (err.pop("fl1") > cs.TRAJ_TOL
+            or max(err.values()) > cs.TRAJ_STRESS_TOL):
+        fails.append("golden trajectory")
+    ms, model = cs.o320_model(dev)
+    model.advance(4)
+    r = cs.slice_check(ms, model, dev, False, above_cut=0.0)
+    out["o320_minimal"] = dict(spec=r["spec_rel"], stress=r["stress_rel"],
+                               n_off=r["n_off"], n_tie=r["n_tie"])
+    try:
+        cs.check_slice(r, False, "o320 minimal")
+    except AssertionError:
+        fails.append("o320 minimal slice")
 
 
 def _full(dev, out, fails):
@@ -340,6 +403,37 @@ def _legacy(dev, out, fails):
         fails.append("o320 legacy slice")
 
 
+CHECKS = dict(full=_full, options=_options, currents=_currents,
+              legacy=_legacy, advect=_advect, minimal=_minimal)
+
+
+def prepare(name: str, build_dir: str) -> str:
+    """A temporary tree for copy ``name``: the package with its text
+    change, the sound build's libraries, chip_smoke.py and the golden
+    statistics."""
+    kinds, source, text, repl = MUTATIONS[name]
+    tmp = tempfile.mkdtemp(prefix=f"kernel_{name}_")
+    shutil.copytree(os.path.join(HERE, "ecwam_tpu_torch"),
+                    os.path.join(tmp, "ecwam_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(build_dir, os.path.join(tmp, "build", "ecwam_tpu_torch"))
+    shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
+    os.makedirs(os.path.join(tmp, "tests", "golden"))
+    shutil.copy(os.path.join(HERE, "tests", "golden",
+                             "statistics_golden.json"),
+                os.path.join(tmp, "tests", "golden"))
+    if source is not None:
+        path = os.path.join(tmp, CSRC, source)
+        with open(path) as f:
+            src = f.read()
+        if src.count(text) != 1:
+            raise RuntimeError(f"{name}: the text to change is not in the "
+                               "kernel exactly once")
+        with open(path, "w") as f:
+            f.write(src.replace(text, repl))
+    return tmp
+
+
 def main():
     if sys.argv[1:2] == ["--readings"]:
         sys.path.insert(0, os.getcwd())
@@ -351,38 +445,37 @@ def main():
     sys.path.insert(0, HERE)
     from ecwam_tpu_torch import _build
     _build.build()
-    for name in names:
-        kinds, source, text, repl = MUTATIONS[name]
-        tmp = tempfile.mkdtemp(prefix=f"kernel_{name}_")
-        try:
-            shutil.copytree(os.path.join(HERE, "ecwam_tpu_torch"),
-                            os.path.join(tmp, "ecwam_tpu_torch"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            shutil.copytree(_build.BUILD_DIR,
-                            os.path.join(tmp, "build", "ecwam_tpu_torch"))
-            shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
-            os.makedirs(os.path.join(tmp, "tests", "golden"))
-            shutil.copy(os.path.join(HERE, "tests", "golden",
-                                     "statistics_golden.json"),
-                        os.path.join(tmp, "tests", "golden"))
-            if source is not None:
-                path = os.path.join(tmp, CSRC, source)
-                with open(path) as f:
-                    src = f.read()
-                if src.count(text) != 1:
-                    raise RuntimeError(f"{name}: the text to change is not "
-                                       "in the kernel exactly once")
-                with open(path, "w") as f:
-                    f.write(src.replace(text, repl))
+    trees = {}
+    try:
+        for name in names:
+            trees[name] = prepare(name, _build.BUILD_DIR)
+        # every copy's changed library, built in parallel on the host's
+        # cores, then the readings one copy at a time on the card
+        build = [sys.executable, "-c",
+                 "from ecwam_tpu_torch import _build; _build.build()"]
+        waiting, running = list(names), []
+        while waiting or running:
+            while waiting and len(running) < (os.cpu_count() or 4):
+                name = waiting.pop(0)
+                running.append((name, subprocess.Popen(
+                    build, cwd=trees[name], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+            name, p = running.pop(0)
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"{name}: build failed\n{log[-3000:]}")
+        for name in names:
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--readings",
-                 ",".join(kinds)],
-                cwd=tmp, capture_output=True, text=True, timeout=1200)
+                 ",".join(MUTATIONS[name][0])],
+                cwd=trees[name], capture_output=True, text=True,
+                timeout=1200)
             if res.returncode != 0:
                 raise RuntimeError(f"{name}:\n{res.stderr[-3000:]}")
             line = json.loads(res.stdout.strip().splitlines()[-1])
             print(json.dumps(dict(kernel=name, **line)), flush=True)
-        finally:
+    finally:
+        for tmp in trees.values():
             shutil.rmtree(tmp, ignore_errors=True)
 
 

@@ -273,6 +273,75 @@ def test_legacy_physics_kernels_match_plain_on_card(cuda, name):
         assert k["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
 
 
+# Kernel B/C's option sets on the shallow grid's state: the default
+# instantiation, OPTS (cy50r1 under polar ice), EXT (ISNONLIN=2 and SDICE1)
+# and EXT with JAN (iphys=0); with the two modes and the two layouts, all
+# 16 instantiations
+INSTANTIATIONS = {
+    "default": (shallow_kw, {}, None),
+    "opts": (lambda: shallow_kw(options=True), {}, cases.shallow_ice),
+    "ext": (lambda: dict(shallow_kw(), isnonlin=2), dict(lciwa1=True),
+            cases.shallow_ice),
+    "jan": (lambda: dict(shallow_kw(), iphys=0), {}, cases.shallow_ice),
+}
+# a row count that is a multiple of neither the two rows a warp takes nor
+# the warps of a block (the grid's rows repeated in order: a grid row held
+# out counts once per copy, hence at most 2)
+ODD_ROWS = 1000 + 13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(INSTANTIATIONS))
+@pytest.mark.parametrize("full", [False, True])
+def test_each_instantiation_matches_plain_on_an_odd_row_count(cuda, name,
+                                                              full):
+    make, phys, frc = INSTANTIATIONS[name]
+    hold = dict(forcing=frc, phys=phys, gc_width=GC_WIDTH,
+                peak_width=PEAK_WIDTH, off_tol=STRESS_TOL, rows=ODD_ROWS)
+    if full:
+        r = full_kernel_vs_plain(make(), cuda, width=MASK_WIDTH, **hold)
+        assert r["n"] == ODD_ROWS
+        assert r["spec"] <= PHYS_TOL and r["held"] <= 2
+        for key, e in r["rows"].items():
+            assert e <= FULL_ROW_TOL, key
+        assert r["off_edge"] == 0
+        assert r["xllws"] <= XLLWS_SHARE * r["bins"]
+    else:
+        spec, stress, held = physics_kernel_vs_plain(make(), cuda, **hold)
+        assert spec <= PHYS_TOL and stress <= STRESS_TOL and held <= 2
+    c = compact_kernel_vs_plain(make(), cuda, full=full, width=MASK_WIDTH,
+                                **hold)
+    assert c["n"] == ODD_ROWS and c["held"] <= 2
+    assert c["spec"] <= PHYS_TOL and c["off_edge"] == 0
+    assert c["rows"] <= (FULL_ROW_TOL if full else STRESS_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(INSTANTIATIONS))
+def test_two_launches_give_identical_bits_and_count_once(cuda, name):
+    """Kernel B twice on one input, in both modes: equal bit for bit (no
+    atomics, a fixed order of every sum); each call adds exactly one to
+    its launch counter."""
+    make, phys, frc = INSTANTIATIONS[name]
+    ms, args = cases.physics_state(make(), cuda, frc, phys, rows=ODD_ROWS)
+    kw = dict(nang=ms.tb.nang, nfre_red=ms.tb.nfre_red)
+    for full in (False, True):
+        cfg = ms.phys if full else ipk.minimal_config(ms.phys)
+        runs = []
+        for _ in range(2):
+            n0 = (ipk.implsch_srl.launches, ipk.implsch_srl.full_launches)
+            runs.append(ipk.implsch_srl(
+                cfg, args[0].clone(), args[1], args[2],
+                None if args[3] is None else args[3].clone(), full=full,
+                **kw))
+            n1 = (ipk.implsch_srl.launches, ipk.implsch_srl.full_launches)
+            assert n1 == ((n0[0], n0[1] + 1) if full
+                          else (n0[0] + 1, n0[1]))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", oc.CLASSES)
 def test_opclass_kernel_matches_plain_on_card(cuda, name):

@@ -81,3 +81,22 @@ def test_frcut_tie_marks_the_rows_whose_cut_can_flip():
     away = tie > 1e-3
     assert int(away.sum()) > 0.9 * f_srl.shape[0]
     assert torch.equal(cuts[torch.float32][away], cuts[torch.float64][away])
+
+
+def test_physics_state_repeats_the_rows_in_order():
+    """``cases.physics_state(rows=n)`` repeats the SRL rows in order, so
+    that the card tests reach a row count that is a multiple of neither
+    the kernel's rows a warp nor its warps a block; the kernel-vs-plain
+    helpers take it (on the CPU both sides run the plain version)."""
+    from ecwam_tpu_torch.model import cases
+    _, whole = cases.physics_state(cases.shallow_kw(), "cpu")
+    n = whole[0].shape[0]
+    _, cut = cases.physics_state(cases.shallow_kw(), "cpu", rows=n + 13)
+    assert cut[0].shape[0] == n + 13 and cut[3] is None
+    assert torch.equal(cut[0][:n], whole[0])
+    assert torch.equal(cut[0][n:], whole[0][:13])
+    for i in (1, 2):
+        assert torch.equal(cut[i][:, n:], whole[i][:, :13])
+    spec, stress, held = cases.physics_kernel_vs_plain(
+        cases.shallow_kw(), "cpu", rows=n + 13)
+    assert spec == 0.0 and stress == 0.0 and held == 0
