@@ -63,7 +63,25 @@ Phases (any failure raises and the script exits non-zero):
   7. kernel D, the op-class micro-benchmark (``tools/opclass.py``): each of
      the nine classes at K=8 over 16,384 lanes against its plain version,
      then timed at the reference's size (K=64 over 131,072 lanes);
-  8. one JSON line with each kernel's launches, errors, times and bound;
+  8. the command line's run loop (``cli.main.run_model``, what ``python -m
+     ecwam_tpu_torch run --config C --rundir R`` runs), in-process so that
+     the launch counters can be read around it (``cli.checks``): the 12°
+     YAML of tests/test_config_cli.py, 3 h, with every output field that
+     outcontrol knows and the catalog computes but the swell trains (61),
+     hourly from 1 h, GRIB output, the second-order correction and a 2 h
+     restart, through the kernels and through the plain versions on the
+     card (statistics.log within CLI_STATS_TOL), and resumed from its 2 h
+     restart (the 3 h restart equal bit for bit); then O320 36×36/29,
+     idelpro 450 s, idelt 900 s, 6 h of the reference's synthetic winds
+     hourly from a forcing file, the 61 fields hourly in GRIB, restarts at
+     3 h and 6 h: the launches must equal what the date loop implies
+     (``checks.expected_launches``), the output date's split (full-mode
+     physics, products, second order, copies to the host, the
+     statistics/GRIB write) and the peak allocation are logged, the second
+     order is timed alone on 65,536 points, the products of 32,768 points
+     are held against float64 on the CPU, and the run resumed from its 3 h
+     restart must end bit for bit equal;
+  9. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -89,6 +107,17 @@ gives the sound readings and those of deliberately broken kernels):
                                   CHECKCFL violation count equal
   kernel D                        equal for the layout classes, 1e-6 of
                                   max for the others
+  CLI statistics.log, kernels     each average/minimum/maximum within
+  vs plain (12°)                  CLI_STATS_TOL of the entry's largest
+                                  magnitude
+  resumed CLI runs                restarts equal bit for bit
+  products on the card vs float64 each field within PRODUCT_TOL of its
+  on the CPU (O320, 32,768 pts)   largest magnitude (directions on the
+                                  circle); points over it held out only
+                                  within EDGE_WIDTH of a float32 decision
+                                  edge in float64 (``checks.
+                                  products_vs_f64``), at most EDGE_SHARE
+                                  of the points a field
 Physics rows whose FRCUTINDEX argument lies within TIE_WIDTH of a
 rounding tie (x.5, in float64) are held out of the physics tolerances:
 the cut index, and with it the stress, may round the other way in either
@@ -127,6 +156,12 @@ GC_SHARE = 1e-3
 PEAK_WIDTH = 1e-5
 PEAK_SHARE = 1e-3
 PHYS_ROWS = 32768
+CLI_STATS_TOL = 1e-5
+PRODUCT_TOL = 2e-5
+EDGE_WIDTH = 1e-4
+EDGE_SHARE = 1e-3
+PRODUCT_ROWS = 32768
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -1011,6 +1046,231 @@ def opclass_phase(dev) -> list:
     return out
 
 
+def cli_run(cfg_text, rundir, dev, *, plain=False, quiet=True):
+    """``python -m ecwam_tpu_torch run``'s loop in-process: (model, log
+    entries, output timers, the kernels' launches in the run, wall s)."""
+    import torch
+    from ecwam_tpu_torch.cli import main as cli
+    from ecwam_tpu_torch.config.schema import RunConfig
+    from ecwam_tpu_torch.device import synchronize
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    synchronize(dev)
+    pcu.advect.launches = 0
+    ipk.implsch_srl.launches = ipk.implsch_srl.full_launches = 0
+    ipk.implsch_compact.launches = 0
+    timers = cli.OutputTimers()
+    t0 = time.perf_counter()
+    model, slog = cli.run_model(RunConfig.from_yaml(cfg_text), rundir,
+                                device=dev, plain=plain, quiet=quiet,
+                                timers=timers)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    n = dict(launch_counters(), implsch_compact=ipk.implsch_compact.launches)
+    return model, slog.entries, timers, n, wall
+
+
+def _check_launches(what, got, model, cfg_text, plain):
+    from ecwam_tpu_torch.cli import checks
+    from ecwam_tpu_torch.config.schema import RunConfig
+    want = (dict(advect=0, implsch=0, implsch_full=0) if plain else
+            checks.expected_launches(RunConfig.from_yaml(cfg_text),
+                                     model.setup, model.fp.nsub))
+    want["implsch_compact"] = 0
+    log(f"{what}: launches {got} (the date loop implies {want})")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+
+
+def cli_phase(dev, *, small=None, full=None, rows=PRODUCT_ROWS,
+              launches=True) -> dict:
+    """Phase 8: the command line's run loop (``cli.main.run_model``, what
+    ``python -m ecwam_tpu_torch run --config C --rundir R`` runs) on a
+    small configuration and at full width; returns the readings.
+    ``small``/``full`` override the configurations' keywords (a rehearsal
+    on the CPU passes small grids and ``launches=False``)."""
+    import shutil
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch.cli import checks
+    from ecwam_tpu_torch.ops import secondorder as so_mod
+    from ecwam_tpu_torch.ops.physics import means
+    from ecwam_tpu_torch.device import synchronize
+    cuda = dev.type == "cuda"
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    frc = checks.write_forcing(os.path.join(work, "forcing.npz"), 6)
+    out = {}
+    try:
+        # -- 8a. 12°, kernels and plain versions, and a resumed run
+        kw = dict(dict(grid="12.0", directions=12, frequencies=15, adv=900,
+                       phys=900, hours=3, forcing=frc, restarts=(2, 3)),
+                  **(small or {}))
+        text = checks.run_yaml(**kw)
+        runs = {}
+        for name, plain in (("kernels", False), ("plain", True)):
+            rd = os.path.join(work, f"small_{name}")
+            model, entries, tm, n, wall = cli_run(text, rd, dev, plain=plain)
+            if launches:
+                _check_launches(f"CLI 12° {name}", n, model, text, plain)
+            runs[name] = entries
+            del model
+        err, where = checks.stats_error(runs["kernels"], runs["plain"])
+        log(f"CLI 12° ({kw['directions']}x{kw['frequencies']}, "
+            f"{len(checks.FIELDS)} fields hourly from 1 h, second order "
+            f"on, {kw['hours']} h): statistics.log kernels vs plain on the "
+            f"card {err:.3e} of the entry's magnitude at {where} (limit "
+            f"{CLI_STATS_TOL}); {len(runs['kernels'])} entries")
+        out["small_stats"] = err
+        rst = "restart_20230101020000.npz"
+        leg = os.path.join(work, "small_resumed")
+        os.makedirs(leg)
+        shutil.copy(os.path.join(work, "small_kernels", rst), leg)
+        _, resumed, _, _, _ = cli_run(checks.run_yaml(**dict(kw, begin=2)),
+                                      leg, dev)
+        same = checks.restarts_equal(
+            os.path.join(work, "small_kernels", "restart_20230101030000.npz"),
+            os.path.join(leg, "restart_20230101030000.npz"))
+        late = [e for e in runs["kernels"] if e["time"] > "20230101020000"]
+        r_err, _ = checks.stats_error(resumed, late)
+        log(f"CLI 12° resumed from the 2 h restart: 3 h restart bit for bit "
+            f"equal to the uninterrupted run's {same}; statistics "
+            f"{r_err:.1e} off")
+        if not (err <= CLI_STATS_TOL and same and r_err == 0.0):
+            raise AssertionError("CLI 12°: kernels disagree with plain or "
+                                 "the resumed run differs")
+
+        # -- 8b. full width: O320 36x36/29, 6 h, every field hourly
+        kw = dict(dict(grid="O320", directions=36, frequencies=29,
+                       physics_frequencies=36, adv=450, phys=900, hours=6,
+                       forcing=frc, restarts=(3, 6)), **(full or {}))
+        text = checks.run_yaml(**kw)
+        rd = os.path.join(work, "full")
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model, entries, tm, n, wall = cli_run(text, rd, dev)
+        if launches:
+            _check_launches(f"CLI {kw['grid']}", n, model, text, False)
+        ms = model.setup
+        st = model.timers
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        out_s = tm.products + tm.secondorder + tm.d2h + tm.write
+        log(f"CLI {kw['grid']} ({ms.n_real} sea points, {kw['directions']}x"
+            f"{kw['physics_frequencies']}/{kw['frequencies']}, "
+            f"{kw['hours']} h, {len(checks.FIELDS)} fields hourly in GRIB, "
+            f"second order on): wall {wall:.3f} s for {st.steps} steps and "
+            f"{tm.dates} output dates; propag {st.propag:.3f} s, phys "
+            f"{st.phys:.3f} s (of which full mode on output dates "
+            f"{st.phys_full:.3f} s); per output date: full-mode physics "
+            f"{st.phys_full / tm.dates:.4f} s, products "
+            f"{tm.products / tm.dates:.4f} s, second order "
+            f"{tm.secondorder / tm.dates:.4f} s, device-to-host copies "
+            f"{tm.d2h / tm.dates:.4f} s, statistics/GRIB write "
+            f"{tm.write / tm.dates:.4f} s (output {out_s / tm.dates:.4f} s); "
+            f"{tm.restarts} restarts written in {tm.restart:.3f} s; "
+            f"peak allocation {peak} GB; memory_report "
+            f"{model.memory_report()}")
+        bad = [e for e in entries if not all(
+            np.isfinite(e[q]) for q in ("average", "minimum", "maximum"))]
+        if len(entries) != tm.dates * len(checks.FIELDS) or bad:
+            raise AssertionError(f"CLI {kw['grid']}: {len(entries)} "
+                                 f"statistics entries, {len(bad)} not finite")
+        out.update(wall=wall, timers=tm, steps=st, peak=peak,
+                   launches=n)
+
+        # second order alone on one output chunk of 65,536 points
+        so = so_mod.build_second_order_tables(ms.tb)
+        tabs = so_mod.device_tables(so, ms.env["depth"])
+        cnt = min(65536, ms.n_pad)
+        fl = model.fl1_chunk(0, cnt)
+        wavnum = ms.env["wavnum"][:, :cnt]
+        depth = ms.env["depth"][:cnt]
+        ak = means.fkmean(fl, wavnum, ms.tb)[3]
+        pf1 = fl[so.k_half][:, so.m_half]
+
+        def host_ms(fn, reps=3):
+            fn()
+            synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            synchronize(dev)
+            return (time.perf_counter() - t0) / reps * 1e3
+        if cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t_sec = host_ms(lambda: so_mod.secspom(pf1, depth, ak, so,
+                                               tabs=tabs))
+        sec_peak = ((torch.cuda.max_memory_allocated() - base) / 1e9
+                    if cuda else None)
+        t_cal = host_ms(lambda: so_mod.cal_second_order_spec(
+            fl, wavnum, depth, ms.tb, so, tabs=tabs))
+        flop = 2.0 * cnt * (5 * so.nang_h**2 * so.nfre_h**2
+                            + so.nang_h * so.nang_h * so.nfre_h**2)
+        log(f"second order on {cnt} points ({so.nang_h}x{so.nfre_h} "
+            f"thinned, sub-chunks of {so_mod.SECSPOM_CHUNK}): secspom "
+            f"{t_sec:.3f} ms ({flop / 1e9:.1f} GFLOP of its two "
+            f"contractions, {flop / t_sec / 1e9:.2f} TFLOP/s; "
+            f"{flop / FP32_OPS_PER_S * 1e3:.3f} ms at the float32 peak), "
+            f"peak allocation {sec_peak} GB above the resident state; "
+            f"cal_second_order_spec {t_cal:.3f} ms")
+        out.update(secspom_ms=t_sec, cal_ms=t_cal, secspom_peak=sec_peak,
+                   secspom_points=cnt)
+        del fl, wavnum, depth, ak, pf1
+
+        # products of one chunk on the card against float64 on the CPU
+        start = min(ms.n_real // 2, ms.n_pad - rows)
+        t0 = time.perf_counter()
+        pr = checks.products_vs_f64(model, start, rows, tol=PRODUCT_TOL,
+                                    width=EDGE_WIDTH, so=so)
+        fields = pr["fields"]
+        worst = max(fields, key=lambda k: fields[k][0])
+        held = sum(v[1] for v in fields.values())
+        off = sum(v[2] for v in fields.values())
+        log(f"products on points [{start}, {start + rows}) after the "
+            f"second order, card (float32) vs CPU (float64), "
+            f"{time.perf_counter() - t0:.1f} s: worst {worst} "
+            f"{fields[worst][0]:.3e} of its largest magnitude (limit "
+            f"{PRODUCT_TOL}); {held} field-points over the limit held out "
+            f"on a decision edge (width {EDGE_WIDTH}; at most "
+            f"{EDGE_SHARE} of {rows} a field), {off} off every edge; "
+            f"points within the width of each edge {pr['edge']}; by field "
+            f"(max error, held, off): " + ", ".join(
+                f"{k} {v[0]:.2e}" + (f"/{v[1]}/{v[2]}" if v[1] or v[2]
+                                     else "")
+                for k, v in fields.items()))
+        out["products"] = pr
+        if off or max(v[1] for v in fields.values()) > EDGE_SHARE * rows:
+            raise AssertionError("products on the card disagree with "
+                                 "float64")
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # resumed from the 3 h restart to 6 h
+        leg = os.path.join(work, "full_resumed")
+        os.makedirs(leg)
+        shutil.copy(os.path.join(rd, "restart_20230101030000.npz"), leg)
+        _, resumed, _, _, wall2 = cli_run(
+            checks.run_yaml(**dict(kw, begin=3)), leg, dev)
+        same = checks.restarts_equal(
+            os.path.join(rd, "restart_20230101060000.npz"),
+            os.path.join(leg, "restart_20230101060000.npz"))
+        late = [e for e in entries if e["time"] > "20230101030000"]
+        r_err, _ = checks.stats_error(resumed, late)
+        log(f"CLI {kw['grid']} resumed from the 3 h restart ({wall2:.1f} s):"
+            f" 6 h restart bit for bit equal to the uninterrupted run's "
+            f"{same}; statistics {r_err:.1e} off")
+        if not (same and r_err == 0.0):
+            raise AssertionError("the resumed run differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1266,7 +1526,12 @@ def main():
     # ---- 7. kernel D, the op-class micro-benchmark
     od = opclass_phase(dev)
 
-    # ---- 8. report ---------------------------------------------------------
+    # ---- 8. the command line's run loop, 12° and O320
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cli_phase(dev)
+
+    # ---- 9. report ---------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)

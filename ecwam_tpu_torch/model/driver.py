@@ -44,9 +44,11 @@ def format_date(d: _dt.datetime) -> str:
 @dataclasses.dataclass
 class StepTimers:
     """TIME_PROPAG / TIME_PHYS split (runwam.F90:389-397), seconds of
-    host clock around synchronised device work."""
+    host clock around synchronised device work; ``phys_full`` is the part
+    of ``phys`` spent in output-date (full-mode) physics steps."""
     propag: float = 0.0
     phys: float = 0.0
+    phys_full: float = 0.0
     steps: int = 0
 
 
@@ -180,7 +182,10 @@ class FastWaveModel:
                         self.fp.phys_srl(*args)
                 self._phys_elapsed = 0.0
                 synchronize(dev)
-                self.timers.phys += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.timers.phys += dt
+                if full_phys:
+                    self.timers.phys_full += dt
             self.timers.steps += 1
             self.date += _dt.timedelta(seconds=s.idelpro)
         return self
@@ -237,6 +242,19 @@ class FastWaveModel:
         self._stress6 = self.fp.stress_srl(value)
 
     # -- diagnostics ------------------------------------------------------
+    def memory_report(self) -> dict:
+        """Device-memory snapshot (EC_MEMINFO role, runwam.F90:420-432),
+        from ``torch.cuda.memory_stats``; None on the CPU."""
+        dev = self.setup.device
+        if dev.type != "cuda":
+            return dict(bytes_in_use=None, peak_bytes_in_use=None,
+                        bytes_limit=None)
+        stats = torch.cuda.memory_stats(dev)
+        return dict(
+            bytes_in_use=stats.get("allocated_bytes.all.current"),
+            peak_bytes_in_use=stats.get("allocated_bytes.all.peak"),
+            bytes_limit=torch.cuda.get_device_properties(dev).total_memory)
+
     def swh(self) -> np.ndarray:
         """Significant wave height over real sea points."""
         em = means_mod.semean(self.fl1, self.setup.tb)

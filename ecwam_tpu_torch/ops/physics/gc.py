@@ -3,10 +3,12 @@
 Port of ``ecwam_tpu/ops/physics/gc.py``: the log-spaced wavenumber
 tables of INITGC (initgc.F90:19-77, ω² = g·k + T·k³), NS_GC
 (ns_gc.F90:17-24), OMEGAGC (omegagc.F90:20-34), STRESS_GC
-(stress_gc.F90:40-106), MEANSQS_LF (meansqs_lf.F90) and HALPHAP
-(halphap.F90:30-100).  The tables are numpy, built once; the per-point
-functions are PyTorch over (npts,) with the scalar loop over the
-NWAV = 82 gc wavenumbers as a masked sum.
+(stress_gc.F90:40-106), MEANSQS_LF (meansqs_lf.F90), HALPHAP
+(halphap.F90:30-100), and the output products' mean square slope,
+MEANSQS_GC (meansqs_gc.F90:56-78) and MEANSQS (meansqs.F90:75-97).  The
+tables are numpy, built once; the per-point functions are PyTorch over
+(npts,) with the scalar loop over the NWAV = 82 gc wavenumbers as a
+masked sum.
 
 NS_GC floors a u*-dependent logarithm to the cut-off index; where that
 argument sits next to an integer the index, and the gc stress with it,
@@ -189,3 +191,43 @@ def halphap(fl1, wavnum, coswdif, tb, params: pp.PhysParams):
     alphap = torch.where(ok & (alphap_spec <= params.alphapmax),
                          alphap_spec, alphap_tail)
     return 0.5 * torch.clamp(alphap, max=params.alphapmax)
+
+
+def meansqs_gc(xkmss: float, halp, ustar, gct: GCTables):
+    """Gravity-capillary mean-square-slope contribution
+    (meansqs_gc.F90:56-78).  Returns (xmsscg, frgc)."""
+    ne = min(max(
+        int(round(math.log(xkmss * gct.xkm[0]) * XLOGKRATIOM1_GC)), 1),
+        gct.nwav) - 1                                          # 0-based
+    ns, xks, oms = omegagc(ustar, gct)
+    frgc = oms / float(c.ZPI)
+    dns_xkm = const(gct.delkcc_ns * gct.xkm, ustar)
+    dcc_xkm = const(gct.delkcc * gct.xkm, ustar)[None, :]
+    c2osqrtvg = const(gct.c2osqrtvg, ustar)
+
+    # where the spectral cut-off exceeds the msqs cut-off, integrate nothing
+    over = xks > xkmss
+    ns_eff = torch.where(over, torch.full_like(ns, ne), ns)
+    base = torch.where(over, torch.zeros_like(ustar), dns_xkm[ns_eff])
+    iwav = torch.arange(gct.nwav, device=ustar.device)[None, :]
+    mask = (iwav > ns_eff[:, None]) & (iwav <= ne)
+    xmss = base + torch.sum(torch.where(mask, dcc_xkm,
+                                        torch.zeros_like(dcc_xkm)), dim=1)
+    return xmss * c2osqrtvg[ns_eff] * halp, frgc
+
+
+def meansqs(xkmss: float, fl1, wavnum, ustar, coswdif, tb,
+            params: pp.PhysParams, gct: GCTables | None = None):
+    """Total mean square slope up to wavenumber ``xkmss`` (meansqs.F90:75-97)."""
+    if gct is None:
+        gct = gc_tables()
+    halp = halphap(fl1, wavnum, coswdif, tb, params)
+    xmss, frgc = meansqs_gc(xkmss, halp, ustar, gct)
+    fcut = math.sqrt(c.G * xkmss) / c.ZPI
+    nfre_mss = int(math.log(fcut / tb.fr[0]) / math.log(tb.fratio)) + 1
+    nfre_eff = min(tb.nfre, nfre_mss)
+    xmss = xmss + meansqs_lf(nfre_eff, fl1, wavnum, tb)
+    xlogfs = math.log(tb.fr[nfre_eff - 1])
+    tail = 2.0 * halp * torch.clamp(
+        torch.log(torch.clamp(frgc, max=fcut)) - xlogfs, min=0.0)
+    return xmss + tail

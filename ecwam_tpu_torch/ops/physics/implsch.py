@@ -14,7 +14,7 @@ closure LLGCBZ0 with HALPHAP on the first SINFLX call, LLNORMAGAM,
 LLCAPCHNK, LCISCAL), the three sea-ice attenuation models (SDICE1/2/3,
 LCIWA1/2/3), the sea-ice strain (LSTRN) and the LBIWBK, LICERUN and
 LMASKICE switches are ported.  u*-driven forcing (icode_wnd 1/2) raises
-NotImplementedError (ROADMAP A9).
+NotImplementedError (ROADMAP A4).
 
 Layout: fl1 (nang, nfre, npts).
 """
@@ -120,7 +120,7 @@ def check_ported(cfg: PhysicsConfig) -> None:
     """Raise for the physics options this port does not cover yet: the
     u*-driven forcing (icode_wnd 1/2) of the dense model."""
     if cfg.icode_wnd != 3:
-        raise NotImplementedError("not ported (ROADMAP A9): icode_wnd 1/2")
+        raise NotImplementedError("not ported (ROADMAP A4): icode_wnd 1/2")
 
 
 def growth_factor(wswave, params: pp.PhysParams):

@@ -3,33 +3,58 @@ originals.
 
 ``ecwam_tpu_torch.{core.constants, core.physparams, core.spectral,
 core.dispersion, core.grid, core.bathy, ops.physics.tables, model.preset,
-io.norms}`` are copies of the ``ecwam_tpu`` modules of the same paths
-(numpy only), kept so that the port imports nothing of the JAX package.
-Each builder must give exactly what its original gives on the same inputs
-(``array_equal``: they run the same numpy code).
+io.norms, config.schema, config.namelist, io.outcontrol, io.restart,
+io.waminfo, io.forcing, io.grib, io.gribout, io.multio, native}`` are
+copies of the ``ecwam_tpu`` modules of the same paths (numpy only), kept
+so that the port imports nothing of the JAX package.  Each case must
+give exactly what its original gives on the same inputs (``array_equal``:
+they run the same numpy code; files written by both are equal byte for
+byte).
 """
 
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import pytest
 
+from ecwam_tpu import native as j_native
+from ecwam_tpu.config import namelist as j_namelist
+from ecwam_tpu.config import schema as j_schema
 from ecwam_tpu.core import bathy as j_bathy
 from ecwam_tpu.core import constants as j_c
 from ecwam_tpu.core import dispersion as j_disp
 from ecwam_tpu.core import grid as j_grid
 from ecwam_tpu.core import physparams as j_pp
 from ecwam_tpu.core import spectral as j_sp
+from ecwam_tpu.io import forcing as j_forcing
+from ecwam_tpu.io import grib as j_grib
+from ecwam_tpu.io import gribout as j_gribout
+from ecwam_tpu.io import multio as j_multio
 from ecwam_tpu.io import norms as j_norms
+from ecwam_tpu.io import outcontrol as j_outcontrol
+from ecwam_tpu.io import restart as j_restart
+from ecwam_tpu.io import waminfo as j_waminfo
 from ecwam_tpu.model import preset as j_preset
 from ecwam_tpu.ops.physics import tables as j_tables
+from ecwam_tpu_torch import native as t_native
+from ecwam_tpu_torch.config import namelist as t_namelist
+from ecwam_tpu_torch.config import schema as t_schema
 from ecwam_tpu_torch.core import bathy as t_bathy
 from ecwam_tpu_torch.core import constants as t_c
 from ecwam_tpu_torch.core import dispersion as t_disp
 from ecwam_tpu_torch.core import grid as t_grid
 from ecwam_tpu_torch.core import physparams as t_pp
 from ecwam_tpu_torch.core import spectral as t_sp
+from ecwam_tpu_torch.io import forcing as t_forcing
+from ecwam_tpu_torch.io import grib as t_grib
+from ecwam_tpu_torch.io import gribout as t_gribout
+from ecwam_tpu_torch.io import multio as t_multio
 from ecwam_tpu_torch.io import norms as t_norms
+from ecwam_tpu_torch.io import outcontrol as t_outcontrol
+from ecwam_tpu_torch.io import restart as t_restart
+from ecwam_tpu_torch.io import waminfo as t_waminfo
 from ecwam_tpu_torch.model import preset as t_preset
 from ecwam_tpu_torch.ops.physics import tables as t_tables
 
@@ -84,6 +109,139 @@ def _norms(norms, _):
     return e, norms.format_line(e), norms.ieee_hex(0.1)
 
 
+YAML = """
+grid: 12.0
+directions: 12
+frequencies: 15
+physics_frequencies: 18
+bathymetry: aqua
+advection: {timestep: "00:15"}
+physics: {timestep: 1800}
+analysis.begin: 2023-01-01 00:00:00
+begin: ${analysis.begin}
+end: 2023-01-01 06:00:00
+forcings:
+    at:
+      - {begin: 2023-01-01 00:00:00, end: 2023-01-01 06:00:00, timestep: "01:00"}
+output:
+    fields:
+        name: [swh, mwd, p062, wsk]
+        format: grib
+        at:
+          - timestep: "03:00"
+    restart:
+        at:
+          - time: 2023-01-01 03:00:00
+irefra: 2
+llgcbz0: T
+lsecondorder: F
+validation:
+    single_precision:
+      - {name: swh, average: 1.0}
+"""
+
+NAMELIST = """
+&NALINE
+  NANG = 12, NFRE = 25, NFRE_RED = 20,
+  CBPLTDT = "20230101000000", CEPLTDT = "20230101060000",
+  IDELPRO = 900, IDELT = 900, IDELINT = 3600,
+  IPHYS = 0, IREFRA = 1, LSECONDORDER = F, LGRIBOUT = T,
+  GFLAG(1)=T, GFLAG(2)=T, NFLAG(1)=T,
+/
+&NAOS CLSOUT="20230101030000" /
+"""
+
+
+def _outcontrol(oc):
+    ctl = oc.OutputControl.from_names(["swh", "mwd", "p062", "ci", "ust"],
+                                      grib_restart=True)
+    rng = np.random.default_rng(2)
+    fields = {n: rng.random(30) for n in ctl.output_names()}
+    masked = oc.apply_output_masks(fields, cicover=rng.random(30),
+                                   licerun=True)
+    return (ctl.output_names(), ctl.grib_names(), ctl.norm_names(),
+            ctl.file_names(), ctl.itobout, ctl.ipfgtbl, masked)
+
+
+def _in_tmp(fn):
+    """``fn(directory)`` → (its result, {file name: bytes} written)."""
+    with tempfile.TemporaryDirectory() as d:
+        out = fn(d)
+        files = {}
+        for root, _, names in os.walk(d):
+            for n in names:
+                path = os.path.join(root, n)
+                with open(path, "rb") as f:
+                    files[os.path.relpath(path, d)] = f.read()
+    return out, files
+
+
+def _restart(rst, _):
+    rng = np.random.default_rng(3)
+    stress = {k: rng.random(20) for k in rst.STRESS_KEYS}
+    frc = {"wswave": rng.random(20), "cicover": rng.random(20)}
+
+    def run(d):
+        fn = rst.save_restart(d, "20230101030000", rng.random((12, 15, 20)),
+                              stress, frc)
+        return (rst.restart_name("20230101030000"),
+                rst.load_restart(fn, nang=12, nfre=18))
+    out, _files = _in_tmp(run)         # npz members carry timestamps
+    return out
+
+
+def _waminfo(wi, _):
+    def run(d):
+        fn = os.path.join(d, "waminfo")
+        wi.write_waminfo(fn, begin14="20230101000000",
+                         end14="20230102000000",
+                         restart_date14="20230101060000",
+                         last_spectra_date14="20230101060000")
+        return wi.read_waminfo(fn)
+    return _in_tmp(run)
+
+
+def _forcing(frc, _):
+    ff = frc.synthetic_forcing_file([20230101000000, 20230101060000])
+    lat = np.linspace(-70.0, 70.0, 25)
+    lon = np.linspace(0.0, 355.0, 25)
+    prov = ff.provider(lat, lon)
+    return prov("20230101000000"), prov("20230101030000")
+
+
+def _grib_fields(m):
+    grid = m["grid"].regular_grid(12.0)
+    blk = m["grid"].build_sea_point_block(
+        grid, m["grid"].aqua_bathymetry(grid))
+    rng = np.random.default_rng(4)
+    return grid, blk, {n: 3.0 * rng.random(blk.nsea)
+                       for n in ("swh", "mwd", "p062")}
+
+
+def _gribout(m):
+    grid, blk, fields = _grib_fields(m)
+
+    def run(d):
+        path = os.path.join(d, "MPP.grib")
+        m["gribout"].write_fields(path, fields, blk, grid, "20230101030000")
+        msgs = m["grib"].read_messages(path)
+        return [(g.meta, g.values, g.pl) for g in msgs]
+    return _in_tmp(run)
+
+
+def _multio(m):
+    grid, blk, fields = _grib_fields(m)
+
+    def run(d):
+        sink = m["multio"].MultioSink(os.path.join(d, "fdb"))
+        m["multio"].write_fields_to_sink(sink, fields, blk, grid,
+                                         "20230101030000")
+        sink.close()
+        fdb = m["multio"].FdbLite(os.path.join(d, "fdb"))
+        return fdb.list_keys(), fdb.retrieve(param="swh")
+    return _in_tmp(run)
+
+
 BUILDERS = {
     "constants": lambda m: {k: v for k, v in vars(m["c"]).items()
                             if k.isupper()},
@@ -114,12 +272,39 @@ BUILDERS = {
         m["tables"].wtauhf(m["pp"].set_phys_params(1, nang=36))),
     "preset_mstart": lambda m: _mstart(m["preset"], m["sp"]),
     "norms": lambda m: _norms(m["norms"], None),
+    "schema": lambda m: (m["schema"].RunConfig.from_yaml(YAML),
+                         m["schema"].RunConfig.from_yaml(YAML).build_kwargs(),
+                         m["schema"].RunConfig.from_yaml(YAML).output_dates(),
+                         m["schema"].RunConfig.from_yaml(YAML)
+                         .forcing_dates()),
+    "namelist": lambda m: m["namelist"].namelist_to_config(NAMELIST),
+    "outcontrol": lambda m: _outcontrol(m["outcontrol"]),
+    "restart": lambda m: _restart(m["restart"], None),
+    "waminfo": lambda m: _waminfo(m["waminfo"], None),
+    "forcing": lambda m: _forcing(m["forcing"], None),
+    "grib_gribout_native": _gribout,
+    "block_to_grid_land_O24": lambda m: [m["gribout"].block_to_grid(
+        np.arange(blk.nsea, dtype=np.float64), blk, wg) for wg, blk in (
+        (m["grid"].regular_grid(12.0, name="t12"),
+         _bathymetry(m["bathy"], m["grid"], m["sp"])[3]),
+        (m["grid"].octahedral_grid(24), m["grid"].build_sea_point_block(
+            m["grid"].octahedral_grid(24),
+            m["grid"].aqua_bathymetry(m["grid"].octahedral_grid(24)))))],
+    "multio": _multio,
 }
 
 JAX_MODULES = dict(c=j_c, sp=j_sp, grid=j_grid, bathy=j_bathy, disp=j_disp,
-                   pp=j_pp, tables=j_tables, preset=j_preset, norms=j_norms)
+                   pp=j_pp, tables=j_tables, preset=j_preset, norms=j_norms,
+                   schema=j_schema, namelist=j_namelist,
+                   outcontrol=j_outcontrol, restart=j_restart,
+                   waminfo=j_waminfo, forcing=j_forcing, grib=j_grib,
+                   gribout=j_gribout, multio=j_multio, native=j_native)
 PORT_MODULES = dict(c=t_c, sp=t_sp, grid=t_grid, bathy=t_bathy, disp=t_disp,
-                    pp=t_pp, tables=t_tables, preset=t_preset, norms=t_norms)
+                    pp=t_pp, tables=t_tables, preset=t_preset, norms=t_norms,
+                    schema=t_schema, namelist=t_namelist,
+                    outcontrol=t_outcontrol, restart=t_restart,
+                    waminfo=t_waminfo, forcing=t_forcing, grib=t_grib,
+                    gribout=t_gribout, multio=t_multio, native=t_native)
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))
@@ -130,7 +315,8 @@ def test_copy_matches_original(name):
 @pytest.mark.parametrize("module", sorted(PORT_MODULES))
 def test_copy_names_its_source(module):
     mod, orig = PORT_MODULES[module], JAX_MODULES[module]
-    rel = orig.__name__.replace(".", "/") + ".py"
+    root = os.path.dirname(os.path.dirname(os.path.dirname(j_c.__file__)))
+    rel = os.path.relpath(orig.__file__, root)
     assert f"``{rel}``" in mod.__doc__
     assert mod.__name__ == orig.__name__.replace("ecwam_tpu",
                                                  "ecwam_tpu_torch", 1)
@@ -143,3 +329,19 @@ def test_cideac_copy_matches_original():
     from ecwam_tpu_torch.ops.physics import sdice as t_sdice
     _same(j_sdice.load_cideac(), t_sdice.load_cideac(), "cideac")
     assert t_sdice.load_cideac()["cideac"].shape == (16, 36)
+
+
+def test_native_builds_outside_the_source():
+    """The port's codecs are its own copies, built under ``build/`` and
+    never beside the source or from the JAX package's library."""
+    for name in ("grib1.cc", "grib2.cc"):
+        with open(os.path.join(os.path.dirname(j_native.__file__), name),
+                  "rb") as a, open(os.path.join(
+                      os.path.dirname(t_native.__file__), name), "rb") as b:
+            assert a.read() == b.read(), name
+    lib = t_native.load("grib1")
+    assert os.path.dirname(lib._name) == t_native.BUILD_DIR
+    assert lib._name.startswith(os.path.join(
+        os.path.dirname(os.path.dirname(t_native._DIR)), "build"))
+    assert not any(f.endswith(".so")
+                   for f in os.listdir(os.path.dirname(t_native.__file__)))

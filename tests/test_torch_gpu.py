@@ -397,7 +397,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                # taps wider than EW
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, EW=0))
     cfg = ipk.minimal_config(ms.phys)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         ipk.kernel_supports(dataclasses.replace(cfg, icode_wnd=1))
     env2d = torch.zeros((3 * ms.tb.nfre, f.shape[0]), device=cuda)
     scal = torch.zeros((len(ipk.SCAL_IN), f.shape[0]), device=cuda)
