@@ -81,7 +81,31 @@ Phases (any failure raises and the script exits non-zero):
      order is timed alone on 65,536 points, the products of 32,768 points
      are held against float64 on the CPU, and the run resumed from its 3 h
      restart must end bit for bit equal;
-  9. one JSON line with each kernel's launches, errors, times and bound;
+  9. the dense ``WaveModel`` (``model/stepper.py``: cached and on-the-fly
+     CTU weights, or kernel A in ``fused``; physics through kernel C in
+     full mode on every physics step): on the golden grid in the
+     trajectory oracle's two configurations (``cases.WAVEMODEL_CASES``:
+     fast waves with irefra 1, currents with irefra 3), each weight mode
+     (``otf`` in blocks of 4) 4 steps through the kernels and through the
+     plain versions on the card (fl1 and stress within the golden
+     trajectory's limits; kernel C launched once a physics step, kernel A
+     ``nsub`` passes a step in ``fused`` and none otherwise, the plain
+     runs none); u* forcing (tests/test_forcing_fidelity.py's ICODE 1 case
+     and ICODE 2: the stress takes the forcing's u*, U10 from the log
+     profile in (6, 25) m/s), 2 steps through kernel C's UST instantiation
+     and one physics step of it against plain; then O320 36×36/29 as in
+     phase 3 (JONSWAP cold start), each weight mode in turn, freed before
+     the next: the weight build, 4 steps (2 physics) with their launches,
+     the mean advection and physics step and the peak allocation, the
+     three end states within the golden trajectory's limits of each
+     other; kernel C against plain on a 32,768-point slice of the state in
+     full mode, its time on every point with its bound, and the UST
+     instantiation on the same slice under u* from seed 0; last the 12°
+     CLI run with ``weights_mode: cached`` and the swell-train fields
+     ``p042``-``p050`` beside phase 8's, through the kernels and the plain
+     versions (statistics within CLI_STATS_TOL, the trains within
+     TRAIN_STATS_TOL, launches as ``checks.expected_launches``);
+ 10. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -107,6 +131,19 @@ gives the sound readings and those of deliberately broken kernels):
                                   CHECKCFL violation count equal
   kernel D                        equal for the layout classes, 1e-6 of
                                   max for the others
+  WaveModel, kernels vs plain     fl1 ≤ TRAJ_TOL, stress ≤ TRAJ_STRESS_TOL
+  (4 steps, each weight mode),    (the golden trajectory's limits)
+  and its three O320 end states
+  kernel C's UST instantiation,   spectrum ≤ PHYS_TOL, stress and the U10
+  and kernel C on WaveModel's     row ≤ STRESS_TOL, the other rows ≤
+  state (phase 9)                 FULL_ROW_TOL, ties and mask edges held
+                                  out as for kernel B; tauwdir on the
+                                  circle over 2π, each vector component
+                                  over its vector's largest magnitude;
+                                  under u*, points within Z0_WIDTH of
+                                  Z0WAVE's gap held, ≤ Z0_SHARE
+  CLI swell-train statistics,     each within TRAIN_STATS_TOL of the
+  kernels vs plain (12°)          entry's largest magnitude
   CLI statistics.log, kernels     each average/minimum/maximum within
   vs plain (12°)                  CLI_STATS_TOL of the entry's largest
                                   magnitude
@@ -134,6 +171,7 @@ the enhancement, may move in either float32 version.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -155,12 +193,15 @@ GC_WIDTH = 1e-4
 GC_SHARE = 1e-3
 PEAK_WIDTH = 1e-5
 PEAK_SHARE = 1e-3
+Z0_WIDTH = 1e-2
+Z0_SHARE = 1e-2
 PHYS_ROWS = 32768
 CLI_STATS_TOL = 1e-5
 PRODUCT_TOL = 2e-5
 EDGE_WIDTH = 1e-4
 EDGE_SHARE = 1e-3
 PRODUCT_ROWS = 32768
+TRAIN_STATS_TOL = 1e-3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
@@ -174,7 +215,7 @@ def log(*a):
 
 def register_lines(text: str) -> list:
     """Each kernel's registers and spills from ``nvcc -Xptxas=-v``, named
-    by its template (``implsch_kernel<FULL,COMPACT,OPTS,EXT,JAN>``)."""
+    by its template (``implsch_kernel<FULL,COMPACT,OPTS,EXT,JAN,UST>``)."""
     out, name = [], "?"
     for ln in text.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
@@ -256,7 +297,8 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     wavenumber sum in each first-loop step and the TAU_PHI_HF cut-off
     (LLGCBZ0); the growth normalisation in SINPUT and in the tail
     integrals (LLNORMAGAM); CHNKMIN (LLCAPCHNK); the per-bin SDICE3 and
-    LCISCAL terms with the group speed per frequency."""
+    LCISCAL terms with the group speed per frequency; u* forcing replaces
+    TAUT_Z0 by Z0WAVE."""
     import numpy as np
     f, dia, jtot, niter = cfg.tables.nfre, cfg.dia, 19, 18
     a, nb, ml = nang, nang * f, int(cfg.dia.mlsthg)
@@ -350,6 +392,10 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
         ops += nb + 8 * f + ice * f * (15 + 25 * 22)
     if not cfg.lbiwbk:
         ops -= (3 * nb + 2 * f + 5) + 190 + cfg.nfre_red * a * 3
+    if cfg.icode_wnd in (1, 2):
+        # u* forcing: Z0WAVE and the log-profile U10 (15) in place of
+        # TAUT_Z0's solve in each SINFLX call
+        ops -= 2 * ((21 + 33 * niter) - 15)
     return ops
 
 
@@ -367,16 +413,25 @@ def o320_model(dev):
     import numpy as np
     from ecwam_tpu_torch.model import cases, driver
     from ecwam_tpu_torch.model import setup as setup_mod
-    ms = setup_mod.build_model(grid_name="O320", nang=36, nfre=36,
-                               nfre_red=29, idelpro=450.0, idelt=900.0,
-                               pad_to=8192, device=dev)
+    ms = setup_mod.build_model(device=dev, **O320_KW)
+    wind = o320_wind(ms.n_real)
+    return ms, driver.FastWaveModel(ms, lambda date14: wind, cases.START)
+
+
+# bench.py's configuration at O320
+O320_KW = dict(grid_name="O320", nang=36, nfre=36, nfre_red=29,
+               idelpro=450.0, idelt=900.0, pad_to=8192)
+
+
+def o320_wind(n: int) -> dict:
+    """Fixed 8–12 m/s winds in random directions from seed 0 on ``n``
+    points."""
+    import numpy as np
     rng = np.random.default_rng(0)
-    n = ms.n_real
-    wind = dict(wswave=8.0 + 4.0 * rng.random(n),
+    return dict(wswave=8.0 + 4.0 * rng.random(n),
                 wdwave=rng.random(n) * 2.0 * np.pi,
                 aird=np.full(n, 1.225), wstar=np.zeros(n),
                 cicover=np.zeros(n))
-    return ms, driver.FastWaveModel(ms, lambda date14: wind, cases.START)
 
 
 def ice_slice(ms) -> int:
@@ -1073,10 +1128,10 @@ def cli_run(cfg_text, rundir, dev, *, plain=False, quiet=True):
 def _check_launches(what, got, model, cfg_text, plain):
     from ecwam_tpu_torch.cli import checks
     from ecwam_tpu_torch.config.schema import RunConfig
-    want = (dict(advect=0, implsch=0, implsch_full=0) if plain else
-            checks.expected_launches(RunConfig.from_yaml(cfg_text),
-                                     model.setup, model.fp.nsub))
-    want["implsch_compact"] = 0
+    want = (dict(advect=0, implsch=0, implsch_full=0, implsch_compact=0)
+            if plain else checks.expected_launches(
+                RunConfig.from_yaml(cfg_text), model.setup,
+                model.fp.nsub if hasattr(model, "fp") else 1))
     log(f"{what}: launches {got} (the date loop implies {want})")
     if got != want:
         raise AssertionError(f"{what}: launches {got} != {want}")
@@ -1266,6 +1321,372 @@ def cli_phase(dev, *, small=None, full=None, rows=PRODUCT_ROWS,
             f"{same}; statistics {r_err:.1e} off")
         if not (same and r_err == 0.0):
             raise AssertionError("the resumed run differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+
+# the full-mode rows that are components of one vector
+VECTOR_ROWS = (("tauxd", "tauyd"), ("tauocxd", "tauocyd"),
+               ("ustokes", "vstokes"))
+
+
+def compact_check(cfg, fl, env2d, scal, *, reps=10) -> dict:
+    """Kernel C against its plain version on compact points (``fl``
+    (nang, nfre, n) with its env and SCAL_IN rows), in full mode, as
+    :func:`slice_check` holds kernel B: points whose FRCUTINDEX argument
+    lies within TIE_WIDTH of a rounding tie (float64) are held out, at
+    most TIE_SHARE of them; under u* forcing, points off the limits whose
+    Z0WAVE gap (u*² − τw)/u*² lies within Z0_WIDTH (float64, state
+    ``z0_margin``) too, at most Z0_SHARE of them; windsea-mask bins may
+    differ only on the mask's edge (``cases.full_errors``).  The wave-stress direction is
+    compared on the circle (over 2π) and the components of a vector
+    (VECTOR_ROWS) over the vector's largest magnitude.  Returns the
+    readings, the times of both versions, and the bytes and operations of
+    the bound (counted for this step's cut and windsea mask)."""
+    import torch
+    from ecwam_tpu_torch.core.dispersion import BATHYMAX
+    from ecwam_tpu_torch.model import cases
+    from ecwam_tpu_torch.ops.physics import implsch as impl
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    tabs = ipk.pack_tables(cfg, fl.device)
+
+    def run(_=None):
+        return ipk.implsch_compact(cfg, fl, env2d, scal, full=True,
+                                   tables_dev=tabs)
+
+    def plain(_=None):
+        return ipk.implsch_compact_plain(cfg, fl, env2d, scal, full=True)
+    got, want = run(), plain()
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        raise AssertionError("kernel C produced non-finite values")
+    n, nst = fl.shape[-1], len(ipk.STRESS_KEYS)
+    fe = cases.full_errors(got[1], want[1], got[2], want[2],
+                           cases.compact_margin(cfg, fl, env2d, scal),
+                           MASK_WIDTH)
+    err = fe["err"]
+    keys = ipk.out_keys(cfg, True)
+    # a direction on the circle over 2π, and each component of a vector
+    # over the vector's largest magnitude: under a uniform wind one
+    # component and the wave-stress direction are round-off around 0
+    # (both versions, and float64 alike), which no relative limit holds
+    d = (got[1] - want[1]).abs()
+    i = keys.index("tauwdir")
+    err[i] = torch.minimum(d[i], 2.0 * math.pi - d[i]) / (2.0 * math.pi)
+    for x, y in VECTOR_ROWS:
+        ix, iy = keys.index(x), keys.index(y)
+        mag = torch.hypot(want[1][ix], want[1][iy]).max().clamp(min=1e-30)
+        err[ix], err[iy] = d[ix] / mag, d[iy] / mag
+    s_row = err[:nst].amax(0)
+    off = torch.nonzero((s_row > STRESS_TOL)
+                        | (err[nst:].amax(0) > FULL_ROW_TOL)).flatten()
+    tie = torch.zeros(n, dtype=torch.bool, device=fl.device)
+    z0 = torch.zeros_like(tie)
+    z0_m = torch.zeros(0, dtype=torch.float64, device=fl.device)
+    if 0 < off.numel() <= (TIE_SHARE + Z0_SHARE) * n:
+        env, frc, stress = ipk._unpack_inputs(cfg, env2d[:, off].double(),
+                                              scal[:, off].double())
+        st = impl.implsch(cfg, fl[..., off].double(), env, frc, *stress)[1]
+        dist = st["frcut_tie"]
+        tie[off[dist < TIE_WIDTH]] = True
+        if "z0_margin" in st:
+            # u* forcing: Z0WAVE's root of u*² − τw, ill-conditioned where
+            # the gap is small (its float64 margin)
+            z0_m = st["z0_margin"]
+            z0[off[(z0_m < Z0_WIDTH) & (dist >= TIE_WIDTH)]] = True
+            z0_m = z0_m[z0[off]]
+    keep = ~tie & ~z0
+    spec = rel_max(got[0][..., keep], want[0][..., keep])
+    rk = err[:, keep].amax(1)
+    mij = got[1][keys.index("mij")]
+    depth, cithick = (ipk.SCAL_IN.index(k) for k in ("depth", "cithick"))
+    data = dict(above_cut=cfg.tables.nfre - 1 - float(mij.double().mean()),
+                windsea=float(got[2].mean()),
+                shallow=float((scal[depth] < BATHYMAX).double().mean()),
+                gc_terms=0.0, ice=float((scal[cithick] > 0).double().mean()))
+    return dict(
+        n=n, n_tie=int(tie.sum()), n_z0=int(z0.sum()),
+        z0_margin=float(z0_m.max()) if z0_m.numel() else 0.0,
+        n_off=off.numel() - int(tie.sum()) - int(z0.sum()),
+        spec_rel=spec[0], spec_abs=spec[1],
+        stress_rel=float(s_row[keep].max()),
+        rows={k: float(rk[i]) for i, k in enumerate(keys)},
+        xllws=int(fe["edge"][keep].sum()),
+        xllws_off=int(fe["off"][keep].sum()),
+        xllws_bins=got[2][..., keep].numel(),
+        ms=cuda_ms(run, reps) if fl.is_cuda else None,
+        plain_ms=cuda_ms(plain, 2) if fl.is_cuda else None,
+        bytes=nbytes(fl, env2d, scal, *got),
+        ops=n * implsch_ops(cfg, cfg.tables.nang, True, **data))
+
+
+def check_compact(r, name):
+    """Fail unless :func:`compact_check`'s readings meet the limits (the
+    U10 row of u* forcing at STRESS_TOL)."""
+    rows = dict(r["rows"])
+    u10 = rows.pop("wswave", 0.0)
+    ok = (r["n_off"] == 0 and r["n_tie"] <= TIE_SHARE * r["n"]
+          and r["n_z0"] <= Z0_SHARE * r["n"]
+          and r["spec_rel"] <= PHYS_TOL and r["stress_rel"] <= STRESS_TOL
+          and max(rows.values()) <= FULL_ROW_TOL and u10 <= STRESS_TOL
+          and r["xllws_off"] == 0
+          and r["xllws"] <= XLLWS_SHARE * r["xllws_bins"])
+    log(f"{name}: spectrum {r['spec_rel']:.3e} of max (tol {PHYS_TOL}), "
+        f"stress {r['stress_rel']:.3e} (tol {STRESS_TOL})"
+        + (f", U10 row {u10:.3e} (tol {STRESS_TOL})" if "wswave" in r["rows"]
+           else "")
+        + f"; rows worst {max(rows, key=rows.get)} {max(rows.values()):.2e} "
+        f"(tol {FULL_ROW_TOL}); {r['n_tie']} of {r['n']} points on an "
+        f"FRCUTINDEX tie, {r['n_z0']} within Z0_WIDTH {Z0_WIDTH} of Z0WAVE's "
+        f"gap (largest margin held {r['z0_margin']:.3e}), {r['n_off']} "
+        f"others off; xllws {r['xllws']} of "
+        f"{r['xllws_bins']} bins differ on the mask's edge and "
+        f"{r['xllws_off']} off it"
+        + (f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms"
+           if r["ms"] is not None else ""))
+    if not ok:
+        raise AssertionError(f"{name}: kernel C disagrees with plain")
+
+
+def o320_wavemodel(dev, mode, **over):
+    """The dense ``WaveModel`` at O320 (:data:`O320_KW`, with ``over``'s
+    keywords) in weight ``mode`` (``otf`` in blocks of cases.OTF_BLOCK),
+    under :func:`o320_wind`, from the JONSWAP cold start."""
+    from ecwam_tpu_torch.model import cases, driver
+    from ecwam_tpu_torch.model import setup as setup_mod
+    ms = setup_mod.build_model(device=dev, weights_mode=mode,
+                               otf_block=cases.OTF_BLOCK,
+                               **dict(O320_KW, **over))
+    wind = o320_wind(ms.n_real)
+    return ms, driver.WaveModel(ms, lambda date14: wind, cases.START)
+
+
+def wavemodel_phase(dev, *, o320=None, cli=None, launches=True,
+                    rows=PHYS_ROWS) -> dict:
+    """Phase 9: the dense ``WaveModel`` on the card (see the module
+    docstring); returns the readings.  ``o320``/``cli`` override the full
+    width's and the CLI run's keywords (a rehearsal on the CPU passes small
+    grids and ``launches=False``)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch.cli import checks
+    from ecwam_tpu_torch.device import synchronize
+    from ecwam_tpu_torch.model import cases, stepper
+    from ecwam_tpu_torch.ops import propagation as prop
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    cuda = dev.type == "cuda"
+    out = {}
+
+    # -- 9a. the golden grid: each configuration and weight mode
+    for config in cases.WAVEMODEL_CASES:
+        for mode in cases.WEIGHT_MODES:
+            err, launched, want = cases.wavemodel_kernel_vs_plain(
+                dev, config, mode)
+            log(f"WaveModel {config} {mode}, 4 steps, kernels vs plain "
+                f"(tolerance fl1 {TRAJ_TOL}, stress {TRAJ_STRESS_TOL}): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                + f"; (kernel A passes, kernel C launches) {launched}, the "
+                f"step loop implies {want}")
+            if launches and launched != dict(kernels=want, plain=(0, 0)):
+                raise AssertionError(f"WaveModel {config} {mode}: launches")
+            if not (err.pop("fl1") <= TRAJ_TOL
+                    and max(err.values()) <= TRAJ_STRESS_TOL):
+                raise AssertionError(f"WaveModel {config} {mode}: kernels "
+                                     "disagree with plain")
+
+    # -- 9b. u* forcing through kernel C's UST instantiation
+    out["ustar_launches"] = 0
+    for icode in (1, 2):
+        c0 = ipk.implsch_compact.launches
+        ms, m = cases.ustar_model(dev, icode)
+        n = ms.n_real
+        us = float((m.stress["ufric"][:n] - 0.5).abs().max())
+        m.advance(2)
+        n_c = ipk.implsch_compact.launches - c0
+        out["ustar_launches"] += n_c
+        u10 = m.state["wswave"][:n]
+        swh = m.swh()
+        log(f"u* forcing ICODE {icode} (12°, u* 0.5 m/s): stress u* off the "
+            f"forcing's by {us:.1e}; after 2 steps U10 {float(u10.min()):.3f}"
+            f"..{float(u10.max()):.3f} m/s, SWH max {swh.max():.3f} m; "
+            f"kernel C launches {n_c}")
+        if not (us < 1e-7 and float(u10.min()) > 6.0
+                and float(u10.max()) < 25.0 and np.isfinite(swh).all()
+                and swh.max() < 20.0 and (n_c == 2 or not launches)):
+            raise AssertionError(f"u* forcing ICODE {icode}")
+        check_compact(compact_check(ms.phys, *cases.wavemodel_inputs(m)),
+                      f"kernel C UST (ICODE {icode}) vs plain, one physics "
+                      "step")
+        del m
+
+    # -- 9c. full width: each weight mode in turn, the last one's state
+    # for kernel C's checks
+    ends, per = {}, {}
+    model = ms = None
+    for mode in cases.WEIGHT_MODES:
+        del model, ms
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ms, model = o320_wavemodel(dev, mode, **(o320 or {}))
+        synchronize(dev)
+        t_build = time.perf_counter() - t0
+        a0, c0 = pcu.advect.launches, ipk.implsch_compact.launches
+        steps = []
+        for _ in range(4):
+            t_p, t_f = model.timers.propag, model.timers.phys
+            model.advance(1)
+            steps.append((model.timers.propag - t_p,
+                          model.timers.phys - t_f))
+        n_a = pcu.advect.launches - a0
+        n_c = ipk.implsch_compact.launches - c0
+        tm = model.timers
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        if mode == "cached":
+            # the weights alone, built again (the old set freed first)
+            synchronize(dev)
+            t0 = time.perf_counter()
+            model.steps.refresh_currents(*(
+                ms.env[k][: ms.n_pad] for k in ("ucur", "vcur")))
+            synchronize(dev)
+            t_weights = time.perf_counter() - t0
+        nw = (prop.n_slots(ms.irefra) * ms.tb.nang * ms.tb.nfre_red
+              * ms.n_pad * 4 / 1e9 if mode == "cached" else 0.0)
+        r = dict(build_s=t_build, adv_ms=tm.propag / 4 * 1e3,
+                 phys_ms=tm.phys / 2 * 1e3, peak_gb=peak, weights_gb=nw,
+                 launches=(n_a, n_c), steps=steps)
+        if mode == "cached":
+            r["weights_s"] = t_weights
+        if mode == "otf" and cuda:
+            st = stepper.stencil_device_arrays(ms)
+            cg = ms.env["cgroup_ext"][: ms.tb.nfre_red]
+            r["otf_block_ms"] = cuda_ms(lambda _: prop.ctuw_weights(
+                ms.idelpro, st, ms.tb, cg, mstart=0,
+                mend=cases.OTF_BLOCK), 3)
+            del st
+        per[mode] = r
+        norms = model.norms()
+        log(f"WaveModel {ms.grid.name} {mode}: "
+            f"{ms.n_real} sea points; setup and model {t_build:.2f} s "
+            f"(weight planes {nw:.2f} GB"
+            + (f", built alone in {r['weights_s']:.3f} s"
+               if "weights_s" in r else "")
+            + "); 4 steps (2 physics), (t_propag s, t_phys s): "
+            + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in steps)
+            + f"; mean advection step "
+            f"{r['adv_ms']:.3f} ms, mean physics step {r['phys_ms']:.3f} ms "
+            + (f", OTF weights of one {cases.OTF_BLOCK}-frequency block "
+               f"{r['otf_block_ms']:.3f} ms" if "otf_block_ms" in r else "")
+            + f"; (kernel A passes, kernel C launches) {(n_a, n_c)}; peak "
+            f"allocation {peak} GB; SWH {norms}")
+        want = (4 if mode == "fused" else 0, 2)
+        if launches and (n_a, n_c) != want:
+            raise AssertionError(f"WaveModel O320 {mode}: launches "
+                                 f"{(n_a, n_c)} != {want}")
+        if not (np.isfinite([norms["average"], norms["maximum"]]).all()
+                and norms["minimum"] > 0):
+            raise AssertionError(f"WaveModel O320 {mode}: SWH")
+        # at the sea points: the padded points are isolated in the dense
+        # modes and copies of point 0 in the fused one (both as in the
+        # reference)
+        n = ms.n_real
+        ends[mode] = (model.fl1[..., :n].cpu(),
+                      {k: v[:n].cpu() for k, v in model.stress.items()})
+    ref_f, ref_s = ends[cases.WEIGHT_MODES[0]]
+    for mode in cases.WEIGHT_MODES[1:]:
+        f, st = ends[mode]
+        e = {"fl1": rel_max(f, ref_f)[0]}
+        e.update((k, rel_max(st[k], ref_s[k])[0]) for k in ipk.STRESS_KEYS)
+        log(f"WaveModel {ms.grid.name} end state, {mode} vs "
+            f"{cases.WEIGHT_MODES[0]}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+        if not (e.pop("fl1") <= TRAJ_TOL
+                and max(e.values()) <= TRAJ_STRESS_TOL):
+            raise AssertionError(f"WaveModel O320: {mode} disagrees")
+    del ends
+    out["o320"] = per
+    out["o320_launches"] = sum(r["launches"][1] for r in per.values())
+
+    # kernel C against plain on a slice of the state, on every point, and
+    # the UST instantiation on the slice under u* from seed 0
+    fl1, env2d, scal = cases.wavemodel_inputs(model)
+    n = min(rows, ms.n_pad)
+    s0 = (ms.n_pad - n) // 2
+    sl = tuple(a[..., s0:s0 + n].contiguous() for a in (fl1, env2d, scal))
+    r = compact_check(ms.phys, *sl)
+    check_compact(r, f"kernel C on WaveModel's state ({n} points)")
+    out["slice"] = r
+    if cuda:
+        tabs = ipk.pack_tables(ms.phys, dev)
+        r["all_ms"] = cuda_ms(lambda _: ipk.implsch_compact(
+            ms.phys, fl1, env2d, scal, full=True, tables_dev=tabs), 3)
+        r["all_bound"] = bound(r["bytes"] * ms.n_pad / n,
+                               r["ops"] * ms.n_pad / n)
+        log(f"kernel C on all {ms.n_pad} points, full mode: "
+            f"{r['all_ms']:.3f} ms; bound {r['all_bound'][0]:.3f} ms "
+            f"({r['all_bound'][1]})")
+    # u* from seed 0 swapped in as NEWWIND does (driver.WaveModel.newwind):
+    # TAUW = u*²·(1 − (α/CHARNOCK)²), zeroed below USTMIN_RESET_TAUW
+    cfg_u = dataclasses.replace(ms.phys, icode_wnd=1)
+    scal_u = sl[2].clone()
+    row = {k: ipk.SCAL_IN.index(k) for k in ("ufric", "tauw", "chrnck")}
+    us = torch.as_tensor(0.2 + 0.5 * np.random.default_rng(0).random(n),
+                         dtype=scal_u.dtype, device=dev)
+    tauw = us**2 * (1.0 - (ms.phys.params.alpha / scal_u[row["chrnck"]])**2)
+    scal_u[row["ufric"]] = us
+    scal_u[row["tauw"]] = torch.where(
+        us < model.USTMIN_RESET_TAUW, torch.zeros_like(tauw), tauw)
+    r = compact_check(cfg_u, sl[0], sl[1], scal_u)
+    check_compact(r, f"kernel C UST on WaveModel's state ({n} points, u* "
+                  "0.2–0.7 m/s from seed 0)")
+    out["slice_ustar"] = r
+    del model, fl1, env2d, scal, sl, scal_u
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # -- 9d. the CLI with cached weights and the swell trains
+    work = os.path.join(ROOT, "build", "chip_smoke_wavemodel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        frc = checks.write_forcing(os.path.join(work, "forcing.npz"), 3)
+        kw = dict(dict(grid="12.0", directions=12, frequencies=15, adv=900,
+                       phys=900, hours=3, forcing=frc,
+                       fields=checks.FIELDS + checks.TRAINS,
+                       weights_mode="cached"), **(cli or {}))
+        text = checks.run_yaml(**kw)
+        runs = {}
+        for name, plain in (("kernels", False), ("plain", True)):
+            model, entries, _, n_l, _ = cli_run(
+                text, os.path.join(work, name), dev, plain=plain)
+            if launches:
+                _check_launches(f"CLI 12° cached {name}", n_l, model, text,
+                                plain)
+            runs[name] = entries
+            del model
+        trains = set(checks.TRAINS)
+
+        def part(entries, train):
+            return [e for e in entries if (e["name"] in trains) == train]
+        err, where = checks.stats_error(part(runs["kernels"], False),
+                                        part(runs["plain"], False))
+        t_err, t_where = checks.stats_error(part(runs["kernels"], True),
+                                            part(runs["plain"], True))
+        log(f"CLI 12° weights_mode cached ({len(kw['fields'])} fields, the "
+            f"swell trains among them): statistics.log kernels vs plain on "
+            f"the card {err:.3e} at {where} (limit {CLI_STATS_TOL}); swell "
+            f"trains {t_err:.3e} at {t_where} (limit {TRAIN_STATS_TOL}); "
+            f"{len(runs['kernels'])} entries")
+        if not (err <= CLI_STATS_TOL and t_err <= TRAIN_STATS_TOL):
+            raise AssertionError("CLI cached: kernels disagree with plain")
+        out.update(cli_stats=err, cli_trains=t_err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -1531,7 +1952,12 @@ def main():
     torch.cuda.empty_cache()
     cli_phase(dev)
 
-    # ---- 9. report ---------------------------------------------------------
+    # ---- 9. the dense WaveModel: golden grid, u*, O320, the CLI
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    wm = wavemodel_phase(dev)
+
+    # ---- 10. report --------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)
@@ -1555,9 +1981,14 @@ def main():
               fu["plain_ms"], fu["bytes"], fu["ops"]),
         entry("implsch_compact", isrc,
               "ecwam_tpu/ops/physics/implsch_pallas.py:250",
-              launches["implsch_compact"],
-              fu["compact"]["spec_abs"], fu["compact"]["ms"],
-              fu["compact"]["plain_ms"], fu["compact"]["bytes"], fu["ops"])]
+              wm["o320_launches"], wm["slice"]["spec_abs"], wm["slice"]["ms"],
+              wm["slice"]["plain_ms"], wm["slice"]["bytes"],
+              wm["slice"]["ops"]),
+        entry("implsch_compact_ustar", isrc,
+              "ecwam_tpu/ops/physics/implsch_pallas.py:250",
+              wm["ustar_launches"], wm["slice_ustar"]["spec_abs"],
+              wm["slice_ustar"]["ms"], wm["slice_ustar"]["plain_ms"],
+              wm["slice_ustar"]["bytes"], wm["slice_ustar"]["ops"])]
     oa, omn, ofu = op["advect"], op["minimal"], op["full"]
     kernels += [
         entry("advect_currents", "ecwam_tpu_torch/csrc/advect.cu",
@@ -1582,10 +2013,13 @@ def main():
               lg["launches"]["implsch_full"], lfu["spec_abs"], lfu["ms"],
               lfu["plain_ms"], lfu["bytes"], lfu["ops"])]
     kernels[0]["max_rel_err"] = a_rel
-    kernels[4]["max_rel_err"] = oa[0]
-    for e, r in zip(kernels[1:4] + kernels[5:],
-                    (mn, fu, fu["compact"], omn, ofu, lmn, lfu)):
+    kernels[5]["max_rel_err"] = oa[0]
+    for e, r in zip(kernels[1:5] + kernels[6:],
+                    (mn, fu, wm["slice"], wm["slice_ustar"], omn, ofu, lmn,
+                     lfu)):
         e["max_rel_err"] = r["spec_rel"]
+    kernels[3]["all_points_ms"] = wm["slice"]["all_ms"]
+    kernels[3]["all_points_bound_ms"] = wm["slice"]["all_bound"][0]
     for r in od:
         kernels.append(dict(
             name=f"opclass_{r['name']}", route="cuda",

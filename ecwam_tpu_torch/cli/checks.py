@@ -33,10 +33,11 @@ from ecwam_tpu_torch.io import products as products_mod
 from ecwam_tpu_torch.ops import secondorder as so_mod
 
 # every output field that outcontrol knows and the catalog computes,
-# swell trains aside (io/partition is not ported)
+# swell trains aside (the fused route does not take them)
 FIELDS = tuple(p.name for p in outcontrol.PARAMS
                if p.name in products_mod.CATALOG
                and p.name not in products_mod.TRAIN_FIELDS)
+TRAINS = tuple(sorted(products_mod.TRAIN_FIELDS))
 # output directions, in degrees: compared on the circle
 DIRECTIONS = frozenset(("mwd", "mdww", "mdts", "dwi", "p063"))
 # fields of the kurtosis chain, held out at its decision edges
@@ -61,13 +62,17 @@ def _t(hours: float) -> str:
 def run_yaml(*, grid: str, directions: int, frequencies: int,
              physics_frequencies: int | None = None, adv: float, phys: float,
              hours: int, forcing: str, restarts=(), begin: float = 0.0,
-             fields=FIELDS, lsecondorder: bool = True) -> str:
+             fields=FIELDS, lsecondorder: bool = True,
+             weights_mode: str | None = None) -> str:
     """A run config from ``begin`` to ``hours`` (hours after 2023-01-01).
 
     ``frequencies`` is the advected count when ``physics_frequencies``
-    gives the physics count (the reference run script's split)."""
+    gives the physics count (the reference run script's split);
+    ``weights_mode`` (``cached``/``otf``) selects the dense model."""
     pf = (f"physics_frequencies: {physics_frequencies}\n"
           if physics_frequencies else "")
+    if weights_mode:
+        pf += f"weights_mode: {weights_mode}\n"
     rst = "".join(f"          - time: {_t(h)}\n" for h in restarts)
     return (f"grid: {grid}\ndirections: {directions}\n"
             f"frequencies: {frequencies}\n{pf}bathymetry: aqua\n"
@@ -88,14 +93,25 @@ def run_yaml(*, grid: str, directions: int, frequencies: int,
 
 def expected_launches(cfg: RunConfig, ms, nsub: int,
                       chunk: int = 65536) -> dict:
-    """Kernel launches of ``run_model``: one advection pass for CHECKCFL
-    (``FusedPropagation.cfl_diagnostics``, on a zero spectrum), then
-    ``nsub`` a step (the all-band pass and the fast-wave sub-band passes);
-    a physics step whenever ``idelt`` has accumulated
-    (``FastWaveModel.advance``), in full mode in ceil(nsrl / chunk)
-    launches where it falls on an output date, minimal otherwise.  An
-    output date that is no physics step launches no full-mode kernel."""
+    """Kernel launches of ``run_model``.
+
+    On the fused route (``FastWaveModel``): one advection pass for
+    CHECKCFL (``FusedPropagation.cfl_diagnostics``, on a zero spectrum),
+    then ``nsub`` a step (the all-band pass and the fast-wave sub-band
+    passes); a physics step whenever ``idelt`` has accumulated, in full
+    mode in ceil(nsrl / chunk) launches where it falls on an output date,
+    minimal otherwise.  An output date that is no physics step launches no
+    full-mode kernel.  On the dense route (``WaveModel``, cached or otf
+    weights): no advection kernel, and every physics step one launch of
+    kernel C, or n_pad / phys_chunk where the chunks divide the points."""
     out = set(cfg.output_dates())
+    if ms.weights_mode != "fused":
+        steps = _physics_steps(cfg, ms)
+        c = ms.phys_chunk
+        per = (ms.n_pad // c if c and ms.n_pad % c == 0 and ms.n_pad != c
+               else 1)
+        return dict(advect=0, implsch=0, implsch_full=0,
+                    implsch_compact=len(steps) * per)
     n_adv, n_min, n_full = 1, 0, 0
     elapsed = 0.0
     date = cfg.begin
@@ -110,7 +126,21 @@ def expected_launches(cfg: RunConfig, ms, nsub: int,
                 n_full += math.ceil(ms.fused.nsrl / chunk)
             else:
                 n_min += 1
-    return dict(advect=n_adv, implsch=n_min, implsch_full=n_full)
+    return dict(advect=n_adv, implsch=n_min, implsch_full=n_full,
+                implsch_compact=0)
+
+
+def _physics_steps(cfg: RunConfig, ms) -> list:
+    """The dates of the run's physics steps (``idelt`` accumulated)."""
+    steps, elapsed = [], 0.0
+    date = cfg.begin
+    while date < cfg.end:
+        date += _dt.timedelta(seconds=cfg.adv_timestep)
+        elapsed += ms.idelpro
+        if elapsed >= ms.idelt - 1e-6:
+            elapsed = 0.0
+            steps.append(date)
+    return steps
 
 
 def stats_error(got: list[dict], want: list[dict]) -> tuple[float, tuple]:

@@ -3,9 +3,13 @@
 share/ecwam/scripts/ecwam_run_{preproc,preset,model}.sh), driven by the
 same YAML run-config schema.
 
-Port of ``ecwam_tpu/cli/main.py``.  The run loop always takes the
-SRL-resident ``FastWaveModel`` (kernels A and B on the card, their plain
-versions on the CPU); the reference takes it only on a Pallas backend.
+Port of ``ecwam_tpu/cli/main.py``.  The run loop takes the SRL-resident
+``FastWaveModel`` for ``weights_mode: fused`` (the default; kernels A and
+B on the card), on the card and on the CPU alike, where the reference
+takes it only on a Pallas backend; and the dense ``WaveModel`` for
+``weights_mode: cached`` or ``otf`` (its physics through kernel C on the
+card), as the reference does.  On the CPU the wrappers run the kernels'
+plain versions.
 
 Usage:
   python -m ecwam_tpu_torch preproc --config cfg.yml --rundir RUN
@@ -16,9 +20,10 @@ Usage:
 
 ``--device cpu`` runs on the CPU; the default is the card, and a run
 that asked for it fails where CUDA is absent.  Not ported (each raises
-``NotImplementedError``, ROADMAP A4): weights modes other than
-``fused``, a ``nesting:`` block, the ``bouint`` program, u* forcing and
-the swell-train fields.
+``NotImplementedError``, ROADMAP A4): a ``nesting:`` block and the
+``bouint`` program.  The swell-train fields (``p042``-``p050``) need the
+dense ``WaveModel``'s per-bin windsea mask: the fused route refuses them,
+as the reference's chunked output path does.
 """
 
 from __future__ import annotations
@@ -117,10 +122,6 @@ def _build_model(cfg: RunConfig, dtype=None, rundir: str | None = None,
     from ecwam_tpu_torch.core import bathy as bathy_mod
     from ecwam_tpu_torch.model import setup as setup_mod
     kw = cfg.build_kwargs()
-    if kw["weights_mode"] != "fused":
-        raise NotImplementedError(
-            f"weights_mode={kw['weights_mode']!r}: the dense/OTF "
-            f"WaveModel is {A4}")
     b, obs = _resolve_bathymetry(cfg, rundir)
     if b is not None:
         kw["bathy"] = b
@@ -259,9 +260,11 @@ def _refuse_unported(cfg: RunConfig, names) -> None:
         raise NotImplementedError(f"boundary nesting (`nesting:`) is {A4}")
     from ecwam_tpu_torch.io import products as products_mod
     trains = sorted(set(names) & products_mod.TRAIN_FIELDS)
-    if trains:
+    if trains and cfg.build_kwargs()["weights_mode"] == "fused":
         raise NotImplementedError(
-            f"swell-train output fields {trains}: io/partition is {A4}")
+            f"swell-train output fields {trains} need the per-bin windsea "
+            "mask, which the fused route's chunked full-mode step does not "
+            "keep: run weights_mode cached or otf")
 
 
 @contextlib.contextmanager
@@ -295,8 +298,8 @@ def run_model(cfg: RunConfig, rundir: str, *, dtype=None, quiet=False,
     """The WAMODEL/WAMINTGR date loop with output & restart scheduling.
 
     ``device``: ``None`` (the card) or ``"cpu"``; ``plain=True`` runs the
-    plain PyTorch versions of kernels A and B; ``timers`` collects the
-    output dates' split.  Returns (model, statistics log)."""
+    plain PyTorch versions of the kernels; ``timers`` collects the output
+    dates' split.  Returns (model, statistics log)."""
     with _stop_on_signals() as stop:
         return _run_model(cfg, rundir, stop, dtype=dtype, quiet=quiet,
                           device=device, plain=plain, timers=timers)
@@ -341,30 +344,38 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
         if not quiet:
             print(f"[ecwave] resumed from {rst}")
 
-    # SRL-resident fast driver (wamodel.F90 output-date split): minimal
-    # physics between output dates, full diagnostics on output dates
-    model = driver_mod.FastWaveModel(ms, provider, cfg.begin, fl1=fl1,
-                                     stress=stress, plain=plain)
+    # the SRL-resident fast driver for the fused weights (wamodel.F90
+    # output-date split: minimal physics between output dates, full
+    # diagnostics on output dates); the dense WaveModel for cached/otf
+    # (full physics on every physics step)
+    fast = ms.weights_mode == "fused"
+    model_cls = driver_mod.FastWaveModel if fast else driver_mod.WaveModel
+    model = model_cls(ms, provider, cfg.begin, fl1=fl1, stress=stress,
+                      plain=plain)
     if not quiet:
-        print(f"[ecwave] SRL-resident fast driver on {dev} ("
-              + ("plain PyTorch versions" if plain or dev.type == "cpu"
-                 else "kernels A and B") + ")")
+        kernels = "kernels A and B" if fast else "kernel C"
+        print(("[ecwave] SRL-resident fast driver" if fast else
+               f"[ecwave] dense WaveModel ({ms.weights_mode} weights)")
+              + f" on {dev} (" + ("plain PyTorch versions" if plain
+                                   or dev.type == "cpu" else kernels) + ")")
 
     # CHECKCFL role (checkcfl.F90:74-210, called from the propagation
     # setup): validate the Courant numbers once per weight refresh and
     # abort with the reference's remedy when violated
-    diag = model.fp.cfl_diagnostics()
-    if not quiet:
-        print(f"[ecwave] CFL: x={diag['cfl_east_west']:.3f} "
-              f"y={diag['cfl_north_south']:.3f} "
-              f"outflow={diag['max_outflow']:.3f} "
-              f"violations={diag['n_violations']}")
-    if diag["n_violations"]:
-        raise RuntimeError(
-            "CFL-CRITERION NOT FULFILLED FOR PROPAGATION "
-            f"({diag['n_violations']} points, max outflow "
-            f"{diag['max_outflow']:.3f}) - REDUCE IDELPRO "
-            "ACCORDINGLY (checkcfl.F90)")
+    cfl = model.fp.cfl_diagnostics if fast else model.steps.cfl_diagnostics
+    if cfl is not None:
+        diag = cfl()
+        if not quiet:
+            print(f"[ecwave] CFL: x={diag['cfl_east_west']:.3f} "
+                  f"y={diag['cfl_north_south']:.3f} "
+                  f"outflow={diag['max_outflow']:.3f} "
+                  f"violations={diag['n_violations']}")
+        if diag["n_violations"]:
+            raise RuntimeError(
+                "CFL-CRITERION NOT FULFILLED FOR PROPAGATION "
+                f"({diag['n_violations']} points, max outflow "
+                f"{diag['max_outflow']:.3f}) - REDUCE IDELPRO "
+                "ACCORDINGLY (checkcfl.F90)")
 
     out_dates = set(cfg.output_dates())
     frc_dates = set(cfg.forcing_dates())
@@ -430,7 +441,7 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
         synchronize(dev)
         t0 = time.perf_counter()
         so_before = timers.secondorder
-        if ms.n_pad > chunk_threshold:
+        if fast and ms.n_pad > chunk_threshold:
             so_fn = None
             if so_correct is not None:
                 def so_fn(fl, env_c):
@@ -600,11 +611,12 @@ def card_line() -> str:
 def cmd_info(args):
     import torch
     print("ecwave (ecwam_tpu_torch) — spectral wave model, PyTorch/CUDA port")
-    print("capabilities: CTU propagation (IPROPAGS=2, kernel A), IPHYS∈{0,1}")
-    print("  IMPLSCH physics (kernel B), DIA nonlinear transfer, depth/current")
-    print("  refraction (IREFRA≤3), fast-wave substepping, output catalog with")
-    print("  the second-order correction, statistics.log norms, GRIB/FDB")
-    print("  output, npz restart/forcing")
+    print("capabilities: CTU propagation (IPROPAGS=2; fused kernel A or the")
+    print("  cached/on-the-fly dense weights), IPHYS∈{0,1} IMPLSCH physics")
+    print("  (kernels B and C), U10 and u* forcing, DIA nonlinear transfer,")
+    print("  depth/current refraction (IREFRA≤3), fast-wave substepping,")
+    print("  output catalog with the second-order correction and the swell")
+    print("  trains, statistics.log norms, GRIB/FDB output, npz restart/forcing")
     cuda = torch.cuda.is_available()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"available: {cuda}, devices: "

@@ -75,6 +75,15 @@
 //    LCISCAL scaling, SDICE, the sea-ice flux and Stokes branches and
 //    SETICE; LMASKICE off SETICE.
 //
+// u*-driven forcing (ICODE_WND 1/2, template flag UST, the compact entry
+// in full mode only, without the options above: the dense model's
+// physics step): AIRSEA's u* branch replaces the TAUT_Z0 solve in both
+// SINFLX calls — Z0WAVE from the carried u* and TAUW, then U10 from the
+// log profile, u*/κ·(ln XNLEV − ln z0), floored at WSPMIN — and that U10
+// feeds the rest of the chain (SINPUT, the sea-ice flux branch, Stokes)
+// and goes out as one more row after the full mode's (airsea.F90:44-70,
+// implsch.py's ICODE 1/2 hand-over).
+//
 // What bounds it: arithmetic and transcendentals.  Its only bulk traffic
 // is one read and one write of each spectrum row (≈2·nang·nfre·4 bytes);
 // everything else is a few hundred bytes of per-row env/forcing.  The
@@ -173,7 +182,7 @@ enum Opt { OPT_LLGCBZ0 = 1, OPT_LLNORMAGAM = 2, OPT_LLCAPCHNK = 4,
            OPT_IPHYS0 = 32, OPT_ISNONLIN0 = 64, OPT_ISNONLIN2 = 128,
            OPT_LCIWA1 = 256, OPT_LCIWA2 = 512, OPT_LSTRN = 1024,
            OPT_NO_LBIWBK = 2048, OPT_NO_LICERUN = 4096,
-           OPT_NO_LMASKICE = 8192 };
+           OPT_NO_LMASKICE = 8192, OPT_USTAR = 16384 };
 constexpr int OPT_EXT = 32 * 511;            // the EXT instantiations' bits
 
 // gravity-capillary tables (NWAV each), in the order of
@@ -195,6 +204,8 @@ enum Out { O_UFRIC, O_TAUW, O_TAUWDIR, O_Z0M, O_Z0B, O_CHRNCK, O_MIJ,
            O_EMEANWS, O_FMEANWS, O_WSEMEAN, O_WSFMEAN, O_TAUXD, O_TAUYD,
            O_TAUOCXD, O_TAUOCYD, O_TAUOC, O_PHIOCD, O_PHIEPS, O_PHIAW,
            O_EM_OC, O_F1_OC, O_USTOKES, O_VSTOKES, O_STRNMS, NOUT_FULL };
+// UST's extra row: the U10 of the log profile (after the full mode's)
+constexpr int O_WSWAVE = NOUT_FULL;
 
 constexpr int RL = 32;          // lanes a row
 constexpr int RPW = 32 / RL;    // rows a warp
@@ -203,6 +214,7 @@ constexpr int MAX_WARPS = 12;   // warps a block (the launch takes fewer
                                 // where shared memory holds fewer)
 constexpr int JTOT = 19;        // tail-integral nodes (tables.JTOT_TAUHF)
 constexpr int NITER = 18;       // TAUT_Z0 Newton steps
+constexpr float EPS1 = 1.0e-5f; // tauw/u*² margin (yowtabl.F90:34)
 constexpr unsigned ALL = 0xffffffffu;
 
 // The parameter block and tables.  implsch_launch fills it with pointers
@@ -329,6 +341,19 @@ __device__ void taut_z0(const float* P, int opts, float utop, float udir,
   z0 = z0ch;
   z0b = alphaog * tauold;
   chrnck = fmaxf(P[P_G] * z0ch * (ustm1 * ustm1), P[P_ALPHAMIN]);
+}
+
+// AIRSEA's u* branch (airsea.F90 ICODE 1/2): Z0WAVE (z0wave.F90:40-60)
+// from u* and the wave stress, then U10 from the log profile, floored at
+// WSPMIN = 1
+__device__ float z0wave_u10(const float* P, float ustar, float tauw,
+                            float& z0, float& z0b, float& chrnck) {
+  const float ust2 = ustar * ustar;
+  const float arg = fmaxf(ust2 - tauw, EPS1);
+  z0 = P[P_ALPHAOG] * (ust2 * ustar) / sqrtf(arg);
+  z0b = P[P_ALPHAOG] * ust2;
+  chrnck = P[P_G] * z0 / ust2;
+  return fmaxf((1.f / P[P_XKAPPA]) * ustar * (P[P_XLOGXL] - logf(z0)), 1.f);
 }
 
 // WSIGSTAR (wsigstar.F90:48-86); OPTS adds the LLGCBZ0/LLNORMAGAM branch
@@ -1534,7 +1559,7 @@ struct Layout {
 
 // One physics step of row p on the row's RL lanes (``live`` false: a
 // partner row of an odd row count, read from row p and not written)
-template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN>
+template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN, bool UST>
 __device__ __forceinline__ void row_step(
     const Layout& Lo, const float* __restrict__ env2d,
     const float* __restrict__ scal, float* __restrict__ out,
@@ -1560,7 +1585,8 @@ __device__ __forceinline__ void row_step(
     W.xk2cg[m] = env2d[(long)(2 * nfre + m) * nrows + p];
   }
   auto sc = [&](int i) { return scal[(long)i * nrows + p]; };
-  const float wswave = sc(0), wdwave = sc(1), aird = sc(2), wstar = sc(3);
+  float wswave = sc(0);                        // UST: the log profile's
+  const float wdwave = sc(1), aird = sc(2), wstar = sc(3);
   const float cicover = sc(4), cithick = sc(5), depth = sc(6);
   const float emaxdpt = sc(7);
   float ufric = sc(8), tauw = sc(9), tauwdir = sc(10), z0m = sc(11);
@@ -1646,6 +1672,8 @@ __device__ __forceinline__ void row_step(
     if (opts & OPT_LLGCBZ0)
       taut_z0_gc(T, lane, wswave, wdwave, tauw, tauwdir, ufric, halp, rnfac,
                  second ? 1 : 0, ufric, z0m, z0b, chrnck);
+    else if (UST)                              // opts is 0 here
+      wswave = z0wave_u10(P, ufric, tauw, z0m, z0b, chrnck);
     else
       taut_z0<OPTS>(P, opts, wswave, wdwave, tauw, tauwdir, ufric,
                     second ? 1 : 0, ufric, z0m, z0b, chrnck);
@@ -2065,6 +2093,7 @@ __device__ __forceinline__ void row_step(
       out[O_Z0M * (long)nrows + p] = z0m;
       out[O_Z0B * (long)nrows + p] = z0b;
       out[O_CHRNCK * (long)nrows + p] = chrnck;
+      if (UST) out[O_WSWAVE * (long)nrows + p] = wswave;
     }
     if (FULL) {
 #pragma unroll
@@ -2147,7 +2176,7 @@ __device__ Tabs stage_tables(const Tabs& G, float* s) {
 // RL − 1 take row RPW·i + r.  Each warp's rows have their own working sets
 // after the block's tables
 template <bool FULL, bool COMPACT, bool OPTS, bool EXT = false,
-          bool JAN = false>
+          bool JAN = false, bool UST = false>
 __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
 implsch_kernel(Layout Lo, const float* __restrict__ env2d,
                const float* __restrict__ scal, float* __restrict__ out,
@@ -2166,17 +2195,18 @@ implsch_kernel(Layout Lo, const float* __restrict__ env2d,
        i += (long)gridDim.x * warps) {
     const long p = RPW * i + sub;
     const bool live = p < nrows;
-    row_step<FULL, COMPACT, OPTS, EXT, JAN>(Lo, env2d, scal, out, xllws, T,
-                                            W, lane, live ? p : p - sub, live,
-                                            nrows);
+    row_step<FULL, COMPACT, OPTS, EXT, JAN, UST>(
+        Lo, env2d, scal, out, xllws, T, W, lane, live ? p : p - sub, live,
+        nrows);
   }
 }
 
-template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN>
+template <bool FULL, bool COMPACT, bool OPTS, bool EXT, bool JAN,
+          bool UST = false>
 int launch(const Layout& Lo, const float* env2d, const float* scal,
            float* out, float* xllws, const Tabs& T, int nrows,
            cudaStream_t stream) {
-  auto* kernel = implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN>;
+  auto* kernel = implsch_kernel<FULL, COMPACT, OPTS, EXT, JAN, UST>;
   int dev = 0, optin = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -2223,11 +2253,12 @@ int launch(const Layout& Lo, const float* env2d, const float* scal,
 // parameter block and tables laid out by implsch_cuda.pack_tables; the
 // layout arguments are those of ``Layout`` above.  ``out`` takes 6 rows
 // (minimal) or NOUT_FULL rows and ``xllws`` the (nang, nfre, nrows) mask
-// (full).  ``nred`` is the configuration's nfre_red, the top of the
-// SDIWBK/SBOTTOM range, whatever the layout.  ``opts`` picks the
-// instantiation: with bits of OPT_EXT the EXT one (JAN too for iphys=0),
-// with other bits OPTS, with none the default.  Returns the CUDA error
-// code of the launch (0 = launched).
+// (full; with OPT_USTAR one more row, U10).  ``nred`` is the configuration's
+// nfre_red, the top of the SDIWBK/SBOTTOM range, whatever the layout.
+// ``opts`` picks the instantiation: OPT_USTAR alone the UST one (full mode,
+// compact layout), with bits of OPT_EXT the EXT one (JAN too for
+// iphys=0), with other bits OPTS, with none the default.  Returns the CUDA
+// error code of the launch (0 = launched).
 extern "C" int implsch_launch(
     int full, const float* fin, float* fout, long f_ps, long f_bs,
     const float* tin, float* tout, const float* env2d, const float* scal,
@@ -2278,9 +2309,11 @@ extern "C" int implsch_launch(
   const cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(F, C, O, E, J) \
   launch<F, C, O, E, J>(Lo, env2d, scal, out, xllws, T, nrows, s)
+  if ((opts & OPT_USTAR) && (opts != OPT_USTAR || !full || f_bs == 1))
+    return (int)cudaErrorInvalidValue;
 #ifdef IMPLSCH_MINIMAL_SRL
   // a build of tools/implsch_stages.py: the two instantiations it times
-  if (full || f_bs != 1 || (opts & OPT_EXT))
+  if (full || f_bs != 1 || (opts & (OPT_EXT | OPT_USTAR)))
     return (int)cudaErrorInvalidValue;
   return opts ? LAUNCH(false, false, true, false, false)
               : LAUNCH(false, false, false, false, false);
@@ -2289,6 +2322,9 @@ extern "C" int implsch_launch(
   if (f_bs != 1)                                                          \
     return full ? LAUNCH(true, true, O, E, J) : LAUNCH(false, true, O, E, J); \
   return full ? LAUNCH(true, false, O, E, J) : LAUNCH(false, false, O, E, J)
+  if (opts & OPT_USTAR)
+    return launch<true, true, false, false, false, true>(Lo, env2d, scal, out,
+                                                         xllws, T, nrows, s);
   if (opts & OPT_EXT) {
     if (opts & OPT_IPHYS0) { MODES(true, true, true); }
     MODES(true, true, false);

@@ -17,8 +17,11 @@ Point-field functions take fl1 (nang, nfre, npts) and return (npts,).
 ``compute()`` evaluates the requested fields through one
 :class:`ProductContext`, so the shared intermediates (windsea/swell
 separation, kurtosis chain, energy flux) are evaluated once.  The
-swell-train fields (``p042``-``p050``) need the host partitioning of
-``io/partition``, which is not ported: they raise.
+swell-train fields (``p042``-``p050``) run the host partitioning of
+:mod:`ecwam_tpu_torch.io.partition` (SEP3TR, numpy) on host copies of the
+per-bin swell mask and the spectrum, as the reference does; they need the
+windsea mask of a full-mode step on the compact spectrum (the dense
+``WaveModel``'s state), and the chunked output path refuses them.
 """
 
 from __future__ import annotations
@@ -393,8 +396,9 @@ class ProductContext:
     """
 
     def __init__(self, fl1, tb, state, frc, params, env=None, *,
-                 llgcbz0: bool = False):
+                 llgcbz0: bool = False, ntrain: int = 3):
         self.fl1 = fl1
+        self.ntrain = ntrain
         self.tb = tb
         self.state = state or {}
         self.frc = frc
@@ -429,6 +433,32 @@ class ProductContext:
         return weflux(self.fl1, self.env["cgroup"], self.tb)
 
     @functools.cached_property
+    def trains(self):
+        """Swell-train partitioning (sep3tr.F90), host numpy at output
+        cadence (:mod:`ecwam_tpu_torch.io.partition`) on host copies of
+        the windsea/swell separation with its per-bin swell mask."""
+        from ecwam_tpu_torch.io import partition
+        st, frc = self.state, self.frc
+        sep = self.sep
+        if "swm" not in sep:
+            # the chunked full-mode state keeps only per-point rows; the
+            # partitioning needs the per-bin swell mask
+            if "xllws" not in st:
+                raise NotImplementedError(
+                    "swell-train products need the per-bin swell mask; "
+                    "not available from the chunked full-mode step")
+            sep = sepwisw(self.fl1, st["xllws"], self.env["cinv"],
+                          st["ufric"], frc["wswave"], frc["wdwave"],
+                          self.tb)
+
+        def host(v):
+            return v.detach().cpu().numpy()
+        return partition.sep3tr(
+            host(self.fl1), host(st["mij"]).astype(np.int32),
+            {k: host(v) for k, v in sep.items()}, host(frc["wswave"]),
+            host(frc["wdwave"]), self.tb, ntrain=self.ntrain)
+
+    @functools.cached_property
     def coswdif(self):
         th = const(self.tb.th, self.fl1)[:, None]
         return torch.cos(th - self.frc["wdwave"][None, :])
@@ -446,11 +476,19 @@ def _inv_period(key):
     return fn
 
 
-def _train(name):
+def _train(field, i):
+    """Train ``i``'s wave height, direction (meteorological degrees) or
+    peak period from the host partitioning, on the spectrum's device."""
     def fn(ctx):
-        raise NotImplementedError(
-            f"swell-train product {name!r}: the host partitioning "
-            "(io/partition) is not ported (ROADMAP A4)")
+        v = torch.as_tensor(ctx.trains[field][:, i], dtype=ctx.fl1.dtype,
+                            device=ctx.fl1.device)
+        if field == "thtrain":
+            # the reference's compute() converts the trains with
+            # np.degrees, not the rounded DEG of to_met_deg
+            return torch.remainder(torch.rad2deg(v) + 180.0, 360.0)
+        if field == "emtrain":
+            return 4.0 * torch.sqrt(torch.clamp(v, min=0.0))
+        return v
     return fn
 
 
@@ -545,10 +583,11 @@ for _i, (_tb, _tt) in enumerate(TEWH_BANDS):
         lambda ctx, tbv=_tb, ttv=_tt: 4.0 * torch.sqrt(
             torch.clamp(sebtmean(ctx.fl1, ctx.tb, tbv, ttv), min=0.0)))
 
-# swell trains '042'-'050': the host partitioning is not ported
+# swell trains '042'-'050': height, direction and period of trains 1-3,
+# from the host partitioning
 TRAIN_FIELDS = frozenset(f"p{i:03d}" for i in range(42, 51))
-for _n in sorted(TRAIN_FIELDS):
-    CATALOG[_n] = _train(_n)
+for _i, _n in enumerate(sorted(TRAIN_FIELDS)):
+    CATALOG[_n] = _train(("emtrain", "thtrain", "pmtrain")[_i % 3], _i // 3)
 
 # legacy aliases used by earlier configs/tests
 CATALOG["mwp1"] = CATALOG["mp1"]
@@ -561,25 +600,24 @@ _KURT_FIELDS = frozenset(("wsk", "bfi", "wsp", "hmax", "tmax", "p057",
 
 
 def compute(names, fl1, tb, state, frc, params, env=None, *,
-            llgcbz0: bool = False, return_intermediates: bool = False):
+            llgcbz0: bool = False, ntrain: int = 3,
+            return_intermediates: bool = False):
     """Evaluate a list of catalog fields → dict name → (npts,) tensor, on
     fl1's device.
 
-    Shared intermediates (sepwisw, kurtosis, weflux) are evaluated once
-    per call.  Swell-train fields ('042'-'050') raise NotImplementedError
-    (ROADMAP A4).
+    Shared intermediates (sepwisw, kurtosis, weflux, and the host
+    partitioning of the swell-train fields '042'-'050') are evaluated
+    once per call.
     """
-    bad = sorted(n for n in names if n in TRAIN_FIELDS)
-    if bad:
-        raise NotImplementedError(
-            f"swell-train products {bad}: the host partitioning "
-            "(io/partition) is not ported (ROADMAP A4)")
-    ctx = ProductContext(fl1, tb, state, frc, params, env, llgcbz0=llgcbz0)
+    ctx = ProductContext(fl1, tb, state, frc, params, env, llgcbz0=llgcbz0,
+                         ntrain=ntrain)
     out = {n: CATALOG[n](ctx) for n in names}
     if return_intermediates:
         inter = dict(sep=ctx.sep)
         if any(n in _KURT_FIELDS for n in names):
             inter["kurt"] = ctx.kurt
+        if any(n in TRAIN_FIELDS for n in names):
+            inter["trains"] = ctx.trains
         return out, inter
     return out
 

@@ -9,9 +9,11 @@ trajectory (``tests/test_golden_trajectory.py``), a shallow grid on which
 every shallow-water term is active (and its cycle-50 variant with polar
 sea ice), the small-grid cases of the rest of the physics
 (:data:`LEGACY_CASES`: iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN and the
-LBIWBK/LICERUN/LMASKICE switches), and the O320 configurations at full
-width, built from numpy so that ``chip_smoke.py`` and the port's tests
-use one definition.
+LBIWBK/LICERUN/LMASKICE switches), the dense ``WaveModel``'s
+configurations (the trajectory oracle's two, :data:`WAVEMODEL_CASES`, and
+the u* forcing of tests/test_forcing_fidelity.py, :func:`ustar_model`),
+and the O320 configurations at full width, built from numpy so that
+``chip_smoke.py`` and the port's tests use one definition.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ecwam_tpu_torch.core import bathy as bathy_mod
 from ecwam_tpu_torch.core import grid as grid_mod
 from ecwam_tpu_torch.core.spectral import build_spectral_tables
 from ecwam_tpu_torch.io import norms as norms_mod
-from ecwam_tpu_torch.model.driver import FastWaveModel, parse_date
+from ecwam_tpu_torch.model.driver import FastWaveModel, WaveModel, parse_date
 from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.model.setup import build_model
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
@@ -699,3 +701,81 @@ def golden_statistics_error(entries: list[dict], path: str) -> dict:
         abs(e[k] - w[k]) / abs(w[k]) for k in ("average", "minimum",
                                                  "maximum"))
         for e, w in zip(entries, want)}
+
+
+# the dense WaveModel's weight modes, and the trajectory oracle's
+# configurations on the golden grid (tests/test_trajectory_oracle.py:65):
+# fast waves with depth refraction, and the currents with irefra 3 (no
+# fast waves: the OTF mode refuses them under current refraction)
+WEIGHT_MODES = ("cached", "otf", "fused")
+OTF_BLOCK = 4
+WAVEMODEL_CASES = {
+    "fastwaves_refra1": golden_kw,
+    "currents3": lambda: dict(golden_kw(irefra=3, currents=True),
+                              idelt=900.0, delpro_lf=None, ifrelfmax=0),
+}
+
+
+def wavemodel_kernel_vs_plain(device, config: str, mode: str,
+                              nsteps: int = 4) -> tuple[dict, dict, dict]:
+    """``WaveModel`` on :data:`WAVEMODEL_CASES`' ``config`` in weight
+    ``mode`` (``otf`` in blocks of OTF_BLOCK), ``nsteps`` steps under the
+    golden forcing (swapped every 2) through the kernels and through the
+    plain versions, both on ``device``.  Returns ({"fl1" and each stress
+    field: max|k−p| over max|p|}, {"kernels"/"plain": (kernel A passes,
+    kernel C launches)}, and the (passes, launches) the step loop implies
+    through the kernels)."""
+    ms = build_model(device=device, weights_mode=mode, otf_block=OTF_BLOCK,
+                     **WAVEMODEL_CASES[config]())
+    forcing_at = golden_forcing(ms.n_real)
+    runs, launched = {}, {}
+    for plain in (False, True):
+        m = WaveModel(ms, provider(forcing_at, ms.idelpro), START,
+                      plain=plain)
+        a0, c0 = pcu.advect.launches, ipk.implsch_compact.launches
+        m.advance(nsteps, wind_every=2)
+        name = "plain" if plain else "kernels"
+        launched[name] = (pcu.advect.launches - a0,
+                          ipk.implsch_compact.launches - c0)
+        runs[name] = m
+    nsub = (max(1, round(ms.idelpro / ms.delpro_lf))
+            if ms.ifrelfmax > 0 else 1)
+    phys = sum(1 for i in range(1, nsteps + 1)
+               if (i * ms.idelpro) % ms.idelt < 1e-6)
+    want = (nsteps * nsub if mode == "fused" else 0, phys)
+    k, p = runs["kernels"], runs["plain"]
+    pairs = dict(fl1=(k.fl1, p.fl1))
+    pairs.update((s, (k.stress[s], p.stress[s])) for s in ipk.STRESS_KEYS)
+    err = {name: float((a - b).abs().max() / b.abs().max())
+           for name, (a, b) in pairs.items()}
+    return err, launched, want
+
+
+def ustar_model(device, icode: int, *, plain: bool = False,
+                ustar: float = 0.5):
+    """tests/test_forcing_fidelity.py's u* case: the 12° aqua grid, 12×25,
+    idelpro = idelt = 900 s, cached weights, u* forcing (``icode`` 1 or 2)
+    of ``ustar`` m/s everywhere with no U10 (zero wind speed).  Returns
+    the setup and a ``WaveModel`` whose stress state has taken the
+    forcing's u* (``newwind``)."""
+    ms = build_model(grid_name="12.0", nang=12, nfre=25, idelpro=900.0,
+                     idelt=900.0, pad_to=64, icode_wnd=icode,
+                     weights_mode="cached", device=device)
+    n = ms.n_real
+
+    def at(date14):
+        return dict(wswave=np.zeros(n), wdwave=np.zeros(n),
+                    aird=np.full(n, 1.225), wstar=np.zeros(n),
+                    cicover=np.zeros(n), ufric=np.full(n, ustar))
+    m = WaveModel(ms, at, START, plain=plain)
+    return ms, m.newwind(m.date)
+
+
+def wavemodel_inputs(model: WaveModel, stress: dict | None = None):
+    """A ``WaveModel``'s state as the compact entry takes it: (fl1,
+    env2d, scal) at every point (with ``stress`` in place of the
+    model's, if given)."""
+    from ecwam_tpu_torch.model import stepper
+    ms = model.setup
+    return (model.fl1.contiguous(), stepper.physics_env(ms),
+            stepper.physics_scal(ms, model.frc, stress or model.stress))

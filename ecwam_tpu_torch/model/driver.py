@@ -1,15 +1,24 @@
-"""Time-integration driver on SRL-resident state (the RUNWAM/WAMODEL role).
+"""Time-integration drivers (the RUNWAM/WAMODEL role).
 
-Port of ``ecwam_tpu/model/driver.py: FastWaveModel`` — the production
-stepping mode: the spectrum stays in the segmented row layout between
-steps, each ``idelpro`` runs the CTU advection (kernel A) and each
-``idelt`` the IMPLSCH physics (kernel B): minimal mode between output
-dates, and at output dates (``advance(..., full_phys=True)``) full mode
-chunked over rows with the windsea/swell separation, which fills
-``state`` (wamodel.F90:228-649, wamintgr.F90:94-186).  Dates are
-14-character strings (incdate.F90) kept as ``datetime``.  Surface
-currents in the forcing (``ucur``/``vcur``) re-derive the refraction
-inputs and the CFL retry mask (GETCURR → LUPDTWGHT).
+Port of ``ecwam_tpu/model/driver.py``:
+
+  * :class:`WaveModel`, the dense model: the spectrum stays compact
+    (nang, nfre, n_pad) between steps; each ``idelpro`` advects it in the
+    setup's weight mode (``cached``/``otf`` CTU weights, or kernel A in
+    ``fused``, :mod:`.stepper`) and each ``idelt`` runs the full-mode
+    physics through kernel C, with the windsea mask and every diagnostic
+    in ``state``.  It takes u* forcing (icode_wnd 1/2) as well as U10;
+  * :class:`FastWaveModel`, the production stepping mode: the spectrum
+    stays in the segmented row layout between steps, each ``idelpro`` runs
+    the CTU advection (kernel A) and each ``idelt`` the IMPLSCH physics
+    (kernel B): minimal mode between output dates, and at output dates
+    (``advance(..., full_phys=True)``) full mode chunked over rows with
+    the windsea/swell separation, which fills ``state``.
+
+(wamodel.F90:228-649, wamintgr.F90:94-186.)  Dates are 14-character
+strings (incdate.F90) kept as ``datetime``.  Surface currents in the
+forcing (``ucur``/``vcur``) re-derive the refraction inputs and the CFL
+retry (GETCURR → LUPDTWGHT).
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import torch
 from ecwam_tpu_torch.device import synchronize
 from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.model.setup import ModelSetup, pad_point_field
+from ecwam_tpu_torch.model import preset as preset_mod
+from ecwam_tpu_torch.model import stepper as stepper_mod
 from ecwam_tpu_torch.model.stepper import initial_stress
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 from ecwam_tpu_torch.ops.physics import means as means_mod
@@ -52,28 +63,212 @@ class StepTimers:
     steps: int = 0
 
 
-class FastWaveModel:
-    """SRL-resident wave model on one device.
+class WaveModel:
+    """The dense wave model on one device (the reference's ``WaveModel``).
 
     ``forcing_provider(date14) -> dict`` returns host arrays of shape
     (n_real,) for keys wswave, wdwave, aird, wstar, cicover (optional
-    cithick, and ucur/vcur, the surface currents, for irefra 2/3).
-    ``fl1`` (compact (nang, nfre, n_pad)) and ``stress`` (dict of
-    (n_pad,) fields), numpy arrays or tensors on any device, carry a
-    state across; without ``fl1`` the
-    JONSWAP cold start is built in the SRL layout on the device.
-    ``plain=True`` runs the plain PyTorch versions of both kernels.
+    cithick; ufric, the friction velocity, for u* forcing, icode_wnd 1/2;
+    ucur/vcur, the surface currents, for irefra 2/3).  ``fl1`` (compact
+    (nang, nfre, n_pad)) and ``stress`` (dict of (n_pad,) fields), numpy
+    arrays or tensors on any device, carry a state across; without
+    ``fl1`` the JONSWAP cold start of the forcing's winds.  Every physics
+    step runs in full mode, so ``state`` always holds the last one's
+    diagnostics and windsea mask.  ``plain=True`` runs the plain PyTorch
+    versions of kernels A and C (for the checks).
     """
 
-    WSPMIN_RESET_TAUW = 4.0           # yowwind.F90:19-20
-    _ACD, _BCD = 8.0e-4, 8.0e-5       # yowpcons.F90:55-56
+    # forcing-swap constants (yowwind.F90:19-20, yowpcons.F90:55-56)
+    WSPMIN_RESET_TAUW = 4.0
+    USTMIN_RESET_TAUW = 0.08
+    _ACD, _BCD = 8.0e-4, 8.0e-5
+
+    def __init__(self, setup: ModelSetup, forcing_provider: Callable,
+                 start_date: str | _dt.datetime, fl1=None, stress=None,
+                 *, plain: bool = False):
+        self.setup = setup
+        self.forcing_provider = forcing_provider
+        self.date = (parse_date(start_date) if isinstance(start_date, str)
+                     else start_date)
+        self.steps = stepper_mod.make_step(setup, plain=plain)
+        self.step_full, self.step_adv, self.step_phys = self.steps
+        frc, cur = self._forcing_host(self.date)
+        self.frc = self._to_device(frc)
+        if cur is not None:
+            self.steps.refresh_currents(*cur)
+        # cold start and first-guess stress from the forcing as the model
+        # holds it (model dtype), like the reference
+        wind = {k: self.frc[k].cpu().numpy() for k in ("wswave", "wdwave")}
+        self.fl1 = (preset_mod.mstart(setup.tb, wind["wswave"],
+                                      wind["wdwave"]) if fl1 is None else fl1)
+        self.stress = initial_stress(setup, wind) if stress is None \
+            else stress
+        self.state = {}
+        self.timers = StepTimers()
+        self._phys_elapsed = 0.0
+
+    @property
+    def fl1(self) -> torch.Tensor:
+        """Compact spectrum (nang, nfre, n_pad)."""
+        return self._fl1
+
+    @fl1.setter
+    def fl1(self, value):
+        # the compact layout, points contiguous (kernel C's layout)
+        self._fl1 = self._as_tensor(value).contiguous()
+
+    @property
+    def stress(self) -> dict:
+        return self._stress
+
+    @stress.setter
+    def stress(self, value):
+        """The six STRESS_KEYS fields, each (n_pad,), numpy or tensors on
+        any device."""
+        self._stress = {k: self._as_tensor(value[k])
+                        for k in ipk.STRESS_KEYS}
+
+    # -- forcing (GETWND / NEWWIND) ---------------------------------------
+    def _forcing_host(self, date):
+        """Provider fields → padded (n_pad,) float64 host arrays, and the
+        currents (ucur, vcur) the same way (as the model's dtype holds
+        them) or None.  Under U10 forcing (icode_wnd 3) the wind is floored
+        at WSPMIN (wamwnd.F90 CASE(3)); u* forcing brings ``ufric``."""
+        raw = self.forcing_provider(format_date(date))
+        keys = ["wswave", "wdwave", "aird", "wstar", "cicover"]
+        keys += [k for k in ("cithick", "ufric") if k in raw]
+        out = {}
+        for k in keys:
+            v = np.asarray(raw[k], dtype=np.float64)
+            if k == "wswave" and self.setup.phys.icode_wnd == 3:
+                v = np.maximum(v, 1.0)
+            out[k] = pad_point_field(self.setup, v)
+        cur = None
+        if "ucur" in raw:
+            # as the model holds them (its dtype), like the reference
+            cur = tuple(np.asarray(torch.as_tensor(pad_point_field(
+                self.setup, np.asarray(raw[k], np.float64)),
+                dtype=self.setup.dtype), np.float64) for k in ("ucur", "vcur"))
+        return out, cur
+
+    def _as_tensor(self, value) -> torch.Tensor:
+        """A numpy array or a tensor on any device as the model's dtype on
+        its device."""
+        return torch.as_tensor(value, dtype=self.setup.dtype,
+                               device=self.setup.device)
+
+    def _to_device(self, fields: dict) -> dict:
+        return {k: self._as_tensor(v) for k, v in fields.items()}
+
+    def newwind(self, date):
+        """Swap staged forcing in (newwind.F90:97-178).
+
+        ICODE 3: cap the wave stress where the new wind is weak —
+        TAUW ≤ (ACD+BCD·U10)·U10³/WSPMIN_RESET_TAUW (newwind.F90:125-146).
+        ICODE 1/2: take u* from the forcing and rebuild
+        TAUW = u*²·(1−(α/CHARNOCK)²), zeroed below USTMIN_RESET_TAUW.
+        New currents re-derive the CTU weights (GETCURR → LUPDTWGHT)."""
+        frc, cur = self._forcing_host(date)
+        frc = self._to_device(frc)
+        stress = dict(self.stress)
+        if self.setup.phys.icode_wnd == 3:
+            u10 = frc["wswave"]
+            tlwmax = (1.0 / self.WSPMIN_RESET_TAUW) * (
+                self._ACD + self._BCD * u10) * u10**3
+            stress["tauw"] = torch.where(
+                u10 < self.WSPMIN_RESET_TAUW,
+                torch.minimum(stress["tauw"], tlwmax), stress["tauw"])
+        else:
+            us = frc["ufric"]
+            alpha = self.setup.phys.params.alpha
+            tauw = us**2 * (1.0 - (alpha / stress["chrnck"]) ** 2)
+            stress.update(ufric=us, tauw=torch.where(
+                us < self.USTMIN_RESET_TAUW, torch.zeros_like(tauw), tauw))
+        self.stress = stress
+        self.frc = frc
+        if cur is not None:
+            self.steps.refresh_currents(*cur)
+        return self
+
+    def advance(self, n_steps: int = 1, wind_every: int | None = None,
+                full_phys: bool = True):
+        """Advance ``n_steps`` advection steps of ``idelpro`` seconds;
+        physics runs in full mode whenever the accumulated time reaches
+        ``idelt`` (wamintgr.F90:117-146).  ``wind_every``: swap forcing
+        every N steps (NEWWIND incl. the TAUW cap); None keeps the forcing.
+        ``full_phys`` is taken for parity with :class:`FastWaveModel`.
+        The timers split each step into its advection and its physics."""
+        s, dev = self.setup, self.setup.device
+        for i in range(n_steps):
+            if wind_every and i > 0 and i % wind_every == 0:
+                self.newwind(self.date)
+            t0 = time.perf_counter()
+            fl1 = self.step_adv(self._fl1)
+            synchronize(dev)
+            self.timers.propag += time.perf_counter() - t0
+            self._phys_elapsed += s.idelpro
+            if self._phys_elapsed >= s.idelt - 1e-6:
+                t0 = time.perf_counter()
+                fl1, st = self.steps.phys_inplace(fl1, self.frc, self.stress)
+                self.stress = {k: st[k] for k in ipk.STRESS_KEYS}
+                self.state = st
+                self._phys_elapsed = 0.0
+                synchronize(dev)
+                dt = time.perf_counter() - t0
+                self.timers.phys += dt
+                self.timers.phys_full += dt
+            self._fl1 = fl1
+            self.timers.steps += 1
+            self.date += _dt.timedelta(seconds=s.idelpro)
+        return self
+
+    # -- diagnostics ------------------------------------------------------
+    def memory_report(self) -> dict:
+        """Device-memory snapshot (EC_MEMINFO role, runwam.F90:420-432),
+        from ``torch.cuda.memory_stats``; None on the CPU."""
+        dev = self.setup.device
+        if dev.type != "cuda":
+            return dict(bytes_in_use=None, peak_bytes_in_use=None,
+                        bytes_limit=None)
+        stats = torch.cuda.memory_stats(dev)
+        return dict(
+            bytes_in_use=stats.get("allocated_bytes.all.current"),
+            peak_bytes_in_use=stats.get("allocated_bytes.all.peak"),
+            bytes_limit=torch.cuda.get_device_properties(dev).total_memory)
+
+    def swh(self) -> np.ndarray:
+        """Significant wave height over real sea points."""
+        em = means_mod.semean(self.fl1, self.setup.tb)
+        return (4.0 * torch.sqrt(em)).cpu().numpy()[: self.setup.n_real]
+
+    def norms(self) -> dict:
+        """avg/min/max of SWH — the statistics.log contract
+        (outwnorm.F90:80-140)."""
+        swh = self.swh()
+        return dict(name="swh", date=format_date(self.date),
+                    average=float(swh.mean()), minimum=float(swh.min()),
+                    maximum=float(swh.max()), count=int(swh.size))
+
+
+class FastWaveModel(WaveModel):
+    """SRL-resident wave model on one device.
+
+    The forcing provider and the ``fl1``/``stress`` state are those of
+    :class:`WaveModel`; without ``fl1`` the JONSWAP cold start is built in
+    the SRL layout on the device.  U10 forcing (icode_wnd 3) only, as the
+    reference's fast path.  ``plain=True`` runs the plain PyTorch versions
+    of kernels A and B.
+    """
 
     def __init__(self, setup: ModelSetup, forcing_provider: Callable,
                  start_date: str | _dt.datetime, fl1=None, stress=None,
                  *, plain: bool = False):
         if setup.phys.icode_wnd != 3:
-            raise NotImplementedError("only U10 forcing (icode_wnd=3) is "
-                                      "ported")
+            raise NotImplementedError("the SRL fast path takes U10 forcing "
+                                      "(icode_wnd 3) only")
+        if setup.fused is None:
+            raise ValueError("FastWaveModel runs on a setup built with "
+                             "weights_mode='fused'")
         self.setup = setup
         self.forcing_provider = forcing_provider
         self.date = (parse_date(start_date)
@@ -98,38 +293,6 @@ class FastWaveModel:
         self.state = {}
         self.timers = StepTimers()
         self._phys_elapsed = 0.0
-
-    # -- forcing (GETWND / NEWWIND) ---------------------------------------
-    def _forcing_host(self, date):
-        """Provider fields → padded (n_pad,) float64 host arrays, and the
-        currents (ucur, vcur) the same way or None; U10 is floored at
-        WSPMIN (wamwnd.F90 CASE(3))."""
-        raw = self.forcing_provider(format_date(date))
-        keys = ["wswave", "wdwave", "aird", "wstar", "cicover"]
-        if "cithick" in raw:
-            keys.append("cithick")
-        out = {}
-        for k in keys:
-            v = np.asarray(raw[k], dtype=np.float64)
-            if k == "wswave":
-                v = np.maximum(v, 1.0)
-            out[k] = pad_point_field(self.setup, v)
-        cur = None
-        if "ucur" in raw:
-            # as the model holds them (its dtype), like the reference
-            cur = tuple(np.asarray(torch.as_tensor(pad_point_field(
-                self.setup, np.asarray(raw[k], np.float64)),
-                dtype=self.setup.dtype), np.float64) for k in ("ucur", "vcur"))
-        return out, cur
-
-    def _as_tensor(self, value) -> torch.Tensor:
-        """A numpy array or a tensor on any device as the model's dtype on
-        its device."""
-        return torch.as_tensor(value, dtype=self.setup.dtype,
-                               device=self.setup.device)
-
-    def _to_device(self, fields: dict) -> dict:
-        return {k: self._as_tensor(v) for k, v in fields.items()}
 
     def newwind(self, date):
         """Swap forcing in and cap TAUW where the new wind is weak
@@ -240,33 +403,6 @@ class FastWaveModel:
         """The six STRESS_KEYS fields, each (n_pad,), into the SRL rows
         (the land slot replicates point 0, as at construction)."""
         self._stress6 = self.fp.stress_srl(value)
-
-    # -- diagnostics ------------------------------------------------------
-    def memory_report(self) -> dict:
-        """Device-memory snapshot (EC_MEMINFO role, runwam.F90:420-432),
-        from ``torch.cuda.memory_stats``; None on the CPU."""
-        dev = self.setup.device
-        if dev.type != "cuda":
-            return dict(bytes_in_use=None, peak_bytes_in_use=None,
-                        bytes_limit=None)
-        stats = torch.cuda.memory_stats(dev)
-        return dict(
-            bytes_in_use=stats.get("allocated_bytes.all.current"),
-            peak_bytes_in_use=stats.get("allocated_bytes.all.peak"),
-            bytes_limit=torch.cuda.get_device_properties(dev).total_memory)
-
-    def swh(self) -> np.ndarray:
-        """Significant wave height over real sea points."""
-        em = means_mod.semean(self.fl1, self.setup.tb)
-        return (4.0 * torch.sqrt(em)).cpu().numpy()[: self.setup.n_real]
-
-    def norms(self) -> dict:
-        """avg/min/max of SWH — the statistics.log contract
-        (outwnorm.F90:80-140)."""
-        swh = self.swh()
-        return dict(name="swh", date=format_date(self.date),
-                    average=float(swh.mean()), minimum=float(swh.min()),
-                    maximum=float(swh.max()), count=int(swh.size))
 
 
 def constant_wind_forcing(n_real: int, u10: float = 10.0,

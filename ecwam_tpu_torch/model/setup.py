@@ -1,9 +1,10 @@
 """Model assembly: grid + spectra + physics + fused propagation tables.
 
-Port of ``ecwam_tpu/model/setup.py`` for ``weights_mode="fused"`` (the
-SRL fast path): the reference's init chain (runwam.F90:235-257,
-initmdl.F90) as one host-side builder of numpy tables, with the env
-arrays as torch tensors on the chosen device.
+Port of ``ecwam_tpu/model/setup.py``: the reference's init chain
+(runwam.F90:235-257, initmdl.F90) as one host-side build of numpy
+tables, with the env arrays as torch tensors on the chosen device, for
+the three weight modes of the reference (``fused``: the SRL tables of
+kernel A; ``cached``/``otf``: the dense CTU weights of ``model.stepper``).
 
   - the sea-point axis is padded to a multiple of ``pad_to``; padded
     points replicate point 0 and are excluded from norms/outputs by
@@ -54,8 +55,19 @@ class ModelSetup:
     env: dict                 # env tensors (padded, + _ext variants)
     dtype: torch.dtype
     device: torch.device
-    fused: pfz.FusedTables
-    fused_env: dict           # host SRL statics: cg_srl, cg_land, depth_ext, pf
+    # 'fused' only: the SRL tables of kernel A and their host statics
+    # (cg_srl, cg_land, depth_ext, pf); None in the dense modes
+    fused: pfz.FusedTables | None = None
+    fused_env: dict | None = None
+    # the memory knobs of the dense modes (model/stepper.py): 'cached'
+    # keeps the CTU weights resident (17 or 19 planes per bin,
+    # propag_wam.F90 LUPDTWGHT), 'otf' recomputes them per block of
+    # ``otf_block`` frequencies every step; ``phys_chunk`` splits the
+    # point axis of the physics into NPROMA chunks (mchunk.F90:44-45),
+    # 0 = one chunk
+    weights_mode: str = "fused"
+    otf_block: int = 1
+    phys_chunk: int = 0
 
 
 def _pad_stencil(st: prop.StencilTables, n_real: int,
@@ -157,10 +169,21 @@ def build_model(
     obstructions=None,
     currents: tuple | None = None,
     weights_mode: str = "fused",
+    otf_block: int = 1,
+    phys_chunk: int = 0,
+    cache_dir: str | None = None,
     device: str | torch.device | None = None,
 ) -> ModelSetup:
-    """Build a complete single-domain model for the fused SRL path.
+    """Build a complete single-domain model.
 
+    ``weights_mode``: ``fused`` (the default here; the reference's is
+    ``cached``) builds the SRL tables of kernel A for ``FastWaveModel``
+    and ``WaveModel``'s fused mode; ``cached`` and ``otf`` build none, for
+    ``WaveModel``'s dense CTU weights (``otf_block`` frequencies a block in
+    ``otf``).  ``phys_chunk``: points a physics chunk of ``WaveModel``
+    (0: all).  ``cache_dir``: an on-disk cache of the host tables (stencil,
+    SRL tables, dispersion env) keyed by the build inputs
+    (:mod:`.tablecache`, the PREPROC write-once artifact).
     ``device`` names where the env tensors live: ``"cuda"`` (the
     default, None) or ``"cpu"``; the numpy tables stay on the host.
     ``currents``: optional (u, v) surface-current fields over the sea
@@ -173,11 +196,11 @@ def build_model(
     input physics and the DIA enhancement.  As in the reference, the
     options without a keyword here (SDICE1/2, LSTRN, LBIWBK, LICERUN,
     LMASKICE) are set on the returned setup's ``phys``
-    (``cases.with_phys``).  The dense/OTF weight modes are not ported.
+    (``cases.with_phys``).
     """
-    if weights_mode != "fused":
-        raise NotImplementedError(f"weights_mode={weights_mode!r}: only the "
-                                  "fused SRL path is ported")
+    if weights_mode not in ("fused", "cached", "otf"):
+        raise ValueError(f"weights_mode={weights_mode!r}: fused, cached or "
+                         "otf")
     if irefra not in (0, 1, 2, 3):
         raise ValueError(f"irefra={irefra}")
     dev = resolve(device)
@@ -191,6 +214,10 @@ def build_model(
     nfre_red = nfre_red or nfre
     if ifrelfmax >= nfre_red:
         raise ValueError("ifrelfmax must be < nfre_red (propag_wam.F90:257)")
+    if irefra in (2, 3) and ifrelfmax and weights_mode == "otf":
+        raise NotImplementedError(
+            "current refraction + fast-wave substepping is supported in "
+            "the 'fused' and 'cached' weights modes only")
 
     tb = build_spectral_tables(nang=nang, nfre=nfre, nfre_red=nfre_red)
     params = pp.set_phys_params(iphys, nang=nang, llgcbz0=llgcbz0,
@@ -198,22 +225,41 @@ def build_model(
     phys = impl.make_physics_config(tb, params, idelt, nfre_red=nfre_red,
                                     isnonlin=isnonlin, icode_wnd=icode_wnd,
                                     lciwa3=lciwa3, lciscal=lciscal)
-    impl.check_ported(phys)
 
     # segment size scales with the typical row length (16..128)
     seg = 1 << max(4, min(7, int(np.log2(max(16, grid.ngx // 4)))))
-    blk = build_sea_point_block(grid, bathy)
-    n_real = blk.nsea
-    n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
-    st_real = prop.build_stencil(grid, blk, nfre_red,
-                                 obstructions=obstructions)
-    ft = pfz.build_fused_tables(st_real, blk.kxlt, nfre_red, S=seg,
-                                land_index=n_pad)
+    fused = weights_mode == "fused"
+    cached = cache_key = None
+    if cache_dir is not None:
+        from ecwam_tpu_torch.model import tablecache
+        cache_key = tablecache.build_key(
+            grid, bathy, nang=nang, nfre=nfre, nfre_red=nfre_red,
+            pad_to=pad_to, seg=seg if fused else 0,
+            obstructions=obstructions)
+        cached = tablecache.load(
+            cache_dir, cache_key, blk_cls=SeaPointBlock,
+            st_cls=prop.StencilTables, ft_cls=pfz.FusedTables)
+    if cached is not None:
+        blk, st_real, ft, props_ext = cached
+        n_real = blk.nsea
+        n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
+    else:
+        blk = build_sea_point_block(grid, bathy)
+        n_real = blk.nsea
+        n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
+        st_real = prop.build_stencil(grid, blk, nfre_red,
+                                     obstructions=obstructions)
+        ft = (pfz.build_fused_tables(st_real, blk.kxlt, nfre_red, S=seg,
+                                     land_index=n_pad) if fused else None)
     depth = np.empty(n_pad)
     depth[:n_real] = blk.depth
     depth[n_real:] = blk.depth[0]
     depth_ext = np.concatenate([depth, [dispersion.BATHYMAX]])
-    props_ext = dispersion.depth_properties(depth_ext, tb.fr)
+    if cached is None:
+        props_ext = dispersion.depth_properties(depth_ext, tb.fr)
+        if cache_dir is not None:
+            tablecache.save(cache_dir, cache_key, blk=blk, stencil=st_real,
+                            fused=ft, props=props_ext)
     uc, vc = np.zeros(n_pad + 1), np.zeros(n_pad + 1)
     if currents is not None:
         uc[:n_real], vc[:n_real] = currents[0], currents[1]
@@ -225,7 +271,10 @@ def build_model(
         delpro_lf=delpro_lf or idelpro, ifrelfmax=ifrelfmax, irefra=irefra,
         env=_env_tensors(props_ext, depth_ext, n_pad, dtype, dev, uc, vc),
         dtype=dtype, device=dev, fused=ft,
-        fused_env=_fused_env(ft, props_ext, depth_ext, nfre_red, irefra))
+        fused_env=(_fused_env(ft, props_ext, depth_ext, nfre_red, irefra)
+                   if fused else None),
+        weights_mode=weights_mode, otf_block=otf_block,
+        phys_chunk=phys_chunk)
 
 
 def setup_from_arrays(*, grid, blk, tb, params, stencil: dict, fused: dict,
@@ -252,7 +301,6 @@ def setup_from_arrays(*, grid, blk, tb, params, stencil: dict, fused: dict,
                                     nfre_red=tb.nfre_red, isnonlin=isnonlin,
                                     icode_wnd=icode_wnd, lciwa3=lciwa3,
                                     lciscal=lciscal)
-    impl.check_ported(phys)
     cur = [np.asarray(env[k], np.float64) if k in env else None
            for k in ("ucur_ext", "vcur_ext")]
     return ModelSetup(

@@ -288,7 +288,9 @@ def airsea(u10, udir, tauw, tauwdir, ustar, params: pp.PhysParams,
 
     Returns (u10, ustar, z0, z0b, chrnck), and with ``with_margin`` the
     gravity-capillary closure's decision margin (:func:`taut_z0_gc`;
-    +inf for the other closures, which take no discrete decision).
+    +inf for TAUT_Z0, which takes no discrete decision; for u* forcing
+    Z0WAVE's relative gap (u*² − τw)/u*², whose inverse amplifies the
+    rounding of its root's argument, +inf where the EPS1 floor holds).
     """
     if icode_wnd == 3:
         if params.llgcbz0:
@@ -305,7 +307,13 @@ def airsea(u10, udir, tauw, tauwdir, ustar, params: pp.PhysParams,
         z0, z0b, chrnck = z0wave(ustar, tauw, u10, params)
         u10_new = (1.0 / pp.XKAPPA) * ustar * (
             math.log(pp.XNLEV) - torch.log(z0))
-        return torch.clamp(u10_new, min=wspmin), ustar, z0, z0b, chrnck
+        out = (torch.clamp(u10_new, min=wspmin), ustar, z0, z0b, chrnck)
+        # the margin: Z0WAVE's relative gap u*² − τw over u*², whose
+        # inverse amplifies rounding; +inf where the EPS1 floor holds
+        gap = ustar**2 - tauw
+        margin = torch.where(gap > EPS1, gap / ustar**2,
+                             torch.full_like(gap, torch.inf))
+        return out + (margin,) if with_margin else out
     raise ValueError(f"invalid ICODE_WND={icode_wnd}")
 
 

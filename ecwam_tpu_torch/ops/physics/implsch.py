@@ -13,8 +13,9 @@ SINPUT_JAN and the cycle-4 SDISSIP_JAN), all three DIA enhancements
 closure LLGCBZ0 with HALPHAP on the first SINFLX call, LLNORMAGAM,
 LLCAPCHNK, LCISCAL), the three sea-ice attenuation models (SDICE1/2/3,
 LCIWA1/2/3), the sea-ice strain (LSTRN) and the LBIWBK, LICERUN and
-LMASKICE switches are ported.  u*-driven forcing (icode_wnd 1/2) raises
-NotImplementedError (ROADMAP A4).
+LMASKICE switches are ported, with U10 forcing (icode_wnd 3) and u*
+forcing (icode_wnd 1/2: AIRSEA's U10 from the log profile feeds the rest
+of the chain and the state's ``wswave``).
 
 Layout: fl1 (nang, nfre, npts).
 """
@@ -116,11 +117,16 @@ def make_physics_config(tables, params: pp.PhysParams, idelt: float,
         idelt=idelt, nfre_red=nfre_red or tables.nfre_red, **kw)
 
 
-def check_ported(cfg: PhysicsConfig) -> None:
-    """Raise for the physics options this port does not cover yet: the
-    u*-driven forcing (icode_wnd 1/2) of the dense model."""
-    if cfg.icode_wnd != 3:
-        raise NotImplementedError("not ported (ROADMAP A4): icode_wnd 1/2")
+def check_ported(cfg: PhysicsConfig, *, srl: bool = False) -> None:
+    """Raise for what a path does not take: u*-driven forcing
+    (icode_wnd 1/2) runs on the compact spectrum of the dense model only;
+    the SRL fast path (``srl``) takes U10 forcing, as the reference's
+    fast path does."""
+    if cfg.icode_wnd not in (1, 2, 3):
+        raise ValueError(f"invalid ICODE_WND={cfg.icode_wnd}")
+    if srl and cfg.icode_wnd != 3:
+        raise NotImplementedError("the SRL fast path takes U10 forcing "
+                                  "(icode_wnd 3), not icode_wnd 1/2")
 
 
 def growth_factor(wswave, params: pp.PhysParams):
@@ -157,10 +163,15 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
                         dim=1)
         if params.llgcbz0:
             halp = gc_mod.halphap(fl1, env["wavnum"], coswdif, tb, params)
-    _, ufric, z0m, z0b, chrnck, gc_margin = airsea_mod.airsea(
+    wswave, ufric, z0m, z0b, chrnck, gc_margin = airsea_mod.airsea(
         frc["wswave"], frc["wdwave"], tauw, tauwdir, ufric, params,
         icode_wnd=cfg.icode_wnd, iusfg=0 if icall == 1 else 1, halp=halp,
         rnfac=rnfac, with_margin=True)
+    if cfg.icode_wnd in (1, 2):
+        # u*-driven forcing: AIRSEA derives U10 from the log profile
+        # (airsea.F90 ICODE 1/2) and the new U10 feeds the rest of the
+        # chain (the reference's INOUT WSWAVE)
+        frc = dict(frc, wswave=wswave)
     if params.llgcbz0:
         gc_margin = torch.minimum(
             gc_margin, gc_mod.ns_gc_tie(ufric, gc_mod.gc_tables()))
@@ -186,8 +197,8 @@ def sinflx(icall, ncall, cfg: PhysicsConfig, fl1, env, frc, flm, fmean,
         tb, params, x0tauhf=cfg.x0tauhf, wtauhf=cfg.wtauhf, llphiwa=llphiwa)
 
     return dict(
-        fl1=fl1, ufric=ufric, tauw=tauw, tauwdir=tauwdir,
-        z0m=z0m, z0b=z0b, chrnck=chrnck,
+        fl1=fl1, wswave=frc["wswave"], ufric=ufric, tauw=tauw,
+        tauwdir=tauwdir, z0m=z0m, z0b=z0b, chrnck=chrnck,
         fld=fld, sl=sl, spos=spos, xllws=xllws, xllws_margin=margin,
         mij=mij, rhowgdfth=rhowgdfth, fmeanws=fmeanws, phiwa=phiwa,
         frcut=frcut, halp=halp, gc_margin=gc_margin,
@@ -207,7 +218,9 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
     mask bin from the mask's edge in the second SINFLX call (see
     :func:`.sinput.sinput_ard`), with ISNONLIN=2 ``peak_margin``, the
     relative gap of PEAK_ANG's peak over the next direction maximum
-    (:func:`.dia.peak_margin`) — and, with ``cfg.lcflx``/``cfg.lstokes``
+    (:func:`.dia.peak_margin`), under u* forcing ``z0_margin``, Z0WAVE's
+    smaller relative gap (u*² − τw)/u*² of the two calls (rounding is
+    amplified by its inverse) — and, with ``cfg.lcflx``/``cfg.lstokes``
     (full mode), the WNFLUXES and STOKESTRN fields.
     """
     check_ported(cfg)
@@ -238,6 +251,8 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         halp = st["halp"]
         fl1, ufric, tauw, tauwdir = (
             st["fl1"], st["ufric"], st["tauw"], st["tauwdir"])
+        if cfg.icode_wnd in (1, 2):
+            frc = dict(frc, wswave=st["wswave"])
         z0m, z0b, chrnck = st["z0m"], st["z0b"], st["chrnck"]
     fld, sl = st["fld"], st["sl"]
     mij, xllws, fmeanws = st["mij"], st["xllws"], st["fmeanws"]
@@ -320,6 +335,7 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         fl1 = setice(fl1, frc["cicover"], st["coswdif"])
 
     state = dict(
+        **({"wswave": frc["wswave"]} if cfg.icode_wnd in (1, 2) else {}),
         ufric=ufric, tauw=tauw, tauwdir=tauwdir, z0m=z0m, z0b=z0b,
         chrnck=chrnck, mij=mij, xllws=xllws, phiwa=st["phiwa"],
         emean=emean, fmean=fmean, f1mean=f1mean, akmean=akmean,
@@ -327,7 +343,9 @@ def implsch(cfg: PhysicsConfig, fl1, env, frc,
         wsemean=wsemean, wsfmean=wsfmean, frcut_tie=torch.minimum(*ties),
         xllws_margin=xllws_margin,
         **flux_diag)
-    if cfg.params.llgcbz0:
+    if cfg.icode_wnd in (1, 2):
+        state["z0_margin"] = torch.minimum(*gc_margins)
+    elif cfg.params.llgcbz0:
         state["gc_margin"] = torch.minimum(*gc_margins)
     if peak is not None:
         state["peak_margin"] = peak

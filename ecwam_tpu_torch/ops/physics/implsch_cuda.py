@@ -30,7 +30,10 @@ The rest of the physics (iphys=0's Janssen input and cycle-4
 dissipation, ISNONLIN 0/2, SDICE1/2, the sea-ice strain LSTRN and the
 LBIWBK/LICERUN/LMASKICE switches off) runs in the ``EXT``
 instantiations (with ``JAN`` for iphys=0), so that neither earlier
-instantiation changes.
+instantiation changes.  u*-driven forcing (icode_wnd 1/2), which only the
+dense model's compact spectrum takes, runs in full mode in the ``UST``
+instantiation and returns one more row, the log profile's U10
+(:data:`SCAL_OUT_UST`).
 """
 
 from __future__ import annotations
@@ -80,6 +83,8 @@ SCAL_OUT_FULL = STRESS_KEYS + (
     "tauxd", "tauyd", "tauocxd", "tauocyd", "tauoc",
     "phiocd", "phieps", "phiaw", "em_oc", "f1_oc",
     "ustokes", "vstokes", "strnms")
+# full mode under u* forcing: U10 from the log profile after those rows
+SCAL_OUT_UST = SCAL_OUT_FULL + ("wswave",)
 
 # scalar parameter block of the kernel, in the order of csrc/implsch.cu's
 # Par enum (P_<NAME>)
@@ -117,11 +122,13 @@ PAR_NAMES = (
 # option bits of the kernel's ``opts`` argument, in the order of
 # csrc/implsch.cu's Opt enum: the cycle-49/50 options (the OPTS
 # instantiation), then those of the EXT instantiations — iphys=0 (JAN),
-# ISNONLIN 0/2, SDICE1/2, LSTRN and the three switches switched off
+# ISNONLIN 0/2, SDICE1/2, LSTRN and the three switches switched off —
+# then u* forcing (the UST instantiation)
 OPT_FLAGS = ("llgcbz0", "llnormagam", "llcapchnk", "lciwa3", "lciscal",
              "iphys0", "isnonlin0", "isnonlin2", "lciwa1", "lciwa2", "lstrn",
-             "no_lbiwbk", "no_licerun", "no_lmaskice")
-EXT_BITS = sum(1 << i for i in range(5, len(OPT_FLAGS)))
+             "no_lbiwbk", "no_licerun", "no_lmaskice", "ustar")
+UST_BIT = 1 << OPT_FLAGS.index("ustar")
+EXT_BITS = sum(1 << i for i in range(5, OPT_FLAGS.index("ustar")))
 LSTRN_BIT = 1 << OPT_FLAGS.index("lstrn")
 # gravity-capillary tables the kernel reads, NWAV values each, in the
 # order of csrc/implsch.cu's GcTab enum
@@ -137,9 +144,21 @@ def minimal_config(cfg: impl.PhysicsConfig) -> impl.PhysicsConfig:
     return dataclasses.replace(cfg, lcflx=False, lstokes=False, lstrn=False)
 
 
+def out_keys(cfg: impl.PhysicsConfig, full: bool) -> tuple:
+    """The output rows of a step: the stress rows (minimal mode), the
+    full mode's, and under u* forcing U10 after them."""
+    if not full:
+        return SCAL_OUT_MIN
+    return SCAL_OUT_UST if cfg.icode_wnd in (1, 2) else SCAL_OUT_FULL
+
+
 def unpack_scal_out(so, *, full: bool) -> dict:
-    """(NSO, n) packed output rows → state dict (mij back to int64)."""
-    keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
+    """(NSO, n) packed output rows → state dict (mij back to int64); u*
+    forcing's extra row comes out as ``wswave``."""
+    keys = SCAL_OUT_MIN
+    if full:
+        keys = SCAL_OUT_UST if so.shape[0] == len(SCAL_OUT_UST) \
+            else SCAL_OUT_FULL
     out = {k: so[i] for i, k in enumerate(keys)}
     if "mij" in out:
         out["mij"] = out["mij"].to(torch.int64)
@@ -148,8 +167,11 @@ def unpack_scal_out(so, *, full: bool) -> dict:
 
 def pack_scal_out(state: dict, *, full: bool):
     """A chain's state dict → (NSO, n) rows; keys the configuration does
-    not compute are zero, as in the TPU kernel."""
-    keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
+    not compute are zero, as in the TPU kernel; u* forcing's ``wswave``
+    (in the state only then) after the full mode's rows."""
+    keys = SCAL_OUT_MIN
+    if full:
+        keys = SCAL_OUT_UST if "wswave" in state else SCAL_OUT_FULL
     like = state["ufric"]
     return torch.stack([state[k].to(like.dtype) if k in state
                         else torch.zeros_like(like) for k in keys])
@@ -162,13 +184,21 @@ def option_bits(cfg: impl.PhysicsConfig) -> int:
     on = (p.llgcbz0, p.llnormagam, p.llcapchnk, cfg.lciwa3, cfg.lciscal,
           p.iphys == 0, cfg.isnonlin == 0, cfg.isnonlin == 2, cfg.lciwa1,
           cfg.lciwa2, cfg.lstrn, not cfg.lbiwbk, not cfg.licerun,
-          not cfg.lmaskice)
+          not cfg.lmaskice, cfg.icode_wnd in (1, 2))
     return sum(1 << i for i, v in enumerate(on) if v)
 
 
-def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False) -> None:
-    """Raise for configurations the kernel does not take."""
-    impl.check_ported(cfg)
+def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False, *,
+                    compact: bool = False) -> None:
+    """Raise for configurations the kernel does not take: u* forcing
+    (icode_wnd 1/2) only on the compact entry (``compact``), in full mode
+    and without the other options (the UST instantiation)."""
+    impl.check_ported(cfg, srl=not compact)
+    if cfg.icode_wnd != 3 and not (
+            full and option_bits(cfg) == UST_BIT):
+        raise NotImplementedError(
+            "the physics kernel takes icode_wnd 1/2 in full mode and "
+            "without the other physics options only")
     if cfg.isnonlin not in (0, 1, 2):
         raise ValueError(f"unknown ISNONLIN={cfg.isnonlin}")
     if cfg.tables.nang > 64:
@@ -343,6 +373,9 @@ def srl_inputs(cfg, f_srl, env2d, scal, tail, *, nang: int,
 def _outputs(state, full: bool):
     if full:
         return pack_scal_out(state, full=True), state["xllws"]
+    if "wswave" in state:
+        raise NotImplementedError("u* forcing (icode_wnd 1/2) runs in "
+                                  "full mode only")
     return torch.stack([state[k] for k in STRESS_KEYS]), None
 
 
@@ -350,7 +383,8 @@ def implsch_srl_plain(cfg, f_srl, env2d, scal, tail, *, nang: int,
                       nfre_red: int, full: bool = False):
     """The plain PyTorch chain (:func:`.implsch.implsch`) on SRL rows:
     (f_srl, stress6, tail), or in full mode (f_srl, scal_out (30, nsrl),
-    tail, xllws (nang, nfre, nsrl))."""
+    tail, xllws (nang, nfre, nsrl)).  U10 forcing only, as the kernel."""
+    impl.check_ported(cfg, srl=True)
     nsrl = f_srl.shape[0]
     fl, env, frc, stress = srl_inputs(cfg, f_srl, env2d, scal, tail,
                                       nang=nang, nfre_red=nfre_red)
@@ -429,7 +463,7 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
             nrows: int, nang: int, nfr: int, tables_dev):
     """Check the common inputs, allocate the outputs and launch
     ``implsch_launch``; returns (out rows, xllws or None)."""
-    kernel_supports(cfg, full)
+    kernel_supports(cfg, full, compact=f_bs != 1)
     dev = fin.device
     nfre = cfg.tables.nfre
     _check("env2d", env2d, (len(ENV_FIELDS) * nfre, nrows), dev)
@@ -441,7 +475,7 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
     opts = option_bits(cfg)
     if tables_dev["opts"] != opts & ~LSTRN_BIT:
         raise ValueError("physics tables packed for other options")
-    keys = SCAL_OUT_FULL if full else SCAL_OUT_MIN
+    keys = out_keys(cfg, full)
     out = torch.empty((len(keys), nrows), dtype=torch.float32, device=dev)
     xllws = (torch.empty((nang, nfre, nrows), dtype=torch.float32,
                          device=dev) if full else None)
@@ -496,23 +530,54 @@ implsch_srl.full_launches = 0
 
 
 def implsch_compact(cfg, fl1, env2d, scal, *, full: bool = False,
-                    tables_dev: dict | None = None):
+                    tables_dev: dict | None = None, out=None):
     """One physics step on the compact (nang, nfre, n) spectrum, the
     counterpart of ``implsch_pallas``: (fl1_new, stress6) or in full mode
-    (fl1_new, scal_out (30, n), xllws).  On CUDA the same kernel as
-    :func:`implsch_srl` reads bin (k, m) of point p at (k·nfre + m)·n + p
-    and writes a new spectrum; on the CPU the plain version runs."""
+    (fl1_new, scal_out (30, n; 31 under u*), xllws).  On CUDA the same
+    kernel as :func:`implsch_srl` reads bin (k, m) of point p at
+    (k·nfre + m)·s + p, where s is fl1's bin stride: fl1 may be a view of
+    n points of a wider spectrum (a chunk, no copy), and ``out`` (a new
+    spectrum by default) takes the result in fl1's layout; it may be fl1
+    itself (in place: each point reads its bins before it writes them).
+    On the CPU the plain version runs and is copied into ``out``."""
     if fl1.device.type == "cpu":
-        return implsch_compact_plain(cfg, fl1, env2d, scal, full=full)
+        res = implsch_compact_plain(cfg, fl1, env2d, scal, full=full)
+        if out is not None:
+            res = (out.copy_(res[0]),) + res[1:]
+        return res
     _no_kernel(fl1)
     nang, nfre, n = cfg.tables.nang, cfg.tables.nfre, fl1.shape[-1]
-    _check("fl1", fl1, (nang, nfre, n), fl1.device)
-    fout = torch.empty_like(fl1)
-    out, xllws = _launch(cfg, full, fl1, fout, 1, n, None, None, env2d,
-                         scal, nrows=n, nang=nang, nfr=nfre,
-                         tables_dev=tables_dev)
+    bs = _check_compact("fl1", fl1, (nang, nfre, n))
+    if out is None:
+        if bs != n:
+            raise ValueError("a strided fl1 needs out= in its layout")
+        out = torch.empty_like(fl1)
+    elif out.stride() != fl1.stride():
+        raise ValueError(f"out has strides {out.stride()}, fl1 "
+                         f"{fl1.stride()}")
+    _check_compact("out", out, (nang, nfre, n))
+    rows, xllws = _launch(cfg, full, fl1, out, 1, bs, None, None, env2d,
+                          scal, nrows=n, nang=nang, nfr=nfre,
+                          tables_dev=tables_dev)
     implsch_compact.launches += 1
-    return (fout, out) + ((xllws,) if full else ())
+    return (out, rows) + ((xllws,) if full else ())
+
+
+def _check_compact(name, t, shape) -> int:
+    """A compact (nang, nfre, n) float32 tensor on the card whose points
+    are contiguous and whose bins lie a stride s >= n apart (a whole
+    spectrum or a view of n of its points); returns s."""
+    if t.dtype != torch.float32 or t.device.type != "cuda":
+        raise TypeError(f"{name}: {t.dtype} on {t.device}, expected "
+                        "torch.float32 on the card")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    bs = t.stride(1)
+    if t.stride(2) != 1 or t.stride(0) != shape[1] * bs or bs < shape[2]:
+        raise ValueError(f"{name} has strides {t.stride()}: points must "
+                         "be contiguous and bins a stride apart")
+    return bs
 
 
 implsch_compact.launches = 0

@@ -1,9 +1,21 @@
-"""Great-circle CTU stencil tables (host side) and depth gradients.
+"""Great-circle CTU (corner-transport-upstream) advection on the reduced grid.
 
-Carried over from ``ecwam_tpu/ops/propagation.py``: the numpy builders
-of the reference's neighbour tables and interpolation weights
-(propconnect.F90:44-950, ctuwini.F90:45-125) and GRADI
-(gradi.F90:60-185) for depth refraction.  All host numpy, float64.
+Port of ``ecwam_tpu/ops/propagation.py``:
+  - host numpy, float64: the constructors of the reference's neighbour tables
+    and interpolation weights (propconnect.F90:44-950,
+    ctuwini.F90:45-125) and GRADI (gradi.F90:60-185);
+  - plain PyTorch on the tensors' device: PROPDOT's refraction rates
+    (propdot.F90:60-150), CTUW's weights with the obstruction
+    coefficients and the CFL flag (ctuw.F90:90-745) and PROPAGS2's
+    weighted gather stencil (propags2.F90:49-130).  In the reference these
+    are XLA code outside any Pallas kernel; the dense ``WaveModel`` runs
+    them in its ``cached`` and ``otf`` weight modes.
+
+Layout: spectra (nang, nf, npts+1) with the last slot the land point.
+The weights are stored slot-major, one contiguous (nang, nf, npts) plane
+per slot of one tensor (:data:`SLOTS`), where the reference keeps the
+slots innermost ((nang, nf, npts, 4, 2) for the corners): a slot's plane
+is then read without striding over the others' values.
 """
 
 from __future__ import annotations
@@ -11,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ecwam_tpu_torch.core import constants as c
 from ecwam_tpu_torch.core.grid import WaveGrid, SeaPointBlock
@@ -266,4 +279,369 @@ def gradi(st, depth_ext, u_ext, v_ext, irefra: int):
         out["dvphi"] = clip(merid_grad(v_ext, True))
         out["dulam"] = clip(zonal_grad(u_ext, True))
         out["dvlam"] = clip(zonal_grad(v_ext, True))
+    return out
+
+
+# the weight planes, in order: 1 - the total outflow's complement
+# (sumwn), the 2 longitude neighbours (ic), the 2×2 latitude candidates
+# (ic, icl), the 4×2 corner candidates (logical corner slot icr, icl),
+# direction turning from k−1 and k+1, and with σ̇ (irefra 2/3) frequency
+# shifting from m−1 and m+1
+SLOTS = dict(sumwn=(0, 1), wlon=(1, 3), wlat=(3, 7), wcor=(7, 15),
+             wkpm=(15, 17), wmpm=(17, 19))
+
+
+def n_slots(irefra: int) -> int:
+    """Weight planes per (direction, frequency, point): 17, or 19 with
+    frequency shifting (irefra 2/3)."""
+    return 19 if irefra in (2, 3) else 17
+
+
+def propdot(st, tb, wavnum_ext, cgroup_ext, omosnh2kd_ext,
+            depth_ext, u_ext, v_ext, irefra: int):
+    """Refraction rates θ̇_depth, θ̇_current and σ̇ (propdot.F90:60-150).
+
+    ``st`` is the (numpy) StencilTables, the ``*_ext`` arguments tensors
+    over (nfre_red, npts+1) or (npts+1,).  The gradients (:func:`gradi`)
+    are taken on the host in float64.  Returns (thdd, thdc, sdot): thdd/
+    thdc (nang, npts) or None, sdot (nang, nfre_red, npts) or None.
+    """
+    dt, dev = cgroup_ext.dtype, cgroup_ext.device
+    npts = st.klon.shape[0]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    host = {k: v.detach().cpu().numpy().astype(np.float64)
+            for k, v in (("d", depth_ext), ("u", u_ext), ("v", v_ext))}
+    g = {k: t(v) for k, v in gradi(st, host["d"], host["u"], host["v"],
+                                    irefra).items()}
+    dco = t(st.cosphm1_pt)[None, :]                 # ICASE=1 spherical
+    sd = t(tb.sinth)[:, None]
+    cd = t(tb.costh)[:, None]
+
+    thdd = thdc = sdot = None
+    if irefra in (1, 3):
+        thdd = sd * g["ddphi"][None] - cd * g["ddlam"][None] * dco
+    if irefra in (2, 3):
+        if irefra == 3:
+            omdd = (v_ext[:npts] * g["ddphi"]
+                    + u_ext[:npts] * g["ddlam"] * dco[0])
+        else:
+            omdd = torch.zeros_like(g["ddphi"])
+        ss, sc, cc = sd * sd, sd * cd, cd * cd
+        sdot_nf = (-sc * g["duphi"][None] - cc * g["dvphi"][None]
+                   - (ss * g["dulam"][None] + sc * g["dvlam"][None]) * dco)
+        thdc = (ss * g["duphi"][None] + sc * g["dvphi"][None]
+                - (sc * g["dulam"][None] + cc * g["dvlam"][None]) * dco)
+        cg_own = cgroup_ext[:, :npts]                  # (nfre_red, npts)
+        sdot = ((sdot_nf[:, None, :] * cg_own[None]
+                 + omdd[None, None, :] * omosnh2kd_ext[:, :npts][None])
+                * wavnum_ext[:, :npts][None])
+    return thdd, thdc, sdot
+
+
+def _dir_selectors(tb):
+    """JXO/JYO/KCR selectors as boolean masks (ctuwupdt.F90:95-150).
+
+    Returns (east, north, kcr) with east/north (nang,) booleans and kcr
+    (nang, 4) int: logical corner slot → physical corner index, using the
+    physical ordering 0=NE, 1=SE, 2=SW, 3=NW.
+    """
+    east = np.asarray(tb.sinth) >= 0.0
+    north = np.asarray(tb.costh) >= 0.0
+    # reference 1-based physical corners: 1=NE, 2=SE, 3=SW, 4=NW
+    kcr = np.zeros((tb.nang, 4), dtype=np.int32)
+    for k in range(tb.nang):
+        if north[k] and east[k]:
+            kcr[k] = (2, 1, 3, 0)       # SW, SE, NW, NE
+        elif north[k] and not east[k]:
+            kcr[k] = (1, 2, 0, 3)       # SE, SW, NE, NW
+        elif not north[k] and east[k]:
+            kcr[k] = (3, 0, 2, 1)       # NW, NE, SW, SE
+        else:
+            kcr[k] = (0, 3, 1, 2)       # NE, NW, SE, SW
+    return east, north, kcr
+
+
+def stencil_tensors(st, dtype, device) -> dict:
+    """The stencil's tables as tensors: neighbour indices int64, weights,
+    geometry and obstruction coefficients in ``dtype``, on ``device``."""
+    def f(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def i(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                               device=device)
+    return dict(klat=i(st.klat), klon=i(st.klon), kcor=i(st.kcor),
+                wlat=f(st.wlat), wcor=f(st.wcor), dp=f(st.dp),
+                zdello_pt=f(st.zdello_pt), cosphm1_pt=f(st.cosphm1_pt),
+                tanph_pt=f(st.tanph_pt), obslat=f(st.obslat),
+                obslon=f(st.obslon), obscor=f(st.obscor),
+                xdella=float(st.xdella))
+
+
+def weight_views(w: torch.Tensor, mstart: int, mend: int, cflfail) -> dict:
+    """The weights dict over the planes ``w`` (n_slots, nang, nf, npts):
+    a view per slot group of :data:`SLOTS`, and the window and CFL mask."""
+    out = {k: (w[a] if b == a + 1 else w[a:b]) if b <= w.shape[0] else None
+           for k, (a, b) in SLOTS.items()}
+    out.update(w=w, cflfail=cflfail, mstart=mstart, mend=mend)
+    return out
+
+
+def ctuw_weights(delpro: float, st: dict, tb, cgroup_ext,
+                 omosnh2kd_ext=None, u_ext=None, v_ext=None, *,
+                 irefra: int = 0, thdd=None, thdc=None, sdot=None,
+                 mstart: int = 0, mend: int | None = None, out=None):
+    """CTU weights on the sphere (ctuw.F90:90-745, ICASE=1 spherical).
+
+    ``st`` holds the stencil's tensors (:func:`stencil_tensors`),
+    ``cgroup_ext`` is (nfre_red, npts+1).  Returns the weights over the
+    frequency window [mstart, mend) as :func:`weight_views` of one
+    (n_slots, nang, nf, npts) tensor — written into ``out`` if given —
+    and the CFL violation mask ``cflfail`` (npts,) bool.  The arithmetic
+    is the reference's, term for term.
+    """
+    dt, dev = cgroup_ext.dtype, cgroup_ext.device
+    nf_all = cgroup_ext.shape[0]
+    npts = st["klon"].shape[0]
+    if mend is None:
+        mend = nf_all
+    nf = mend - mstart
+    nang = tb.nang
+
+    def tc(a):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    cg = cgroup_ext[mstart:mend]                       # (nf, npts_ext)
+    sinth = tc(tb.sinth)[:, None, None]
+    costh = tc(tb.costh)[:, None, None]
+    east, north, kcr = _dir_selectors(tb)
+    east_b = torch.as_tensor(east, device=dev)[:, None, None]
+    north_b = torch.as_tensor(north, device=dev)[:, None, None]
+
+    cosphm1 = st["cosphm1_pt"][None, :]
+    zdello = st["zdello_pt"][None, None, :]
+    xdella = st["xdella"]
+    cmtodeg = 360.0 / c.CIRC
+    wlat, dp = st["wlat"], st["dp"]
+    klon, klat = st["klon"], st["klat"]
+
+    have_cur = irefra in (2, 3) and u_ext is not None
+
+    # per-(ic) edge velocities → |displacement| split up/down stream
+    adxp, dxup, dxdw, adyp, dyup, dydw = [], [], [], [], [], []
+    cg_own = cg[:, :npts]
+    for ic in range(2):
+        cg_lon = cg[:, klon[:, ic]]                    # (nf, npts)
+        cgx = 0.5 * (cg_own + cg_lon) * sinth * cosphm1[None]
+        cgyp = (wlat[None, :, ic] * cg[:, klat[:, ic, 0]]
+                + (1.0 - wlat[None, :, ic]) * cg[:, klat[:, ic, 1]])
+        cgy = 0.5 * (cg_own + dp[None, :, ic] * cgyp) * costh
+        if have_cur:
+            uu = u_ext[None, None, :npts] * cosphm1[None]
+            urel = cgx + uu
+            issu = (torch.sign(urel) == torch.sign(cgx)).to(dt)
+            vv = (v_ext[None, None, :npts]
+                  * 0.5 * (1.0 + dp[:, ic][None, None, :]))
+            vrel = cgy + vv
+            issv = (torch.sign(vrel) == torch.sign(cgy)).to(dt)
+        else:
+            urel, issu = cgx, 1.0
+            vrel, issv = cgy, 1.0
+        adx = torch.abs(delpro * urel * cmtodeg)
+        ady = torch.abs(delpro * vrel * cmtodeg)
+        adxp.append(adx)
+        adyp.append(ady)
+        dxup.append(adx * issu)
+        dxdw.append(adx * (1.0 - issu))
+        dyup.append(ady * issv)
+        dydw.append(ady * (1.0 - issv))
+
+    def sel(pair, cond):
+        """pair[0] where cond (per direction) else pair[1]."""
+        return torch.where(cond, pair[0], pair[1])
+
+    # jxo(k,1)=ic0 for east, ic1 for west; jxo(k,2) the other
+    dxup_1 = sel(dxup, east_b)       # upstream-x slot
+    dxup_2 = sel(dxup, ~east_b)
+    dxdw_1 = sel(dxdw, east_b)
+    dxdw_2 = sel(dxdw, ~east_b)
+    dyup_1 = sel(dyup, north_b)
+    dyup_2 = sel(dyup, ~north_b)
+    dydw_1 = sel(dydw, north_b)
+    dydw_2 = sel(dydw, ~north_b)
+
+    dxx = zdello - dxup_2 - dxdw_1
+    dyy = xdella - dyup_2 - dydw_1
+    aream1 = 1.0 / (zdello * xdella)
+
+    if out is None:
+        out = torch.empty((n_slots(irefra), nang, nf, npts), dtype=dt,
+                          device=dev)
+    w = weight_views(out, mstart, mend, None)
+
+    # latitude weights: slot ic receives weight iff it is jyo(k,1)/jyo(k,2)
+    # weight(jyo(k,1)) = dxx*dyup(jyo1); weight(jyo(k,2)) = dxx*dydw(jyo2)
+    w_jyo1 = dxx * dyup_1 * aream1
+    w_jyo2 = dxx * dydw_2 * aream1
+    w_lat_ic = (torch.where(north_b, w_jyo1, w_jyo2),   # ic=0 south slot
+                torch.where(north_b, w_jyo2, w_jyo1))
+    obslat = st["obslat"][mstart:mend]
+    for ic in range(2):
+        w["wlat"][2 * ic] = (w_lat_ic[ic] * wlat[None, :, ic]
+                             * obslat[None, :, :, ic])
+        w["wlat"][2 * ic + 1] = (w_lat_ic[ic] * (1.0 - wlat[None, :, ic])
+                                 * obslat[None, :, :, ic])
+
+    # longitude weights
+    w_jxo1 = dyy * dxup_1 * aream1
+    w_jxo2 = dyy * dxdw_2 * aream1
+    obslon = st["obslon"][mstart:mend]
+    w["wlon"][0] = torch.where(east_b, w_jxo1, w_jxo2) * obslon[None, :, :, 0]
+    w["wlon"][1] = torch.where(east_b, w_jxo2, w_jxo1) * obslon[None, :, :, 1]
+
+    # corner weights (logical slots 1..4 → physical via kcr)
+    wgt = [dxup_1 * dyup_1 * aream1,
+           dxdw_2 * dyup_1 * aream1,
+           dxup_1 * dydw_2 * aream1,
+           dxdw_2 * dydw_2 * aream1]
+    kcr_t = torch.as_tensor(kcr, dtype=torch.int64, device=dev)
+    wcor_k = st["wcor"].T[kcr_t]                       # (nang, 4, npts)
+    obscor_k = st["obscor"][mstart:mend].permute(2, 0, 1)[kcr_t]
+    for icr in range(4):                               # (nang, 4, nf, npts)
+        w["wcor"][2 * icr] = (wgt[icr] * wcor_k[:, icr, None, :]
+                              * obscor_k[:, icr])
+        w["wcor"][2 * icr + 1] = (wgt[icr] * (1.0 - wcor_k[:, icr, None, :])
+                                  * obscor_k[:, icr])
+
+    sumwn = (zdello * (dydw_1 + dyup_2) + xdella * (dxup_2 + dxdw_1)
+             - (dxdw_1 + dxup_2) * (dydw_1 + dyup_2)) * aream1
+
+    # ---- direction (great-circle turning) weights (ctuw.F90:345-420)
+    delth0 = 0.25 * delpro / tb.delth
+    sinth_v = np.asarray(tb.sinth)
+    kp1 = np.roll(np.arange(nang), -1)
+    km1 = np.roll(np.arange(nang), 1)
+    sp = tc(delth0 * (sinth_v + sinth_v[kp1]) / c.R_EARTH)[:, None, None]
+    sm = tc(delth0 * (sinth_v + sinth_v[km1]) / c.R_EARTH)[:, None, None]
+    tanph = st["tanph_pt"][None, None, :]
+    drgp = tanph * sp
+    drgm = tanph * sm
+
+    dthp = drgp * cg_own[None]
+    dthm = drgm * cg_own[None]
+    kp1_t = torch.as_tensor(kp1, device=dev)
+    km1_t = torch.as_tensor(km1, device=dev)
+    if irefra in (1, 3) and thdd is not None:
+        drdp = (thdd[:, None, :] + thdd[kp1_t][:, None, :]) * delth0
+        drdm = (thdd[:, None, :] + thdd[km1_t][:, None, :]) * delth0
+        omos_own = omosnh2kd_ext[mstart:mend, :npts]
+        dthp = dthp + omos_own[None] * drdp
+        dthm = dthm + omos_own[None] * drdm
+    if irefra in (2, 3) and thdc is not None:
+        dthp = dthp + (thdc[:, None, :] + thdc[kp1_t][:, None, :]) * delth0
+        dthm = dthm + (thdc[:, None, :] + thdc[km1_t][:, None, :]) * delth0
+
+    wkpmn0 = (dthp + torch.abs(dthp)) + (torch.abs(dthm) - dthm)
+    w["wkpm"][0] = dthm + torch.abs(dthm)     # inflow from k-1
+    w["wkpm"][1] = -dthp + torch.abs(dthp)    # inflow from k+1
+    sumwn = sumwn + wkpmn0
+
+    if w["wmpm"] is not None and sdot is None:
+        w["wmpm"].zero_()
+    elif w["wmpm"] is not None:
+        delfr0 = 0.25 * delpro / ((tb.fratio - 1.0) * c.ZPI)
+        fr = np.asarray(tb.fr)
+        m_idx = np.arange(mstart, mend)
+        mp1 = np.minimum(nf_all - 1, m_idx + 1)
+        mm1 = np.maximum(0, m_idx - 1)
+        dfp = tc(delfr0 / fr[m_idx])[None, :, None]
+        dfm = tc(delfr0 / fr[mm1])[None, :, None]
+        sd = sdot                                  # (nang, nf_all, npts)
+        m_t, mp1_t, mm1_t = (torch.as_tensor(a, device=dev)
+                             for a in (m_idx, mp1, mm1))
+        dthp_f = (sd[:, m_t] + sd[:, mp1_t]) * dfp
+        dthm_f = (sd[:, m_t] + sd[:, mm1_t]) * dfm
+        wmpmn0 = (dthp_f + torch.abs(dthp_f)) + (torch.abs(dthm_f) - dthm_f)
+        w["wmpm"][0] = (dthm_f + torch.abs(dthm_f)) * tb.fratio   # from m-1
+        w["wmpm"][1] = (-dthp_f + torch.abs(dthp_f)) / tb.fratio  # from m+1
+        sumwn = sumwn + wmpmn0
+    w["sumwn"].copy_(sumwn)
+
+    # ---- CFL check (ctuw.F90:238-300,560-690)
+    cfl_x = torch.maximum(adxp[0], adxp[1]) > zdello
+    cfl_y = torch.maximum(adyp[0], adyp[1]) > xdella
+    bad = cfl_x | cfl_y | (sumwn > 1.0) | (sumwn < 0.0)
+    w["cflfail"] = torch.any(bad.reshape(-1, npts), dim=0)
+    return w
+
+
+def weights_from_numpy(ref: dict, dtype=torch.float64, device="cpu") -> dict:
+    """The reference's ``ctuw_weights`` dict, as numpy arrays (sumwn
+    (nang, nf, n), wlonn (…, 2), wlatn (…, 2, 2), wcorn (…, 4, 2), wkpmn
+    (…, 2), wmpmn (…, 2) or None, cflfail), in this module's slot-major
+    layout (:func:`weight_views`) on ``device``."""
+    planes = [np.asarray(ref["sumwn"])[None]]
+    planes += [np.moveaxis(np.asarray(ref[k]).reshape(
+        np.asarray(ref[k]).shape[:3] + (-1,)), -1, 0)
+        for k in ("wlonn", "wlatn", "wcorn", "wkpmn")]
+    if ref.get("wmpmn") is not None:
+        planes.append(np.moveaxis(np.asarray(ref["wmpmn"]), -1, 0))
+    w = torch.as_tensor(np.concatenate(planes), dtype=dtype, device=device)
+    return weight_views(w, int(ref["mstart"]), int(ref["mend"]),
+                        torch.as_tensor(np.array(ref["cflfail"]),
+                                        device=device))
+
+
+def propags2(f1_ext, weights: dict, st: dict, tb, *, out=None):
+    """CTU stencil update (propags2.F90:49-130, general branch).
+
+    ``f1_ext`` is (nang, nf, npts+1) over the same frequency window the
+    weights were built for, ``st`` the stencil's tensors.  Returns (nang,
+    nf, npts), written into ``out`` if given (any strides).  The terms
+    accumulate in place, in the reference's order, through one gather
+    buffer, so that no term allocates a field of its own."""
+    nang, nf, _ = f1_ext.shape
+    npts = st["klon"].shape[0]
+    _, _, kcr = _dir_selectors(tb)
+
+    f1 = f1_ext[:, :, :npts]
+    if out is None:
+        out = torch.empty((nang, nf, npts), dtype=f1_ext.dtype,
+                          device=f1_ext.device)
+    buf = torch.empty((nang, nf, npts), dtype=f1_ext.dtype,
+                      device=f1_ext.device)
+    torch.mul(buf.copy_(weights["sumwn"]).neg_().add_(1.0), f1, out=out)
+    # longitudes
+    for ic in range(2):
+        torch.index_select(f1_ext, 2, st["klon"][:, ic], out=buf)
+        out.addcmul_(weights["wlon"][ic], buf)
+    # latitudes (2 candidates)
+    for ic in range(2):
+        for icl in range(2):
+            torch.index_select(f1_ext, 2, st["klat"][:, ic, icl], out=buf)
+            out.addcmul_(weights["wlat"][2 * ic + icl], buf)
+    # corners: logical slot icr gathers physical corner kcr[k, icr]
+    kcr_t = torch.as_tensor(kcr, dtype=torch.int64, device=f1_ext.device)
+    for icr in range(4):
+        for icl in range(2):
+            idx = st["kcor"][:, kcr_t[:, icr], icl].T     # (nang, npts)
+            torch.gather(f1_ext, 2, idx[:, None, :].expand(nang, nf, npts),
+                         out=buf)
+            out.addcmul_(weights["wcor"][2 * icr + icl], buf)
+    # direction turning: f1 rolled by +1 (from k−1) and −1 (from k+1)
+    buf[1:].copy_(f1[:-1])
+    buf[:1].copy_(f1[-1:])
+    out.addcmul_(weights["wkpm"][0], buf)
+    buf[:-1].copy_(f1[1:])
+    buf[-1:].copy_(f1[:1])
+    out.addcmul_(weights["wkpm"][1], buf)
+    # frequency shifting (current refraction)
+    if weights.get("wmpm") is not None:
+        buf[:, 1:].copy_(f1[:, :-1])
+        buf[:, :1].copy_(f1[:, :1])
+        out.addcmul_(weights["wmpm"][0], buf)
+        buf[:, :-1].copy_(f1[:, 1:])
+        buf[:, -1:].copy_(f1[:, -1:])
+        out.addcmul_(weights["wmpm"][1], buf)
     return out

@@ -10,7 +10,12 @@ reference's, on the CPU.
     are ``test_torch_cli_reference.py`` and ``test_torch_cli_restart.py``);
   * the namelist config, the CHECKCFL abort, ``--validate``, the SIGTERM
     restart and resume (as ``test_signal_stop.py``), the FDB output and
-    the refusals (``NotImplementedError`` naming ROADMAP A4);
+    the refusals (``NotImplementedError`` naming ROADMAP A4 for nesting
+    and ``bouint``; the swell trains and u* forcing on the fused route);
+  * ``weights_mode: cached`` and ``otf`` (the dense ``WaveModel``) with
+    the swell-train fields: statistics.log against the reference's CLI,
+    which takes its own ``WaveModel`` on the CPU for these modes, within
+    1e-5 of each entry, and the train fields in the GRIB output;
   * ``chip_smoke.py``'s CLI phase rehearsed at a small size.
 """
 
@@ -313,19 +318,51 @@ def test_refusals(tmp_path, case):
                         "--timestep", "900"])
         return
     if case == "ustar":
-        from ecwam_tpu_torch.model import setup
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            setup.build_model(grid_name="12.0", nang=12, nfre=15,
-                              icode_wnd=1, device="cpu")
+        # u* forcing runs in the dense WaveModel only, as in the reference
+        from ecwam_tpu_torch.model import driver, setup
+        ms = setup.build_model(grid_name="12.0", nang=12, nfre=15,
+                               icode_wnd=1, device="cpu")
+        with pytest.raises(NotImplementedError, match="icode_wnd"):
+            driver.FastWaveModel(ms, driver.constant_wind_forcing(ms.n_real),
+                                 "20230101000000")
         return
-    text = {"weights_mode": RUN_CFG + "weights_mode: cached\n",
+    text = {"weights_mode": RUN_CFG + "weights_mode: dense\n",
             "nesting": RUN_CFG + "nesting:\n    coarse:\n"
                                  "        rect: [0, 10, 0, 10]\n",
             "trains": RUN_CFG.replace("[swh, mwd, mwp, wind]",
                                       "[swh, p042]")}[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    err, match = {"weights_mode": (ValueError, "weights_mode"),
+                  "nesting": (NotImplementedError, "ROADMAP A4"),
+                  "trains": (NotImplementedError,
+                             "per-bin windsea mask")}[case]
+    with pytest.raises(err, match=match):
         t_cli.run_model(RunConfig.from_yaml(text), str(tmp_path),
                         quiet=True, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["cached", "otf"])
+def test_dense_weights_modes_match_reference(tmp_path, mode):
+    from test_torch_cli_reference import WIDE_FIELDS, ref_run, same_stats
+    from test_torch_cli_reference import wide
+    from ecwam_tpu_torch.model import driver
+    frc = forcing_file(tmp_path)
+    fields = WIDE_FIELDS + list(t_checks.TRAINS)
+    text = wide(three_h(frc)).replace(", ".join(WIDE_FIELDS),
+                                      ", ".join(fields))
+    text += f"weights_mode: {mode}\n"
+    model, got = port_run(text, tmp_path / "port")
+    assert type(model) is driver.WaveModel
+    assert model.setup.weights_mode == mode and model.setup.fused is None
+    ref, want = ref_run(text, tmp_path / "ref")
+    assert type(ref).__name__ == "WaveModel"
+    assert len(got.entries) == 3 * len(fields)
+    same_stats(got, want, 1e-5)
+    trains = {e["name"] for e in got.entries if e["name"] in t_checks.TRAINS
+              and e["maximum"] > 0.0}
+    assert {"p042", "p043", "p044"} <= trains
+    msgs = t_grib.read_messages(str(tmp_path / "port" /
+                                    "MPP20230101030000.grib"))
+    assert len(msgs) == len(fields)
 
 
 def test_smoke_cli_phase_on_cpu():
@@ -345,3 +382,4 @@ def test_smoke_cli_phase_on_cpu():
     assert set(fields) == set(t_checks.FIELDS)
     assert max(v[0] for v in fields.values()) <= chip_smoke.PRODUCT_TOL
     assert out["secspom_ms"] > 0.0
+

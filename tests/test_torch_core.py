@@ -4,12 +4,15 @@ originals.
 ``ecwam_tpu_torch.{core.constants, core.physparams, core.spectral,
 core.dispersion, core.grid, core.bathy, ops.physics.tables, model.preset,
 io.norms, config.schema, config.namelist, io.outcontrol, io.restart,
-io.waminfo, io.forcing, io.grib, io.gribout, io.multio, native}`` are
-copies of the ``ecwam_tpu`` modules of the same paths (numpy only), kept
-so that the port imports nothing of the JAX package.  Each case must
-give exactly what its original gives on the same inputs (``array_equal``:
-they run the same numpy code; files written by both are equal byte for
-byte).
+io.waminfo, io.forcing, io.grib, io.gribout, io.multio, io.partition,
+model.tablecache, native}`` are copies of the ``ecwam_tpu`` modules of the
+same paths (numpy only), kept so that the port imports nothing of the JAX
+package.  Each case must give exactly what its original gives on the same
+inputs (``array_equal``: they run the same numpy code; files written by
+both are equal byte for byte).  The one deliberate difference:
+``model.tablecache.build_key`` hashes each obstruction table on its own,
+with its shape and dtype (ADVICE.md), so its keys differ from the
+original's where obstructions are given (its own test).
 """
 
 import dataclasses
@@ -34,9 +37,11 @@ from ecwam_tpu.io import gribout as j_gribout
 from ecwam_tpu.io import multio as j_multio
 from ecwam_tpu.io import norms as j_norms
 from ecwam_tpu.io import outcontrol as j_outcontrol
+from ecwam_tpu.io import partition as j_partition
 from ecwam_tpu.io import restart as j_restart
 from ecwam_tpu.io import waminfo as j_waminfo
 from ecwam_tpu.model import preset as j_preset
+from ecwam_tpu.model import tablecache as j_tablecache
 from ecwam_tpu.ops.physics import tables as j_tables
 from ecwam_tpu_torch import native as t_native
 from ecwam_tpu_torch.config import namelist as t_namelist
@@ -53,9 +58,11 @@ from ecwam_tpu_torch.io import gribout as t_gribout
 from ecwam_tpu_torch.io import multio as t_multio
 from ecwam_tpu_torch.io import norms as t_norms
 from ecwam_tpu_torch.io import outcontrol as t_outcontrol
+from ecwam_tpu_torch.io import partition as t_partition
 from ecwam_tpu_torch.io import restart as t_restart
 from ecwam_tpu_torch.io import waminfo as t_waminfo
 from ecwam_tpu_torch.model import preset as t_preset
+from ecwam_tpu_torch.model import tablecache as t_tablecache
 from ecwam_tpu_torch.ops.physics import tables as t_tables
 
 
@@ -242,6 +249,43 @@ def _multio(m):
     return _in_tmp(run)
 
 
+def _sep3tr(m):
+    """Two swell systems and noise on 6 points, a random swell mask."""
+    tb = m["sp"].build_spectral_tables(nang=12, nfre=25)
+    rng = np.random.default_rng(5)
+    fl1 = 1e-4 * rng.random((12, 25, 6))
+    fl1[1:4, 4:7] += 8.0
+    fl1[7:10, 9:12] += 4.0
+    swm = (rng.random(fl1.shape) < 0.9).astype(np.float64)
+    sep = dict(swm=swm, flsw=np.maximum(fl1, 1e-32) * swm)
+    for k in ("eswell", "fswell", "thswell", "fsea"):
+        sep[k] = rng.random(6)
+    return [m["partition"].sep3tr(fl1, np.full(6, mij, np.int32), sep,
+                                  np.full(6, 3.0), np.zeros(6), tb,
+                                  ntrain=nt)
+            for mij, nt in ((24, 3), (12, 2))]
+
+
+def _tablecache(m):
+    """A stencil, a sea-point block and a dispersion env through the
+    cache's save and load, and a key without obstructions."""
+    grid = m["grid"].regular_grid(12.0)
+    blk = m["grid"].build_sea_point_block(grid,
+                                          m["grid"].aqua_bathymetry(grid))
+    bathy = m["grid"].aqua_bathymetry(grid)
+    tc = m["tablecache"]
+    key = tc.build_key(grid, bathy, nang=12, nfre=25, nfre_red=20,
+                       pad_to=64, seg=0, obstructions=None)
+    props = dict(wavnum=np.random.default_rng(6).random((5, 3)),
+                 cgroup=np.ones((2000, 2)))
+
+    def run(d):
+        tc.save(d, key, blk=blk, stencil=blk, fused=None, props=props)
+        return tc.load(d, key, blk_cls=type(blk), st_cls=type(blk),
+                       ft_cls=None)
+    return key, _in_tmp(run)[0], tc._flatten("p", props, {})
+
+
 BUILDERS = {
     "constants": lambda m: {k: v for k, v in vars(m["c"]).items()
                             if k.isupper()},
@@ -291,6 +335,8 @@ BUILDERS = {
             m["grid"].octahedral_grid(24),
             m["grid"].aqua_bathymetry(m["grid"].octahedral_grid(24)))))],
     "multio": _multio,
+    "partition_sep3tr": _sep3tr,
+    "tablecache_save_load_key": _tablecache,
 }
 
 JAX_MODULES = dict(c=j_c, sp=j_sp, grid=j_grid, bathy=j_bathy, disp=j_disp,
@@ -298,13 +344,15 @@ JAX_MODULES = dict(c=j_c, sp=j_sp, grid=j_grid, bathy=j_bathy, disp=j_disp,
                    schema=j_schema, namelist=j_namelist,
                    outcontrol=j_outcontrol, restart=j_restart,
                    waminfo=j_waminfo, forcing=j_forcing, grib=j_grib,
-                   gribout=j_gribout, multio=j_multio, native=j_native)
+                   gribout=j_gribout, multio=j_multio, native=j_native,
+                   partition=j_partition, tablecache=j_tablecache)
 PORT_MODULES = dict(c=t_c, sp=t_sp, grid=t_grid, bathy=t_bathy, disp=t_disp,
                     pp=t_pp, tables=t_tables, preset=t_preset, norms=t_norms,
                     schema=t_schema, namelist=t_namelist,
                     outcontrol=t_outcontrol, restart=t_restart,
                     waminfo=t_waminfo, forcing=t_forcing, grib=t_grib,
-                    gribout=t_gribout, multio=t_multio, native=t_native)
+                    gribout=t_gribout, multio=t_multio, native=t_native,
+                    partition=t_partition, tablecache=t_tablecache)
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))
@@ -320,6 +368,31 @@ def test_copy_names_its_source(module):
     assert f"``{rel}``" in mod.__doc__
     assert mod.__name__ == orig.__name__.replace("ecwam_tpu",
                                                  "ecwam_tpu_torch", 1)
+
+
+def test_tablecache_key_hashes_each_obstruction_table():
+    """The copy's one difference from its original: ``build_key`` hashes
+    each obstruction table on its own with its shape and dtype, so a
+    table and its broadcast copy, or two tables of other shapes, get
+    different keys, and tables that do not broadcast together are taken
+    (the original broadcasts them first: it maps the first pair to one
+    key and raises on the last)."""
+    grid = t_grid.regular_grid(12.0)
+    bathy = t_grid.aqua_bathymetry(grid)
+
+    def key(obs, tc=t_tablecache):
+        return tc.build_key(grid, bathy, nang=12, nfre=25, nfre_red=20,
+                            pad_to=64, seg=0, obstructions=obs)
+    one = np.ones((20, 1))
+    wide = np.ones((20, 50))
+    odd = (np.ones((20, 50, 2)), np.ones((20, 50, 2)), np.ones((20, 50, 4)))
+    assert key({"a": one}) != key({"a": wide})
+    assert key(odd) != key(odd[:2] + (np.ones((20, 50, 2)),))
+    assert key(odd) != key(tuple(a.astype(np.float32) for a in odd))
+    assert key(odd) == key(tuple(a.copy() for a in odd))
+    assert key(None) == key(None, j_tablecache)
+    with pytest.raises(ValueError):
+        key(dict(enumerate(odd)), j_tablecache)
 
 
 def test_cideac_copy_matches_original():

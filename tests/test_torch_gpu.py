@@ -24,6 +24,11 @@ same limits as chip_smoke.py):
                            on open water
   op classes (kernel D)    equal for the layout classes, 1e-6 of max for
                            the others
+  WaveModel, 4 steps       fl1 ≤ TRAJ_TOL; stress ≤ TRAJ_STRESS_TOL (each
+                           weight mode, kernels A and C vs plain)
+  kernel C, u* (UST)       as one physics step in full mode, the U10 row
+                           ≤ STRESS_TOL (chip_smoke.check_compact)
+  kernel C on chunk views  bit for bit the whole field's step
 With the cycle-49/50 options, a row off the limits whose
 gravity-capillary decision margin (float64) lies within GC_WIDTH of its
 edge is held out, at most one a grid; with ISNONLIN=2 likewise a row whose
@@ -38,6 +43,7 @@ import torch
 
 from ecwam_tpu_torch import device as tdevice
 from ecwam_tpu_torch.core import grid as grid_mod
+from ecwam_tpu_torch.model import driver as tdriver
 from ecwam_tpu_torch.model import preset
 from ecwam_tpu_torch.model import setup as tsetup
 from ecwam_tpu_torch.model import cases
@@ -397,7 +403,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                # taps wider than EW
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, EW=0))
     cfg = ipk.minimal_config(ms.phys)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="icode_wnd"):
         ipk.kernel_supports(dataclasses.replace(cfg, icode_wnd=1))
     env2d = torch.zeros((3 * ms.tb.nfre, f.shape[0]), device=cuda)
     scal = torch.zeros((len(ipk.SCAL_IN), f.shape[0]), device=cuda)
@@ -407,3 +413,57 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         ipk.implsch_srl(cfg, f, env2d.double(), scal, nang=fp.nang,
                         nfre_red=fp.nfre_red)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", cases.WEIGHT_MODES)
+@pytest.mark.parametrize("config", sorted(cases.WAVEMODEL_CASES))
+def test_wavemodel_kernels_match_plain_on_card(cuda, config, mode):
+    err, launched, want = cases.wavemodel_kernel_vs_plain(cuda, config, mode)
+    assert launched == dict(kernels=want, plain=(0, 0))
+    assert err.pop("fl1") <= TRAJ_TOL
+    assert max(err.values()) <= TRAJ_STRESS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("icode", [1, 2])
+def test_ustar_kernel_matches_plain_on_card(cuda, icode):
+    import chip_smoke
+    ms, m = cases.ustar_model(cuda, icode)
+    n0 = ipk.implsch_compact.launches
+    m.advance(2)
+    assert ipk.implsch_compact.launches == n0 + 2
+    u10 = m.state["wswave"][:ms.n_real]
+    assert 6.0 < float(u10.min()) and float(u10.max()) < 25.0
+    r = chip_smoke.compact_check(ms.phys, *cases.wavemodel_inputs(m),
+                                 reps=1)
+    chip_smoke.check_compact(r, f"UST ICODE {icode}")
+    assert "wswave" in r["rows"]
+
+
+@pytest.mark.gpu
+def test_compact_chunk_views_match_the_whole_field_on_card(cuda):
+    """Kernel C on four chunk views of a WaveModel's state (strided, no
+    copy, written in place) gives the whole field's step bit for bit."""
+    ms = tsetup.build_model(device=cuda, weights_mode="cached", **golden_kw())
+    m = tdriver.WaveModel(ms, cases.provider(
+        cases.golden_forcing(ms.n_real), 900.0), cases.START)
+    m.advance(2)
+    fl1, env2d, scal = cases.wavemodel_inputs(m)
+    whole = ipk.implsch_compact(ms.phys, fl1, env2d, scal, full=True)
+    out = fl1.clone()
+    c = ms.n_pad // 4
+    n0 = ipk.implsch_compact.launches
+    for s in range(0, ms.n_pad, c):
+        f = out[..., s:s + c]
+        assert not f.is_contiguous()
+        r = ipk.implsch_compact(ms.phys, f, env2d[:, s:s + c].contiguous(),
+                                scal[:, s:s + c].contiguous(), full=True,
+                                out=f)
+        assert torch.equal(r[1], whole[1][:, s:s + c])
+        assert torch.equal(r[2], whole[2][..., s:s + c])
+    assert ipk.implsch_compact.launches == n0 + 4
+    assert torch.equal(out, whole[0])
+    with pytest.raises(ValueError):               # a view needs its out
+        ipk.implsch_compact(ms.phys, fl1[..., :c], env2d[:, :c].contiguous(),
+                            scal[:, :c].contiguous(), full=True)

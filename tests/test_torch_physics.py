@@ -7,6 +7,8 @@ rtol 1e-9 / atol 1e-14 per function (the DIA f64 bound,
 test_implsch_pallas.py:141) and rtol 1e-8 for the whole chain.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -235,8 +237,17 @@ def test_unported_physics_options_raise(prob):
     from ecwam_tpu_torch.core.spectral import build_spectral_tables
     cfg = t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,
                                      icode_wnd=1)
+    # u* forcing: the compact entry in full mode (the dense model) only
     with pytest.raises(NotImplementedError, match="icode_wnd"):
-        t_impl.check_ported(cfg)
+        t_impl.check_ported(cfg, srl=True)
+    t_impl.check_ported(cfg)
+    t_ipk.kernel_supports(cfg, full=True, compact=True)
+    for kw in (dict(full=False, compact=True), dict(full=True)):
+        with pytest.raises(NotImplementedError, match="icode_wnd"):
+            t_ipk.kernel_supports(cfg, **kw)
+    with pytest.raises(NotImplementedError, match="icode_wnd"):
+        t_ipk.kernel_supports(dataclasses.replace(cfg, lciwa1=True),
+                              full=True, compact=True)
     # iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN and the switches are ported,
     # in the plain chain and in the kernel, in both modes
     t_impl.check_ported(t_impl.make_physics_config(

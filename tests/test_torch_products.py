@@ -215,11 +215,16 @@ def test_chunked_matches_whole_field(chunk):
 
 
 def test_swell_trains_raise():
+    """The trains need the per-bin swell mask: a state of the chunked
+    full-mode step (per-point ``sep`` rows, no windsea mask) refuses them,
+    as does the chunked output path, as in the reference."""
     tb, fl1, state, frc, env = problem(False)
     ttb = t_tables(nang=NANG, nfre=NFRE)
-    args = (torch.tensor(fl1), ttb, _torch(state, torch.float64),
+    st = _torch(state, torch.float64)
+    st["sep"] = {"esea": torch.zeros(NPTS, dtype=torch.float64)}
+    args = (torch.tensor(fl1), ttb, st,
             _torch(frc, torch.float64), t_pp.set_phys_params(1, nang=NANG))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="per-bin swell mask"):
         t_products.compute(["swh", "p042"], *args,
                            env=_torch(env, torch.float64))
     with pytest.raises(NotImplementedError, match="chunked"):

@@ -112,9 +112,43 @@ def test_pad_point_field_replicates_point_zero():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tsetup.build_model(grid_name="12.0", nang=12, nfre=8, icode_wnd=1,
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
+    """What build_model still refuses, as the reference does: OTF weights
+    with fast waves under current refraction, and an unknown weight mode.
+    The dense modes build no SRL tables; u* forcing builds."""
+    with pytest.raises(NotImplementedError, match="'fused' and 'cached'"):
+        tsetup.build_model(grid_name="12.0", nang=12, nfre=8, irefra=2,
+                           ifrelfmax=3, delpro_lf=450.0,
+                           weights_mode="otf", device="cpu")
+    with pytest.raises(ValueError, match="weights_mode"):
         tsetup.build_model(grid_name="12.0", nang=12, nfre=8,
-                           weights_mode="cached", device="cpu")
+                           weights_mode="dense", device="cpu")
+    for mode in ("cached", "otf"):
+        ms = tsetup.build_model(grid_name="12.0", nang=12, nfre=8,
+                                weights_mode=mode, device="cpu")
+        assert ms.fused is None and ms.fused_env is None
+    ms = tsetup.build_model(grid_name="12.0", nang=12, nfre=8, icode_wnd=1,
+                            device="cpu")
+    assert ms.phys.icode_wnd == 1 and ms.fused is not None
+
+
+@pytest.mark.parametrize("mode", ["fused", "cached"])
+def test_table_cache_round_trip(tmp_path, mode):
+    """``build_model(cache_dir=...)`` writes the host tables once and a
+    second build reads them back: the same stencil, SRL tables and env
+    (with obstructions, whose key the copy hashes table by table)."""
+    import os
+    kw = dict(golden_kw(), weights_mode=mode, device="cpu",
+              cache_dir=str(tmp_path))
+    a = tsetup.build_model(**kw)
+    files = os.listdir(tmp_path)
+    assert len(files) == 1 and files[0].startswith("wamtables_")
+    b = tsetup.build_model(**kw)
+    assert os.listdir(tmp_path) == files
+    for f in ("klat", "kcor", "wlat", "obscor", "tanph_pt"):
+        np.testing.assert_array_equal(getattr(a.stencil, f),
+                                      getattr(b.stencil, f))
+    assert (a.fused is None) == (b.fused is None) == (mode != "fused")
+    if a.fused is not None:
+        np.testing.assert_array_equal(a.fused.srl_src, b.fused.srl_src)
+    for k, v in a.env.items():
+        assert torch.equal(v, b.env[k]), k
