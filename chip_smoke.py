@@ -105,7 +105,36 @@ Phases (any failure raises and the script exits non-zero):
      ``p042``-``p050`` beside phase 8's, through the kernels and the plain
      versions (statistics within CLI_STATS_TOL, the trains within
      TRAIN_STATS_TOL, launches as ``checks.expected_launches``);
- 10. one JSON line with each kernel's launches, errors, times and bound;
+ 10. boundary nesting, coupling, assimilation and ``phys_srl_chunked``
+     (``chip_smoke.boundary_phase``): through the command line, an O160
+     coarse run (aqua, 36×36/29, idelpro 450 s, idelt 900 s, 2 h, swh
+     hourly, ``nesting: coarse: rect: [20, 70, 280, 350]``) writes its
+     boundary file, ``bouint`` takes it to 30 minutes, and an O320 fine run
+     with the same widths reads it (``nesting: fine: file:``), its rim
+     written in place in the SRL rows and tail after every step; launches
+     as ``checks.expected_launches``; one more step's rim against the
+     compact ``apply_boundary`` through the round trip (RIM_TOL), finite
+     and nonzero; the rim write, INTSPEC alone and the round trip timed
+     (host clock and the profiler's busy time), and 4 steps without and
+     with the rim profiled for their idle time; coupling: 18°, 12×25,
+     irefra 2 (tests/test_coupling.py's two cases) through the kernels and
+     the plain versions, each block field within the golden trajectory's
+     limits (TRAJ_TOL for SWH and the mean period, TRAJ_STRESS_TOL for the
+     rest, vector components over their vector's magnitude), then O320
+     fused with irefra 2: one period of the O320 winds, 8 steps, currents
+     (the options' jet and eddies) and ice beyond 60° through
+     ``push_ocean``, 8 more steps, each call timed, kernels A and C
+     counted, the DEFVALs at the iced points and the reference test's
+     ranges at the ice-free ones (ntauoc's lower bound only); assimilation:
+     ``FastWaveModel`` at O320 after 4 steps, 2,000 observations on sea
+     points from ``default_rng(0)`` (SWH the first guess × U(0.8, 1.2)),
+     ``wamassi``; the card's analysis against float64 on the CPU at 4,096
+     points with the card's weights (OI_CHECK_TOL), the SWH after the
+     in-place update against the analysis (WAMASSI_SWH_RTOL), the
+     analysis, the update and the peak allocation; ``phys_srl_chunked`` on
+     that state in 65,536-point chunks against ``phys_srl`` on all rows
+     (bit for bit, else within RIM_TOL) and both timed;
+ 11. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -148,6 +177,15 @@ gives the sound readings and those of deliberately broken kernels):
   vs plain (12°)                  CLI_STATS_TOL of the entry's largest
                                   magnitude
   resumed CLI runs                restarts equal bit for bit
+  nesting rim in place vs the     ≤ RIM_TOL of the field's max (the same
+  compact apply_boundary          values written: 0 expected)
+  coupling blocks (18°), kernels  the golden trajectory's limits, as above
+  vs plain
+  OI analysis, card vs float64    ≤ OI_CHECK_TOL relative at each point
+  on the CPU (same weights)
+  SWH after wamassi vs analysis   ≤ WAMASSI_SWH_RTOL relative (the
+                                  reference test's)
+  phys_srl_chunked vs phys_srl    bit for bit (else ≤ RIM_TOL, reported)
   products on the card vs float64 each field within PRODUCT_TOL of its
   on the CPU (O320, 32,768 pts)   largest magnitude (directions on the
                                   circle); points over it held out only
@@ -1692,6 +1730,474 @@ def wavemodel_phase(dev, *, o320=None, cli=None, launches=True,
     return out
 
 
+# -- phase 10: nesting, coupling, assimilation, phys_srl_chunked ----------
+
+NEST_RECT = (20.0, 70.0, 280.0, 350.0)
+RIM_TOL = 1e-6
+OI_CHECK_TOL = 1e-10
+WAMASSI_SWH_RTOL = 2e-2
+# Wave2Atmosphere/Wave2Ocean fields that are vector components, by the
+# vector they belong to (held over the vector's largest magnitude)
+BLOCK_VECTORS = (("ustokes", "vstokes"), ("tauocx", "tauocy"),
+                 ("nustokes", "nvstokes"))
+
+
+def timed(fn, dev, reps: int = 5) -> dict:
+    """Host ms a call of ``fn`` (synchronised after each call), and on the
+    card the device's busy ms a call and the idle share of the window
+    from ``torch.profiler`` over ``reps`` more calls."""
+    from ecwam_tpu_torch.device import synchronize
+    fn()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        synchronize(dev)
+    out = dict(host_ms=(time.perf_counter() - t0) / reps * 1e3)
+    if dev.type == "cuda":
+        def window():
+            for _ in range(reps):
+                fn()
+        wall, _, busy, _ = profile(window, names={})
+        out.update(device_ms=busy / reps, idle=1.0 - busy / wall)
+    return out
+
+
+def fmt_t(t: dict) -> str:
+    return (f"host {t['host_ms']:.3f} ms" + (
+        f", device busy {t['device_ms']:.3f} ms, idle {100 * t['idle']:.1f}"
+        " %" if "device_ms" in t else ""))
+
+
+def block_errors(got, want) -> dict:
+    """Each array of a coupling block: max|got − want| over the largest
+    magnitude of ``want``'s field (of its vector for the components)."""
+    import dataclasses
+    import numpy as np
+    scale = {}
+    for pair in BLOCK_VECTORS:
+        if hasattr(want, pair[0]):
+            m = max(np.abs(getattr(want, k)).max() for k in pair)
+            scale.update((k, m) for k in pair)
+    out = {}
+    for f in dataclasses.fields(want):
+        w, g = getattr(want, f.name), getattr(got, f.name)
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"coupling block {f.name}")
+            continue
+        out[f.name] = float(np.abs(g - w).max()) / max(
+            scale.get(f.name, float(np.abs(w).max())), 1e-30)
+    return out
+
+
+def block_sanity(a2w, w2o, tb, open_pts, wind_dir) -> dict:
+    """tests/test_coupling.py's sanity ranges at the open-water points
+    ``open_pts`` (ntauoc's lower bound only), and the shares of them whose
+    momentum flux lies within 0.3 rad of the wind and whose Stokes drift
+    is downwind."""
+    import numpy as np
+    o = open_pts
+    st = np.hypot(a2w.ustokes[o], a2w.vstokes[o])
+    dtau = np.angle(np.exp(1j * (np.arctan2(a2w.tauocx[o], a2w.tauocy[o])
+                                 - wind_dir[o])))
+    dsto = np.angle(np.exp(1j * (np.arctan2(a2w.ustokes[o], a2w.vstokes[o])
+                                 - wind_dir[o])))
+    ranges = {k: (float(v[o].min()), float(v[o].max())) for k, v in (
+        ("charnock", a2w.charnock), ("stokes", np.hypot(a2w.ustokes,
+                                                        a2w.vstokes)),
+        ("phiocd", a2w.phiocd), ("wsemean", a2w.wsemean),
+        ("wsfmean", a2w.wsfmean), ("nswh", w2o.nswh), ("nmwp", w2o.nmwp),
+        ("ntauoc", w2o.ntauoc), ("nphieps", w2o.nphieps))}
+    log("coupling blocks at the open-water points (min, max): " + ", ".join(
+        f"{k} ({a:.4g}, {b:.4g})" for k, (a, b) in ranges.items()))
+    return dict(
+        charnock=bool(np.all((a2w.charnock[o] > 0.003)
+                             & (a2w.charnock[o] < 0.3))),
+        stokes=bool(np.all((st > 0.005) & (st < 1.0))),
+        phiocd=bool(np.all(a2w.phiocd[o] < 0.0)),
+        wsemean=bool(np.all(a2w.wsemean[o] > 0.0)),
+        wsfmean=bool(np.all((a2w.wsfmean[o] > tb.fr[0])
+                            & (a2w.wsfmean[o] <= tb.fr[-1]))),
+        nswh=bool(np.all((w2o.nswh[o] > 0.3) & (w2o.nswh[o] < 15.0))),
+        nmwp=bool(np.all(w2o.nmwp[o] > 1.0)),
+        # the reference's ntauoc <= 1 holds under its uniform wind; under
+        # winds in random directions a point also takes momentum from
+        # waves that grew under its neighbours' winds (≈ 1.03 at O24)
+        ntauoc=bool(np.all(w2o.ntauoc[o] > 0.5)),
+        nphieps=bool(np.all(w2o.nphieps[o] <= 0.0)),
+        tau_share=float(np.mean(np.abs(dtau) < 0.3)),
+        stokes_share=float(np.mean(np.abs(dsto) < 0.5 * np.pi)))
+
+
+def coupled_cases(mod, ms, *, plain: bool):
+    """tests/test_coupling.py's two cases through ``CoupledWaveModel``:
+    the blocks of each."""
+    import numpy as np
+    n = ms.n_real
+    out = {}
+    cm = mod.CoupledWaveModel(ms, "20230101000000", plain=plain)
+    cm.push_atmosphere("20230101000000", wswave=np.full(n, 14.0),
+                       wdwave=np.full(n, 0.5))
+    cm.advance_coupling_period(4)
+    out["roundtrip"] = (cm.wave_to_atmosphere(), cm.wave_to_ocean())
+    cm = mod.CoupledWaveModel(ms, "20230101000000", plain=plain)
+    cm.push_atmosphere("20230101000000", wswave=np.full(n, 12.0),
+                       wdwave=np.zeros(n))
+    cm.advance_coupling_period(2)
+    ice = np.zeros(n)
+    ice[: n // 2] = 0.95
+    cm.push_ocean(mod.Ocean2Wave(cicover=ice, cithick=np.full(n, 1.0),
+                                 ucur=np.full(n, 0.4), vcur=np.zeros(n)))
+    if cm.model.currents is None:
+        raise AssertionError("coupling: the currents did not reach the "
+                             "propagation")
+    cm.advance_coupling_period(2)
+    out["ocean"] = (cm.wave_to_atmosphere(), cm.wave_to_ocean())
+    return out
+
+
+def boundary_phase(dev, *, coarse=None, fine=None, o320=None, nobs=2000,
+                   check_points=4096, chunk=65536,
+                   launches=True) -> dict:
+    """Phase 10: boundary nesting through the CLI, coupling, assimilation
+    and ``phys_srl_chunked`` (see the module docstring); returns the
+    readings.  ``coarse``/``fine`` override the nested runs' keywords and
+    ``o320`` the full width's ``build_model`` keywords (a rehearsal on the
+    CPU passes small grids and ``launches=False``)."""
+    import shutil
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch import coupling
+    from ecwam_tpu_torch.cli import checks
+    from ecwam_tpu_torch.cli import main as cli
+    from ecwam_tpu_torch.device import synchronize
+    from ecwam_tpu_torch.model import assimilation as da
+    from ecwam_tpu_torch.model import cases, driver, nesting
+    from ecwam_tpu_torch.model import setup as setup_mod
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    cuda = dev.type == "cuda"
+    out = {}
+    work = os.path.join(ROOT, "build", "chip_smoke_nest")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        # -- 10a. nesting through the CLI: coarse → bouint → fine
+        frc = checks.write_forcing(os.path.join(work, "forcing.npz"), 2)
+        base = dict(directions=36, frequencies=29, physics_frequencies=36,
+                    adv=450, phys=900, hours=2, forcing=frc,
+                    fields=("swh",), lsecondorder=False)
+        ckw = dict(dict(base, grid="O160"), **(coarse or {}))
+        rect = ", ".join(f"{x:.1f}" for x in NEST_RECT)
+        ctext = (checks.run_yaml(**ckw)
+                 + f"nesting:\n    coarse:\n        rect: [{rect}]\n")
+        rd_c = os.path.join(work, "coarse")
+        model, _, tm, n_l, wall = cli_run(ctext, rd_c, dev)
+        if launches:
+            _check_launches(f"CLI {ckw['grid']} coarse nest", n_l, model,
+                            ctext, False)
+        cb = nesting.coarse_boundary(model.setup.grid, model.setup.blk,
+                                     *NEST_RECT)
+        wr = nesting.BoundaryWriter(cb, model.setup.tb)
+        t_wr = timed(lambda: wr.add(driver.format_date(model.date),
+                                    model.take_points(cb.idx)), dev)
+        log(f"nesting, coarse run {ckw['grid']} ({model.setup.n_real} sea "
+            f"points, {ckw['hours']} h, swh hourly): {cb.idx.size} boundary "
+            f"points; wall {wall:.3f} s; the boundary records "
+            f"{tm.boundary / max(tm.dates, 1) * 1e3:.3f} ms an output date "
+            f"in the run ({tm.dates} dates, only the boundary points "
+            f"gathered), {fmt_t(t_wr)} a record once warm")
+        del model, wr
+        bc = os.path.join(rd_c, "wam_boundary.npz")
+        rd_f = os.path.join(work, "fine")
+        os.makedirs(rd_f)
+        b30 = os.path.join(rd_f, "boundary_30min.npz")
+        t0 = time.perf_counter()
+        cli.main(["bouint", "--input", bc, "--output", b30, "--timestep",
+                  "1800", "--device", dev.type])
+        t_bouint = time.perf_counter() - t0
+        z = np.load(b30)
+        if not (z["dates"].size == 2 * np.load(bc)["dates"].size - 1
+                and np.isfinite(z["spec"]).all()):
+            raise AssertionError("bouint's records")
+        fkw = dict(dict(base, grid="O320"), **(fine or {}))
+        ftext = (checks.run_yaml(**fkw) + "nesting:\n    fine:\n"
+                 "        file: boundary_30min.npz\n")
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model, entries, tm, n_l, wall = cli_run(ftext, rd_f, dev)
+        ms = model.setup
+        if launches:
+            _check_launches(f"CLI {fkw['grid']} fine nest", n_l, model,
+                            ftext, False)
+        st = model.timers
+        bf = nesting.BoundaryFile(b30, ms.tb, device=dev)
+        fb = nesting.fine_boundary(ms.grid, ms.blk, bf.coarse_boundary())
+        log(f"nesting, bouint to 30 min: {z['dates'].size} records in "
+            f"{t_bouint:.3f} s; fine run {fkw['grid']} ({ms.n_real} sea "
+            f"points, {fb.idx.size} rim points, {fkw['hours']} h): wall "
+            f"{wall:.3f} s for {st.steps} steps, mean step "
+            f"{(st.propag + st.phys) / st.steps * 1e3:.3f} ms (propag "
+            f"{st.propag:.3f} s, phys {st.phys:.3f} s), rim writes "
+            f"{tm.rim / max(tm.rims, 1) * 1e3:.3f} ms each ({tm.rims}, "
+            f"synchronised host clock); launches {n_l}; peak allocation "
+            f"{torch.cuda.max_memory_allocated() / 1e9 if cuda else None} "
+            "GB")
+        if not (tm.rims == st.steps and len(entries) == tm.dates):
+            raise AssertionError("the fine run's rim writes")
+        out["nest"] = dict(rim_points=fb.idx.size, coarse_points=cb.idx.size,
+                           launches=n_l, rim_ms=tm.rim / tm.rims * 1e3,
+                           step_ms=(st.propag + st.phys) / st.steps * 1e3)
+
+        # one more step: the rim in place against the compact round trip
+        model.advance(1)
+        d14 = driver.format_date(model.date)
+        want = nesting.apply_boundary(model.fl1, bf, fb, d14)
+
+        def rim_write():
+            model.put_points(fb.idx, nesting.boundary_spectra(bf, fb, d14))
+        rim_write()
+        got = model.fl1
+        err, _ = rel_max(got, want)
+        rim = model.take_points(fb.idx)
+        del got, want
+        log(f"nesting rim at {d14}: in place vs the compact apply_boundary "
+            f"through the round trip {err:.3e} of max (tol {RIM_TOL}); rim "
+            f"max {float(rim.max()):.3e}, finite "
+            f"{bool(torch.isfinite(rim).all())}")
+        if not (err <= RIM_TOL and bool(torch.isfinite(rim).all())
+                and float(rim.max()) > 0.0):
+            raise AssertionError("nesting: the rim written in place differs "
+                                 "from the compact apply_boundary")
+
+        def round_trip():
+            model.fl1 = nesting.apply_boundary(model.fl1, bf, fb, d14)
+        t = dict(rim=timed(rim_write, dev),
+                 intspec=timed(lambda: nesting.boundary_spectra(bf, fb, d14),
+                               dev),
+                 round_trip=timed(round_trip, dev))
+        if cuda:
+            t["intspec_events_ms"] = cuda_ms(
+                lambda _: nesting.boundary_spectra(bf, fb, d14), 5)
+            t["rim_events_ms"] = cuda_ms(lambda _: rim_write(), 5)
+
+            def steps(nest):
+                for _ in range(4):
+                    model.advance(1)
+                    if nest:
+                        model.put_points(fb.idx, nesting.boundary_spectra(
+                            bf, fb, driver.format_date(model.date)))
+            for nest in (False, True):
+                wall, split, busy, _ = profile(lambda: steps(nest))
+                t["steps_nest" if nest else "steps_plain"] = dict(
+                    wall_ms=wall / 4, busy_ms=busy / 4,
+                    idle_ms=(wall - busy) / 4)
+        log("nesting times at O320 (a call): rim write in place "
+            f"{fmt_t(t['rim'])}; INTSPEC alone {fmt_t(t['intspec'])}; the "
+            f"compact round trip {fmt_t(t['round_trip'])}"
+            + (f"; CUDA events: INTSPEC {t['intspec_events_ms']:.3f} ms, rim "
+               f"write {t['rim_events_ms']:.3f} ms; a step without and with "
+               "the rim (wall, busy, idle ms): "
+               + ", ".join(f"{k} ({v['wall_ms']:.3f}, {v['busy_ms']:.3f}, "
+                           f"{v['idle_ms']:.3f})" for k, v in t.items()
+                           if k.startswith("steps")) if cuda else ""))
+        out["nest"]["times"] = t
+        del model, bf
+        if cuda:
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- 10b. coupling: 18° through the kernels and plain, then O320
+    kw = dict(grid_name="18.0", nang=12, nfre=25, idelpro=900.0,
+              idelt=900.0, pad_to=64, irefra=2)
+    ms = setup_mod.build_model(device=dev, **kw)
+    a0, c0 = pcu.advect.launches, ipk.implsch_compact.launches
+    runs = {p: coupled_cases(coupling, ms, plain=p) for p in (False, True)}
+    n_c = (pcu.advect.launches - a0, ipk.implsch_compact.launches - c0)
+    for case in ("roundtrip", "ocean"):
+        e = {}
+        for got, want in zip(runs[False][case], runs[True][case]):
+            e.update(block_errors(got, want))
+        tol = {k: TRAJ_TOL if k in ("nswh", "nmwp") else TRAJ_STRESS_TOL
+               for k in e}
+        worst = max(e, key=lambda k: e[k] / tol[k])
+        log(f"coupling 18° {case} (12x25, irefra 2, fused), kernels vs "
+            f"plain: worst {worst} {e[worst]:.3e} (tol {tol[worst]}); "
+            + ", ".join(f"{k} {v:.1e}" for k, v in e.items()))
+        if e[worst] > tol[worst]:
+            raise AssertionError(f"coupling 18° {case}: kernels disagree")
+    log(f"coupling 18°: (kernel A, kernel C) launches {n_c} in the four "
+        "runs (none in the plain ones)")
+    if launches and not (n_c[0] > 0 and n_c[1] > 0):
+        raise AssertionError("coupling 18° bypassed a kernel")
+    del runs, ms
+
+    okw = dict(dict(O320_KW, irefra=2), **(o320 or {}))
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ms = setup_mod.build_model(device=dev, **okw)
+    n = ms.n_real
+    wind = o320_wind(n)
+    lat, lon = cases.point_latlon(ms.grid, ms.blk)
+    phi, lam = np.radians(lat), np.radians(lon)
+    ucur = 0.9 * np.exp(-(lat / 8.0) ** 2) \
+        - 0.3 * np.cos(3 * lam) * np.sin(2 * phi)
+    vcur = 0.3 * np.sin(3 * lam) * np.cos(phi)
+    ice = np.clip((np.abs(lat) - 60.0) / 15.0, 0.0, 1.0)
+    cm = coupling.CoupledWaveModel(ms, cases.START)
+    a0, c0 = pcu.advect.launches, ipk.implsch_compact.launches
+    ct = {}
+
+    def clock(name, fn):
+        synchronize(dev)
+        t1 = time.perf_counter()
+        r = fn()
+        synchronize(dev)
+        ct[name] = ct.get(name, 0.0) + time.perf_counter() - t1
+        return r
+    clock("push_atmosphere", lambda: cm.push_atmosphere(
+        cases.START, wswave=wind["wswave"], wdwave=wind["wdwave"]))
+    t_build = time.perf_counter() - t0
+    clock("advance_8", lambda: cm.advance_coupling_period(8))
+    clock("push_ocean", lambda: cm.push_ocean(coupling.Ocean2Wave(
+        cicover=ice, cithick=2.0 * ice, ucur=ucur, vcur=vcur)))
+    clock("advance_8b", lambda: cm.advance_coupling_period(8))
+    a2w = clock("wave_to_atmosphere", cm.wave_to_atmosphere)
+    w2o = clock("wave_to_ocean", cm.wave_to_ocean)
+    n_o = (pcu.advect.launches - a0, ipk.implsch_compact.launches - c0)
+    iced = ice > coupling.CITHRSH
+    sane = block_sanity(a2w, w2o, ms.tb, ice == 0.0, wind["wdwave"])
+    defval = bool(np.all(a2w.charnock[iced] == coupling.PRCHAR)
+                  and np.all(a2w.ustokes[iced] == 0.0)
+                  and np.all(a2w.wsfmean[iced] == float(ms.tb.fr[-1])))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    log(f"coupling {ms.grid.name} ({n} sea points, {ms.tb.nang}x"
+        f"{ms.tb.nfre}/{ms.tb.nfre_red}, fused, irefra 2): setup, model "
+        f"and first push {t_build:.2f} s; host clock, synchronised: "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in ct.items())
+        + f"; (kernel A, kernel C) launches {n_o}; {int(iced.sum())} iced "
+        f"points carry the DEFVALs {defval}; at the {int((ice == 0).sum())} "
+        f"ice-free points {sane}; peak allocation {peak} GB")
+    if launches and not (n_o[0] > 0 and n_o[1] == 8):
+        raise AssertionError(f"coupling O320 launches {n_o}")
+    if not (defval and all(v for k, v in sane.items()
+                           if not k.endswith("share"))
+            and sane["tau_share"] >= 0.95 and sane["stokes_share"] >= 0.95):
+        raise AssertionError("coupling O320: blocks out of range")
+    out["coupling"] = dict(times=ct, launches=n_o, sanity=sane)
+    del cm, ms, a2w, w2o
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- 10c. assimilation on FastWaveModel at O320 after 4 steps
+    ms = setup_mod.build_model(device=dev, **dict(O320_KW, **(o320 or {})))
+    n = ms.n_real
+    model = driver.FastWaveModel(ms, lambda date14: o320_wind(n),
+                                 cases.START)
+    model.advance(4)
+    rng = np.random.default_rng(0)
+    pick = rng.choice(n, nobs, replace=False)
+    lat, lon = cases.point_latlon(ms.grid, ms.blk)
+    hs_fg = da.first_guess_swh(model)[:n]
+    obs = dict(lat=lat[pick], lon=lon[pick],
+               swh=hs_fg[torch.as_tensor(pick, device=dev)].double().cpu()
+               .numpy() * rng.uniform(0.8, 1.2, nobs))
+    sel = np.sort(rng.choice(n, min(check_points, n), replace=False))
+    if cuda:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    at = {}
+    synchronize(dev)
+    t0 = time.perf_counter()
+    hs_an = da.wamassi(model, obs)
+    synchronize(dev)
+    at["wamassi_ms"] = (time.perf_counter() - t0) * 1e3
+    peak = ((torch.cuda.max_memory_allocated() - base_mem) / 1e9
+            if cuda else None)
+    hs1 = da.first_guess_swh(model)[:n].double()
+    swh_err = float(((hs1 - hs_an).abs() / hs_an.abs().clamp(min=1e-12))
+                    .max())
+    at["analysis"] = timed(lambda: da.oi_swh_analysis(
+        hs_fg, lat, lon, obs["lat"], obs["lon"], obs["swh"]), dev, reps=2)
+    at["update"] = timed(lambda: da.scale_spectra(
+        model, torch.ones(ms.n_pad, dtype=torch.float64, device=dev)), dev)
+    at["first_guess"] = timed(lambda: da.first_guess_swh(model), dev)
+    w, _ = da.oi_weights(hs_fg, lat, lon, obs["lat"], obs["lon"],
+                         obs["swh"])
+    cpu_an = da.oi_gain(hs_fg[torch.as_tensor(sel, device=dev)].cpu(),
+                        lat[sel], lon[sel], obs["lat"], obs["lon"], w.cpu(),
+                        device="cpu")
+    an_sel = hs_an[torch.as_tensor(sel, device=dev)].cpu()
+    oi_err = float(((cpu_an - an_sel).abs() / an_sel.abs()).max())
+    log(f"assimilation {ms.grid.name} after 4 steps, {nobs} observations "
+        f"from seed 0 (first guess x U(0.8, 1.2)): wamassi "
+        f"{at['wamassi_ms']:.3f} ms; the analysis {fmt_t(at['analysis'])}; "
+        f"the in-place update {fmt_t(at['update'])}; the first guess "
+        f"{fmt_t(at['first_guess'])}; peak allocation above the state "
+        f"{peak} GB; card vs CPU float64 at {sel.size} points with the "
+        f"card's w: {oi_err:.3e} relative (tol {OI_CHECK_TOL}); SWH after "
+        f"the update vs the analysis {swh_err:.3e} (tol "
+        f"{WAMASSI_SWH_RTOL}); analysis range "
+        f"{float(hs_an.min()):.3f}..{float(hs_an.max()):.3f} m")
+    if not (oi_err <= OI_CHECK_TOL and swh_err <= WAMASSI_SWH_RTOL
+            and bool(torch.isfinite(model._f_srl).all())):
+        raise AssertionError("assimilation disagrees")
+    out["assimilation"] = dict(at, peak_gb=peak, oi_err=oi_err,
+                               swh_err=swh_err)
+    del w, hs_an, hs1, hs_fg
+
+    # -- 10d. phys_srl_chunked against phys_srl on all rows
+    fp = model.fp
+
+    def clone(*ts):
+        return tuple(None if t is None else t.clone() for t in ts)
+    args = (model._f_srl, model._stress6, model._frc6, model._denv,
+            model._env2d, model._tail)
+    f_all, s_all, t_all = fp.phys_srl(*clone(*args))
+    f_c, t_c = clone(model._f_srl, model._tail)
+    m1 = ipk.implsch_srl.launches
+    acc = fp.phys_srl_chunked(f_c, model.frc, model.stress, ms.env,
+                              chunk=chunk, tail=t_c)[-1]
+    n_ch = ipk.implsch_srl.launches - m1
+    rows = fp.from_srl_pad[:n]
+    pairs = [(f_c[rows], f_all[rows])] + [
+        (acc[k][:n], s_all[i][rows]) for i, k in enumerate(ipk.STRESS_KEYS)]
+    if t_c is not None:
+        pairs.append((t_c[rows], t_all[rows]))
+    same = all(torch.equal(a, b) for a, b in pairs)
+    e = max(rel_max(a, b)[0] for a, b in pairs)
+    del f_all, s_all, t_all, f_c, t_c, acc, pairs
+    pt = {}
+    if cuda:
+        pt["all_ms"] = cuda_ms(lambda a: fp.phys_srl(*a), 3,
+                               setup=lambda: clone(*args))
+        pt["chunked_ms"] = cuda_ms(
+            lambda a: fp.phys_srl_chunked(a[0], model.frc, model.stress,
+                                          ms.env, chunk=chunk, tail=a[1]),
+            3, setup=lambda: clone(model._f_srl, model._tail))
+    log(f"phys_srl_chunked ({chunk}-point chunks, {n_ch} kernel B "
+        f"launches) vs phys_srl on all {model._f_srl.shape[0]} rows (one "
+        f"launch): canonical rows, tail and the six stress fields bit for "
+        f"bit equal {same} (largest difference {e:.3e} of max); "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in pt.items()))
+    if not (same or e <= RIM_TOL):
+        raise AssertionError("phys_srl_chunked disagrees with phys_srl")
+    if launches and n_ch != -(-n // chunk):
+        raise AssertionError(f"phys_srl_chunked launched kernel B {n_ch} "
+                             "times")
+    out["chunked"] = dict(pt, same=same, err=e, launches=n_ch)
+    del model, args, fp
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1957,7 +2463,12 @@ def main():
     torch.cuda.empty_cache()
     wm = wavemodel_phase(dev)
 
-    # ---- 10. report --------------------------------------------------------
+    # ---- 10. nesting, coupling, assimilation, phys_srl_chunked
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    boundary_phase(dev)
+
+    # ---- 11. report --------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)

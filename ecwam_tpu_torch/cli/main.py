@@ -19,11 +19,15 @@ Usage:
   python -m ecwam_tpu_torch info
 
 ``--device cpu`` runs on the CPU; the default is the card, and a run
-that asked for it fails where CUDA is absent.  Not ported (each raises
-``NotImplementedError``, ROADMAP A4): a ``nesting:`` block and the
-``bouint`` program.  The swell-train fields (``p042``-``p050``) need the
-dense ``WaveModel``'s per-bin windsea mask: the fused route refuses them,
-as the reference's chunked output path does.
+that asked for it fails where CUDA is absent.  Boundary nesting: a
+``nesting: coarse: rect: [S, N, W, E]`` block writes the coarse run's
+boundary spectra to ``wam_boundary.npz`` at the output dates, ``nesting:
+fine: file: F`` (F relative to the run directory) overwrites the fine
+run's rim after every advection step, and ``bouint --input F --output G
+--timestep S`` interpolates a boundary file in time.  The swell-train
+fields (``p042``-``p050``) need the dense ``WaveModel``'s per-bin windsea
+mask: the fused route refuses them, as the reference's chunked output
+path does.
 """
 
 from __future__ import annotations
@@ -44,9 +48,6 @@ import time
 import numpy as np
 
 from ecwam_tpu_torch.config.schema import RunConfig, DATE_FMT
-
-A4 = "not ported (ROADMAP A4)"
-
 
 def _fmt14(d: _dt.datetime) -> str:
     return d.strftime(DATE_FMT)
@@ -244,7 +245,9 @@ class OutputTimers:
     synchronised device work (outside the full-mode physics step, which
     the model's StepTimers count): the catalog, the second-order
     correction, the device-to-host copy of the fields, and the
-    statistics/GRIB/FDB write; and the restarts written."""
+    statistics/GRIB/FDB write; the restarts written; with nesting, the
+    fine rim's writes (one an advection step) and the coarse boundary
+    records (one an output date)."""
     products: float = 0.0
     secondorder: float = 0.0
     d2h: float = 0.0
@@ -252,12 +255,12 @@ class OutputTimers:
     dates: int = 0
     restart: float = 0.0
     restarts: int = 0
+    rim: float = 0.0
+    rims: int = 0
+    boundary: float = 0.0
 
 
 def _refuse_unported(cfg: RunConfig, names) -> None:
-    nest = cfg.raw.get("nesting") if isinstance(cfg.raw, dict) else None
-    if nest:
-        raise NotImplementedError(f"boundary nesting (`nesting:`) is {A4}")
     from ecwam_tpu_torch.io import products as products_mod
     trains = sorted(set(names) & products_mod.TRAIN_FIELDS)
     if trains and cfg.build_kwargs()["weights_mode"] == "fused":
@@ -314,6 +317,7 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
     from ecwam_tpu_torch.io import products as products_mod
     from ecwam_tpu_torch.io import restart as restart_mod
     from ecwam_tpu_torch.model import driver as driver_mod
+    from ecwam_tpu_torch.model import nesting as nesting_mod
     from ecwam_tpu_torch.model.setup import pad_point_field
 
     names = cfg.output_fields.names if cfg.output_fields else ("swh",)
@@ -376,6 +380,45 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
                 f"({diag['n_violations']} points, max outflow "
                 f"{diag['max_outflow']:.3f}) - REDUCE IDELPRO "
                 "ACCORDINGLY (checkcfl.F90)")
+
+    # boundary nesting (IBOUNC/IBOUNF roles): the coarse side collects the
+    # boundary points' spectra at output dates (OUTBC), the fine side
+    # overwrites its rim in place after each advection step (BOUINPT)
+    nest = (cfg.raw.get("nesting") or {}) if isinstance(cfg.raw, dict) \
+        else {}
+    bc_writer = bc_file = fine_tab = None
+    if nest.get("coarse"):
+        rect = [float(x) for x in nest["coarse"]["rect"]]
+        cb = nesting_mod.coarse_boundary(ms.grid, ms.blk, *rect)
+        bc_writer = nesting_mod.BoundaryWriter(cb, ms.tb)
+        if not quiet:
+            print(f"[ecwave] coarse nesting: {cb.idx.size} boundary "
+                  "points (MBOUNC)")
+    if nest.get("fine"):
+        path = nest["fine"]["file"]
+        if not os.path.isabs(path):
+            path = os.path.join(rundir, path)
+        bc_file = nesting_mod.BoundaryFile(path, ms.tb, device=dev)
+        fine_tab = nesting_mod.fine_boundary(ms.grid, ms.blk,
+                                             bc_file.coarse_boundary())
+        if not quiet:
+            print(f"[ecwave] fine nesting: {fine_tab.idx.size} rim "
+                  f"points from {path} (MBOUNF)")
+
+    def write_rim(date):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        model.put_points(fine_tab.idx, nesting_mod.boundary_spectra(
+            bc_file, fine_tab, _fmt14(date)))
+        synchronize(dev)
+        timers.rim += time.perf_counter() - t0
+        timers.rims += 1
+
+    def add_boundary(date):
+        t0 = time.perf_counter()
+        bc_writer.add(_fmt14(date), model.take_points(bc_writer.cb.idx))
+        synchronize(dev)
+        timers.boundary += time.perf_counter() - t0
 
     out_dates = set(cfg.output_dates())
     frc_dates = set(cfg.forcing_dates())
@@ -514,10 +557,14 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
         while date < cfg.end:
             nxt = date + step
             model.advance(1, full_phys=(nxt in out_dates))
+            if bc_file is not None:
+                write_rim(nxt)
             if nxt in frc_dates:
                 model.newwind(nxt)        # NEWWIND swap incl. the TAUW cap
             if nxt in out_dates:
                 do_output(nxt)
+                if bc_writer is not None:
+                    add_boundary(nxt)
             if nxt in rst_dates:
                 saved.append(save(nxt))
             date = nxt
@@ -537,6 +584,13 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
         encoders.shutdown()
         if fdb_sink is not None:
             fdb_sink.close()
+
+    if bc_writer is not None and bc_writer.dates:
+        bc_path = os.path.join(rundir, "wam_boundary.npz")
+        bc_writer.save(bc_path)
+        if not quiet:
+            print(f"[ecwave] wrote boundary file {bc_path} "
+                  f"({len(bc_writer.dates)} dates)")
 
     wall = time.perf_counter() - t_wall
     log_path = os.path.join(rundir, "statistics.log")
@@ -591,9 +645,30 @@ def cmd_validate(args):
 
 
 def cmd_bouint(args):
-    """bouint program role (bouint.F90:19-23): not ported."""
-    raise NotImplementedError(f"the bouint program (boundary nesting) is "
-                              f"{A4}")
+    """bouint program role (bouint.F90:19-23): time-interpolate a
+    coarse boundary file to a finer cadence (INTSPEC on ``--device``,
+    the card by default)."""
+    from ecwam_tpu_torch.core import spectral
+    from ecwam_tpu_torch.model import nesting as nesting_mod
+    from ecwam_tpu_torch.model.driver import parse_date, format_date
+    z = np.load(args.input)
+    nfre = int(z["fr"].shape[0])
+    nang = int(z["th"].shape[0])
+    tb = spectral.build_spectral_tables(nang, nfre)
+    bf = nesting_mod.BoundaryFile(args.input, tb, device=args.device)
+    cb = bf.coarse_boundary()
+    wr = nesting_mod.BoundaryWriter(cb, tb)
+    t = parse_date(str(bf.dates[0]))
+    end = parse_date(str(bf.dates[-1]))
+    step = _dt.timedelta(seconds=float(args.timestep))
+    while t <= end:
+        d14 = format_date(t)
+        spec_t, _ = bf.at(d14)
+        wr.add(d14, spec_t.permute(1, 2, 0))
+        t += step
+    wr.save(args.output)
+    print(f"[ecwave] bouint: {len(wr.dates)} records -> {args.output}")
+    return 0
 
 
 def card_line() -> str:
@@ -639,7 +714,7 @@ def main(argv=None):
         if needs_cfg:
             sp.add_argument("--config", required=True)
             sp.add_argument("--rundir", default="run")
-        if name in ("preproc", "preset", "run"):
+        if name in ("preproc", "preset", "run", "bouint"):
             sp.add_argument("--device", default=None,
                             help="'cpu' or 'cuda' (default: the card)")
         if name == "run":

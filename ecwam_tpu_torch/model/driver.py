@@ -37,6 +37,7 @@ from ecwam_tpu_torch.model.setup import ModelSetup, pad_point_field
 from ecwam_tpu_torch.model import preset as preset_mod
 from ecwam_tpu_torch.model import stepper as stepper_mod
 from ecwam_tpu_torch.model.stepper import initial_stress
+from ecwam_tpu_torch.ops import propagation_fused as pfz
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 from ecwam_tpu_torch.ops.physics import means as means_mod
 
@@ -92,10 +93,10 @@ class WaveModel:
                      else start_date)
         self.steps = stepper_mod.make_step(setup, plain=plain)
         self.step_full, self.step_adv, self.step_phys = self.steps
-        frc, cur = self._forcing_host(self.date)
+        frc, self._currents = self._forcing_host(self.date)
         self.frc = self._to_device(frc)
-        if cur is not None:
-            self.steps.refresh_currents(*cur)
+        if self._currents is not None:
+            self.steps.refresh_currents(*self._currents)
         # cold start and first-guess stress from the forcing as the model
         # holds it (model dtype), like the reference
         wind = {k: self.frc[k].cpu().numpy() for k in ("wswave", "wdwave")}
@@ -116,6 +117,26 @@ class WaveModel:
     def fl1(self, value):
         # the compact layout, points contiguous (kernel C's layout)
         self._fl1 = self._as_tensor(value).contiguous()
+
+    @property
+    def currents(self):
+        """The surface currents (ucur, vcur) the propagation was last
+        refreshed with (GETCURR), (n_pad,) float64 host arrays as the model
+        holds them, or None."""
+        return self._currents
+
+    def take_points(self, idx) -> torch.Tensor:
+        """The spectra (nang, nfre, nb) at the canonical points ``idx``."""
+        return self._fl1[..., self._index(idx)]
+
+    def put_points(self, idx, spec) -> None:
+        """Overwrite the spectra at the canonical points ``idx`` with
+        ``spec`` (nang, nfre, nb), in place."""
+        self._fl1[..., self._index(idx)] = self._as_tensor(spec)
+
+    def _index(self, idx) -> torch.Tensor:
+        return torch.as_tensor(idx, dtype=torch.int64,
+                               device=self.setup.device)
 
     @property
     def stress(self) -> dict:
@@ -187,6 +208,7 @@ class WaveModel:
         self.stress = stress
         self.frc = frc
         if cur is not None:
+            self._currents = cur
             self.steps.refresh_currents(*cur)
         return self
 
@@ -274,10 +296,10 @@ class FastWaveModel(WaveModel):
         self.date = (parse_date(start_date)
                      if isinstance(start_date, str) else start_date)
         self.fp = fp = FusedPropagation(setup, plain=plain)
-        frc, cur = self._forcing_host(self.date)
+        frc, self._currents = self._forcing_host(self.date)
         self.frc = self._to_device(frc)
-        if cur is not None:
-            fp.refresh(*cur)
+        if self._currents is not None:
+            fp.refresh(*self._currents)
         # cold start and first-guess stress from the forcing as the model
         # holds it (model dtype), like the reference
         wind = {k: self.frc[k].cpu().numpy() for k in ("wswave", "wdwave")}
@@ -302,6 +324,7 @@ class FastWaveModel(WaveModel):
         frc, cur = self._forcing_host(date)
         self.frc = self._to_device(frc)
         if cur is not None:
+            self._currents = cur
             self.fp.refresh(*cur)
         self._frc6 = self.fp.frc_srl(self.frc)
         u10 = self._frc6[0]
@@ -379,12 +402,38 @@ class FastWaveModel(WaveModel):
     def fl1_chunk(self, start: int, count: int) -> torch.Tensor:
         """Compact spectrum (nang, nfre, count) of the canonical points
         [start, start + count) without forming the whole compact field."""
+        return self._gather(self.fp.from_srl_pad[start:start + count])
+
+    def take_points(self, idx) -> torch.Tensor:
+        """The spectra (nang, nfre, nb) at the canonical points ``idx``,
+        gathered from their SRL rows and tail."""
+        return self._gather(self.fp.from_srl_pad[self._index(idx)])
+
+    def put_points(self, idx, spec) -> None:
+        """Overwrite the spectra at the canonical points ``idx`` with
+        ``spec`` (nang, nfre, nb), in place: the first ``nfre_red``
+        frequencies into each point's SRL row (k-major lanes), the rest
+        into the same row of the tail.  Only the canonical rows are
+        written.  A point's wrap duplicates keep their old values until
+        the next :meth:`FusedPropagation.advect_srl`, which refreshes the
+        wrap slots from the canonical rows before its pass; nothing reads
+        them before that (the physics runs after the advection, and the
+        wrap rows' physics results are overwritten by that refresh).  Pad
+        rows are not touched."""
         fp, tb = self.fp, self.setup.tb
-        idx = fp.from_srl_pad[start:start + count]
-        n = idx.shape[0]
-        out = self._f_srl[idx].reshape(n, tb.nang, tb.nfre_red)
+        rows = fp.from_srl_pad[self._index(idx)]
+        f = self._as_tensor(spec)
+        self._f_srl[rows] = pfz.to_lanes(f, tb.nfre_red, tb.nang)
         if self._tail is not None:
-            out = torch.cat([out, self._tail[idx].reshape(
+            self._tail[rows] = f[:, tb.nfre_red:].permute(2, 0, 1).reshape(
+                rows.shape[0], fp.LT)
+
+    def _gather(self, rows) -> torch.Tensor:
+        tb = self.setup.tb
+        n = rows.shape[0]
+        out = self._f_srl[rows].reshape(n, tb.nang, tb.nfre_red)
+        if self._tail is not None:
+            out = torch.cat([out, self._tail[rows].reshape(
                 n, tb.nang, tb.nfre - tb.nfre_red)], dim=2)
         return out.permute(1, 2, 0)
 

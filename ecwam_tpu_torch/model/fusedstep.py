@@ -319,6 +319,65 @@ class FusedPropagation:
                                for k in ipk.STRESS_KEYS])
         return f_srl, stress6, tail, state
 
+    def phys_srl_chunked(self, f_srl, frc, stress, env, *, chunk: int,
+                         tail=None, state_keys=ipk.STRESS_KEYS):
+        """One minimal-mode physics step on SRL-resident state, a chunk of
+        canonical points at a time (the counterpart of the reference's
+        ``phys_srl_chunked``, without its ``bundle``: the tables are this
+        object's).
+
+        ``frc``, ``stress`` and ``env`` are the compact (n_pad,) forcing
+        and stress fields and the setup's ``env`` (``depth``,
+        ``emaxdpt``, and the (nfre, n_pad) ``wavnum``, ``cinv``,
+        ``xk2cg``).  Each chunk gathers its points' rows (and tail rows)
+        out of the SRL buffer, runs kernel B in minimal mode on them (its
+        plain version on the CPU or with ``plain``), and writes them back
+        in place; the wrap slots are then refreshed from the canonical
+        rows (pad rows keep their finite values).  Returns ``(f_srl,
+        acc)``, or ``(f_srl, tail, acc)`` with a tail, ``acc`` the
+        ``state_keys`` fields (n_pad,) of the step (pad points replicate
+        point 0, as :meth:`extract_state`); minimal mode computes the
+        stress keys only."""
+        bad = set(state_keys) - set(ipk.STRESS_KEYS)
+        if bad:
+            raise ValueError(f"minimal-mode physics has no {sorted(bad)}")
+        if (tail is None) != (self.LT == 0):
+            raise ValueError("tail block required iff nfre > nfre_red")
+        setup = self.setup
+        cfg = ipk.minimal_config(setup.phys)
+        zero = torch.zeros_like(torch.as_tensor(frc["wswave"]))
+        fields = [frc.get(k, zero) for k in ipk.SCAL_IN[:ipk.N_FRC]]
+        fields += [env["depth"], env["emaxdpt"]]
+        fields += [stress[k] for k in ipk.STRESS_KEYS]
+        scal = torch.stack([torch.as_tensor(v, dtype=self.dtype,
+                                            device=self.device)
+                            for v in fields])
+        env2d = torch.cat([torch.as_tensor(env[k], dtype=self.dtype,
+                                           device=self.device)
+                           for k in ipk.ENV_FIELDS])
+        kw = dict(nang=self.nang, nfre_red=self.nfre_red)
+        npts = self.ft.npts
+        rows6 = f_srl.new_empty((len(ipk.STRESS_KEYS), setup.n_pad))
+        for s in range(0, npts, chunk):
+            pts = slice(s, min(npts, s + chunk))
+            rows = self.from_srl_pad[pts]
+            args = (cfg, f_srl[rows], env2d[:, pts].contiguous(),
+                    scal[:, pts].contiguous(),
+                    tail[rows] if tail is not None else None)
+            if self.plain:
+                f_c, so, t_c = ipk.implsch_srl_plain(*args, **kw)
+            else:
+                f_c, so, t_c = ipk.implsch_srl(
+                    *args, tables_dev=self._tables(f_srl), **kw)
+            f_srl[rows] = f_c
+            if tail is not None:
+                tail[rows] = t_c
+            rows6[:, pts] = so
+        rows6[:, npts:] = rows6[:, :1]
+        pfz.refresh_wraps(f_srl, self.tabs)
+        acc = {k: rows6[ipk.STRESS_KEYS.index(k)] for k in state_keys}
+        return (f_srl, acc) if tail is None else (f_srl, tail, acc)
+
     def extract_state(self, rows):
         """Gather canonical points of SRL-ordered per-point rows
         (…, nsrl) → (…, n_pad)."""

@@ -10,8 +10,9 @@ reference's, on the CPU.
     are ``test_torch_cli_reference.py`` and ``test_torch_cli_restart.py``);
   * the namelist config, the CHECKCFL abort, ``--validate``, the SIGTERM
     restart and resume (as ``test_signal_stop.py``), the FDB output and
-    the refusals (``NotImplementedError`` naming ROADMAP A4 for nesting
-    and ``bouint``; the swell trains and u* forcing on the fused route);
+    the refusals (an unknown weight mode; the swell trains and u* forcing
+    on the fused route; nesting and ``bouint`` are
+    ``test_torch_nesting.py``'s);
   * ``weights_mode: cached`` and ``otf`` (the dense ``WaveModel``) with
     the swell-train fields: statistics.log against the reference's CLI,
     which takes its own ``WaveModel`` on the CPU for these modes, within
@@ -309,14 +310,8 @@ def test_sigterm_writes_restart_and_resumes(tmp_path):
     assert np.isfinite(model.swh()).all()
 
 
-@pytest.mark.parametrize("case", ["weights_mode", "nesting", "trains",
-                                  "bouint", "ustar"])
+@pytest.mark.parametrize("case", ["weights_mode", "trains", "ustar"])
 def test_refusals(tmp_path, case):
-    if case == "bouint":
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            t_cli.main(["bouint", "--input", "a", "--output", "b",
-                        "--timestep", "900"])
-        return
     if case == "ustar":
         # u* forcing runs in the dense WaveModel only, as in the reference
         from ecwam_tpu_torch.model import driver, setup
@@ -327,12 +322,9 @@ def test_refusals(tmp_path, case):
                                  "20230101000000")
         return
     text = {"weights_mode": RUN_CFG + "weights_mode: dense\n",
-            "nesting": RUN_CFG + "nesting:\n    coarse:\n"
-                                 "        rect: [0, 10, 0, 10]\n",
             "trains": RUN_CFG.replace("[swh, mwd, mwp, wind]",
                                       "[swh, p042]")}[case]
     err, match = {"weights_mode": (ValueError, "weights_mode"),
-                  "nesting": (NotImplementedError, "ROADMAP A4"),
                   "trains": (NotImplementedError,
                              "per-bin windsea mask")}[case]
     with pytest.raises(err, match=match):

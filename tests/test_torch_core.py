@@ -5,11 +5,12 @@ originals.
 core.dispersion, core.grid, core.bathy, ops.physics.tables, model.preset,
 io.norms, config.schema, config.namelist, io.outcontrol, io.restart,
 io.waminfo, io.forcing, io.grib, io.gribout, io.multio, io.partition,
-model.tablecache, native}`` are copies of the ``ecwam_tpu`` modules of the
-same paths (numpy only), kept so that the port imports nothing of the JAX
-package.  Each case must give exactly what its original gives on the same
-inputs (``array_equal``: they run the same numpy code; files written by
-both are equal byte for byte).  The one deliberate difference:
+io.outspec, model.tablecache, native}`` are copies of the ``ecwam_tpu``
+modules of the same paths (numpy only), kept so that the port imports
+nothing of the JAX package.  Each case must give exactly what its original
+gives on the same inputs (``array_equal``: they run the same numpy code;
+files written by both are equal byte for byte), and the files of
+``io.outspec`` read across the two packages.  The one deliberate difference:
 ``model.tablecache.build_key`` hashes each obstruction table on its own,
 with its shape and dtype (ADVICE.md), so its keys differ from the
 original's where obstructions are given (its own test).
@@ -37,6 +38,7 @@ from ecwam_tpu.io import gribout as j_gribout
 from ecwam_tpu.io import multio as j_multio
 from ecwam_tpu.io import norms as j_norms
 from ecwam_tpu.io import outcontrol as j_outcontrol
+from ecwam_tpu.io import outspec as j_outspec
 from ecwam_tpu.io import partition as j_partition
 from ecwam_tpu.io import restart as j_restart
 from ecwam_tpu.io import waminfo as j_waminfo
@@ -58,6 +60,7 @@ from ecwam_tpu_torch.io import gribout as t_gribout
 from ecwam_tpu_torch.io import multio as t_multio
 from ecwam_tpu_torch.io import norms as t_norms
 from ecwam_tpu_torch.io import outcontrol as t_outcontrol
+from ecwam_tpu_torch.io import outspec as t_outspec
 from ecwam_tpu_torch.io import partition as t_partition
 from ecwam_tpu_torch.io import restart as t_restart
 from ecwam_tpu_torch.io import waminfo as t_waminfo
@@ -249,6 +252,37 @@ def _multio(m):
     return _in_tmp(run)
 
 
+def _outspec_case(gm):
+    """Random spectra (3 directions, 4 frequencies) on an O24 aqua block."""
+    grid = gm.octahedral_grid(24)
+    blk = gm.build_sea_point_block(grid, gm.aqua_bathymetry(grid))
+    return grid, blk, np.random.default_rng(8).random((3, 4, blk.nsea))
+
+
+POINTS = [(10.0, 20.0), (-45.0, 300.0), (70.0, 5.0)]
+
+
+def _outspec(m):
+    """OUTSPEC's GRIB spectra written and read back, and the point-output
+    journal of three positions at two dates (its npz compared by content:
+    the archive stamps its members with the time)."""
+    grid, blk, fl1 = _outspec_case(m["grid"])
+    o = m["outspec"]
+
+    def run(d):
+        path = os.path.join(d, "SPEC.grib")
+        o.write_spectra(path, fl1, blk, grid, "20230101030000")
+        back = o.read_spectra(path, blk, grid, nang=3, nfre=4)
+        po = o.PointOutput(POINTS, blk, grid)
+        po.append("20230101030000", fl1)
+        po.append("20230101060000", 2.0 * fl1)
+        fn = po.write(os.path.join(d, "points.npz"))
+        journal = o.load_points(fn)
+        os.remove(fn)
+        return back, po.indices, journal
+    return _in_tmp(run)
+
+
 def _sep3tr(m):
     """Two swell systems and noise on 6 points, a random swell mask."""
     tb = m["sp"].build_spectral_tables(nang=12, nfre=25)
@@ -335,6 +369,7 @@ BUILDERS = {
             m["grid"].octahedral_grid(24),
             m["grid"].aqua_bathymetry(m["grid"].octahedral_grid(24)))))],
     "multio": _multio,
+    "outspec_grib_and_points": _outspec,
     "partition_sep3tr": _sep3tr,
     "tablecache_save_load_key": _tablecache,
 }
@@ -345,14 +380,16 @@ JAX_MODULES = dict(c=j_c, sp=j_sp, grid=j_grid, bathy=j_bathy, disp=j_disp,
                    outcontrol=j_outcontrol, restart=j_restart,
                    waminfo=j_waminfo, forcing=j_forcing, grib=j_grib,
                    gribout=j_gribout, multio=j_multio, native=j_native,
-                   partition=j_partition, tablecache=j_tablecache)
+                   partition=j_partition, tablecache=j_tablecache,
+                   outspec=j_outspec)
 PORT_MODULES = dict(c=t_c, sp=t_sp, grid=t_grid, bathy=t_bathy, disp=t_disp,
                     pp=t_pp, tables=t_tables, preset=t_preset, norms=t_norms,
                     schema=t_schema, namelist=t_namelist,
                     outcontrol=t_outcontrol, restart=t_restart,
                     waminfo=t_waminfo, forcing=t_forcing, grib=t_grib,
                     gribout=t_gribout, multio=t_multio, native=t_native,
-                    partition=t_partition, tablecache=t_tablecache)
+                    partition=t_partition, tablecache=t_tablecache,
+                    outspec=t_outspec)
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))
@@ -368,6 +405,26 @@ def test_copy_names_its_source(module):
     assert f"``{rel}``" in mod.__doc__
     assert mod.__name__ == orig.__name__.replace("ecwam_tpu",
                                                  "ecwam_tpu_torch", 1)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_outspec_files_read_across_packages(writer, tmp_path):
+    """OUTSPEC's spectra file and the point journal, written by one
+    package's module, read by the other's as by the writer's own."""
+    w, r = ((t_outspec, j_outspec) if writer == "port"
+            else (j_outspec, t_outspec))
+    grid, blk, fl1 = _outspec_case(t_grid)
+    path = str(tmp_path / "SPEC.grib")
+    w.write_spectra(path, fl1, blk, grid, "20230101030000")
+    _same(r.read_spectra(path, blk, grid, nang=3, nfre=4),
+          w.read_spectra(path, blk, grid, nang=3, nfre=4), "spectra")
+    po = w.PointOutput(POINTS, blk, grid)
+    po.append("20230101030000", fl1)
+    fn = po.write(str(tmp_path / "points.npz"))
+    got = r.load_points(fn)
+    _same(got, w.load_points(fn), "points")
+    np.testing.assert_array_equal(got["spectra"][0],
+                                  np.moveaxis(fl1[..., po.indices], -1, 0))
 
 
 def test_tablecache_key_hashes_each_obstruction_table():

@@ -46,7 +46,10 @@ def test_every_module_imports_with_jax_blocked():
             "ecwam_tpu_torch.config.namelist", "ecwam_tpu_torch.native",
             "ecwam_tpu_torch.io.products", "ecwam_tpu_torch.io.extremes",
             "ecwam_tpu_torch.io.grib",
-            "ecwam_tpu_torch.ops.secondorder"} <= set(mods)
+            "ecwam_tpu_torch.ops.secondorder",
+            "ecwam_tpu_torch.coupling", "ecwam_tpu_torch.model.nesting",
+            "ecwam_tpu_torch.model.assimilation",
+            "ecwam_tpu_torch.io.outspec"} <= set(mods)
     code = ("import sys, importlib; sys.modules['jax'] = None\n"
             "sys.modules['ecwam_tpu'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
