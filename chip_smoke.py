@@ -4,8 +4,10 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. machine: card name and power limit, CUDA/torch/nvcc versions; build
-     both kernel sources (csrc/advect.cu, csrc/implsch.cu) with nvcc for
-     sm_90a, in parallel;
+     every kernel library (``_build.SOURCES``: csrc/advect.cu, the four
+     builds of csrc/implsch.cu — SRL and compact entries, default and wide
+     — and csrc/opclass.cu) with nvcc for sm_90a, in parallel, and log
+     each kernel's registers and spills;
   2. small configurations: on the golden-trajectory grid (12° topo grid
      with obstructions, 12×18/15, irefra=1, ifrelfmax=3), 4 steps of
      ``FastWaveModel.advance`` through the kernels (8 advection and 2
@@ -49,8 +51,9 @@ Phases (any failure raises and the script exits non-zero):
      and through kernel C; then, once the default O320 model is freed,
      ``cases.o320_options`` (irefra 2, CY50R1, polar ice, currents): 4
      steps and an output date through the kernels with their launch
-     counts, kernel A and kernel B against plain as in phase 3, and the
-     timing and profile of phase 4;
+     counts, kernel A and kernel B against plain as in phase 3 (and
+     kernel B on the slice again under storm winds of 5–55 m/s, where
+     LLCAPCHNK and RNFAC act), and the timing and profile of phase 4;
   6. the rest of the physics (``cases.LEGACY_CASES``: iphys=0 alone and
      with CY49R1 on the golden grid; ISNONLIN 0 and 2, SDICE1, SDICE2,
      LSTRN and LBIWBK/LICERUN/LMASKICE off on the shallow grid): one
@@ -134,7 +137,26 @@ Phases (any failure raises and the script exits non-zero):
      analysis, the update and the peak allocation; ``phys_srl_chunked`` on
      that state in 65,536-point chunks against ``phys_srl`` on all rows
      (bit for bit, else within RIM_TOL) and both timed;
- 11. one JSON line with each kernel's launches, errors, times and bound;
+ 11. the shapes beyond kernel B/C's default build
+     (``chip_smoke.shapes_phase``, rehearsed by
+     tests/test_torch_smoke_shapes.py at O24): O320 36×36/29 with each of
+     LCFLX, LSTOKES and LWVFLX_SNL off in turn, an output date through
+     kernel B's EXT instantiation with its launches and the full-mode
+     slice against plain (the rows a switch turns off zero); O320
+     72×36/29 (the wide build, four directions a lane): 4 steps and an
+     output date through kernels A and B with their launches, the mean
+     step and Gbins/s, kernel A's tile, the peak allocation, kernel A
+     against plain on the whole domain and kernel B (and C) on the slice
+     in both modes with each kernel's time and bound; the dense fused
+     ``WaveModel`` at O320 under u* (the drag law of the O320 winds) with
+     the cycle-50r1 options: 4 steps with their launches, the mean
+     physics step and the peak allocation, kernel C's UST×OPTS
+     instantiation against plain on a 32,768-point slice of its state,
+     and again under storm winds (5–55 m/s) and their u*; the shallow 12°
+     grid at 66 frequencies (the wide build's shared windsea mask): one
+     physics step in each mode against plain and 2 output-date steps
+     through the kernel;
+ 12. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -286,8 +308,11 @@ def rel_max(a, b):
 
 def cuda_ms(fn, reps, setup=None):
     """Mean device time (ms) of ``fn`` over ``reps`` runs after one
-    warm-up; ``setup`` (untimed) makes each run's input."""
+    warm-up; ``setup`` (untimed) makes each run's input.  None without a
+    card (a rehearsal on the CPU times nothing)."""
     import torch
+    if not torch.cuda.is_available():
+        return None
     total = 0.0
     for i in range(reps + 1):
         arg = setup() if setup else None
@@ -335,8 +360,14 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     wavenumber sum in each first-loop step and the TAU_PHI_HF cut-off
     (LLGCBZ0); the growth normalisation in SINPUT and in the tail
     integrals (LLNORMAGAM); CHNKMIN (LLCAPCHNK); the per-bin SDICE3 and
-    LCISCAL terms with the group speed per frequency; u* forcing replaces
-    TAUT_Z0 by Z0WAVE."""
+    LCISCAL terms with the group speed per frequency.  Each SINFLX call
+    runs one closure: TAUT_Z0, or TAUT_Z0_GC (with HALPHAP before the
+    first call) under LLGCBZ0, or Z0WAVE under u* forcing, which runs
+    neither of the others whatever the options.  Full mode's switches
+    leave out what the kernel leaves out: LCFLX off the flux source sums,
+    the cap term's sums and WNFLUXES; LSTOKES off STOKESTRN and CIMSSTRN;
+    LWVFLX_SNL off sums the source before SNONLIN without the implicit
+    factor."""
     import numpy as np
     f, dia, jtot, niter = cfg.tables.nfre, cfg.dia, 19, 18
     a, nb, ml = nang, nang * f, int(cfg.dia.mlsthg)
@@ -344,9 +375,22 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     ops = (3 * nb + 2 * f + 5) + (nb + 6 * f + 11)
     # the direction rows (cos, sin², FLM) and the first call's tail floor
     ops += 12 * a + 2
-    # each SINFLX call: TAUT_Z0 (18 Newton steps of 33), FEMEANWS,
-    # FRCUTINDEX and STRESSO with its 19-node tail integral
-    ops += 2 * ((21 + 33 * niter) + (4 * f + 7) + 11
+    p = cfg.params
+    ustar = cfg.icode_wnd in (1, 2)
+    # each SINFLX call: its closure, FEMEANWS, FRCUTINDEX and STRESSO with
+    # its 19-node tail integral
+    if ustar:
+        # Z0WAVE and the log-profile U10
+        closure = 15
+    elif p.llgcbz0:
+        # TAUT_Z0_GC: first guess, then NITER first-loop steps (STRESS_GC:
+        # 25 a wavenumber from the cut-off, 30 scalar; the step, 25) and
+        # NITER second-loop steps (40), the fallbacks (30)
+        closure = 40 + niter * (25 * gc_terms + 55) + niter * 40 + 30
+    else:
+        # TAUT_Z0: 18 Newton steps of 33
+        closure = 21 + 33 * niter
+    ops += 2 * (closure + (4 * f + 7) + 11
                 + (10 * f + 5 * a + 45 + 28 * jtot))
     # SINPUT: call 1 with one gust (26 a bin), call 2 with two gusts and
     # the swell damping (33 a bin and gust), 9 a bin for the sums
@@ -366,25 +410,30 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     # IMPHFTAIL above the cut
     ops += (190 + cfg.nfre_red * a * (3 + 9 * shallow) + 2 + 15 * nb
             + 2 + 5 * a * above_cut)
+    lcflx, lstokes = full and cfg.lcflx, full and cfg.lstokes
     if full:
-        nodd = f - 1 + f % 2
-        # PHIWA's sums and PHIHF's integral in both calls; the flux source
-        # sums and the cap term; WNFLUXES; the second FKMEAN and
-        # FEMEANWS; STOKESTRN
+        # PHIWA's sums and PHIHF's integral in both calls; the cap term
+        # written in the update (3 a bin); the second FKMEAN and FEMEANWS
         ops += 2 * (5 * nb + f + 4 * f + a + 9 + 28 * jtot)
-        ops += 17 * nb + 3 * f + (14 * f + 40) + (nb + 14 * f + 21)
+        ops += 3 * nb + (nb + 14 * f + 21)
         ops += windsea * nb + 4 * f + 10
+    if lcflx:
+        # the flux source sums: after SNONLIN with the implicit factor (9
+        # a bin), or before it without (5 a bin) under LWVFLX_SNL off;
+        # the cap term's sums (5 a bin, 3 a frequency); WNFLUXES
+        ops += (9 if cfg.lwvflx_snl else 5) * nb
+        ops += 5 * nb + 3 * f + (14 * f + 40)
+    if lstokes:
+        # STOKESTRN
+        nodd = f - 1 + f % 2
         ops += 12 * nodd + 5 * a * nodd + 4 * a + 10
-    p = cfg.params
     if p.llgcbz0:
-        # HALPHAP (call 1): the downwind sums, four moments, the scalars
-        ops += 7 * nb + 9 * f + 30
-        # per call: first guess, then NITER first-loop steps (STRESS_GC:
-        # 25 a wavenumber from the cut-off, 30 scalar; the step, 25) and
-        # NITER second-loop steps (40), the fallbacks (30); the TAU_PHI_HF
-        # cut-off (NS_GC and the log, 12)
-        ops += 2 * (40 + niter * (25 * gc_terms + 55) + niter * 40 + 30
-                    + 12)
+        # HALPHAP (call 1) under TAUT_Z0_GC: the downwind sums, four
+        # moments, the scalars
+        if not ustar:
+            ops += 7 * nb + 9 * f + 30
+        # the TAU_PHI_HF cut-off in each call (NS_GC and the log, 12)
+        ops += 2 * 12
     if p.llnormagam:
         # SINPUT: per gust and frequency two direction sums (4 a bin), the
         # factor (8) and its product (1 a bin): call 1 one gust, call 2 two
@@ -424,16 +473,12 @@ def implsch_ops(cfg, nang, full, *, above_cut, shallow, windsea, ice,
     if cfg.lciwa2:
         # SDICE2: 9 a bin
         ops += 9 * nb + (0 if cfg.lciwa3 or cfg.lciwa1 else 15 * f)
-    if full and cfg.lstrn:
+    if lstokes and cfg.lstrn:
         # CIMSSTRN: a column sum and the strain per frequency (8); on iced
         # rows AKI_ICE's start (15) and 25 Newton steps (22 each)
         ops += nb + 8 * f + ice * f * (15 + 25 * 22)
     if not cfg.lbiwbk:
         ops -= (3 * nb + 2 * f + 5) + 190 + cfg.nfre_red * a * 3
-    if cfg.icode_wnd in (1, 2):
-        # u* forcing: Z0WAVE and the log-profile U10 (15) in place of
-        # TAUT_Z0's solve in each SINFLX call
-        ops -= 2 * ((21 + 33 * niter) - 15)
     return ops
 
 
@@ -487,14 +532,23 @@ def ice_slice(ms) -> int:
     return int(np.argmax(c[n:] - c[:-n]))
 
 
-def slice_check(ms, model, dev, full, above_cut, r0=None):
+def storm_winds(n: int):
+    """``n`` winds of :func:`cases.storm`'s strength, uniform in 5–55 m/s
+    from seed 0: LLCAPCHNK's capped Charnock parameter and RNFAC act above
+    about 25 m/s."""
+    import numpy as np
+    return np.random.default_rng(0).uniform(5.0, 55.0, n)
+
+
+def slice_check(ms, model, dev, full, above_cut, r0=None, storm=False):
     """Kernel B against the plain chain on the sea rows of a
     PHYS_ROWS-row slice of the model's state (from row ``r0``, by default
     the middle row), in minimal or full mode; then, on the same rows as a
     compact (nang, nfre, rows) spectrum, kernel C against its plain
-    version and against kernel B.  Returns the readings, with the
-    operations bound counted for ``above_cut`` (see :func:`implsch_ops`)
-    and this step's windsea mask."""
+    version and against kernel B.  ``storm``: the slice's U10 replaced by
+    :func:`storm_winds`.  Returns the readings, with the operations bound
+    counted for ``above_cut`` (see :func:`implsch_ops`) and this step's
+    windsea mask."""
     import torch
     from ecwam_tpu_torch.core.dispersion import BATHYMAX
     from ecwam_tpu_torch.model import cases
@@ -506,6 +560,9 @@ def slice_check(ms, model, dev, full, above_cut, r0=None):
     scal = torch.cat([model._frc6, model._denv, model._stress6])
     args = (model._f_srl[rows], model._env2d[:, rows].contiguous(),
             scal[:, rows].contiguous(), model._tail[rows])
+    if storm:
+        args[2][ipk.SCAL_IN.index("wswave")] = torch.as_tensor(
+            storm_winds(args[2].shape[1]), dtype=args[2].dtype, device=dev)
     kw = dict(nang=fp.nang, nfre_red=fp.nfre_red, full=full)
     tabs = ipk.pack_tables(cfg, dev)
 
@@ -611,7 +668,7 @@ def slice_check(ms, model, dev, full, above_cut, r0=None):
                 shallow=float((args[2][depth] < BATHYMAX).double().mean()),
                 gc_terms=gc_terms(got[1][0][sea]),
                 ice=float((args[2][cithick] > 0).double().mean()))
-    r["ops"] = PHYS_ROWS * implsch_ops(cfg, fp.nang, full, **data)
+    r["ops"] = args[0].shape[0] * implsch_ops(cfg, fp.nang, full, **data)
 
     # kernel C on the same rows in the compact layout
     nang, nfre, nred = fp.nang, ms.tb.nfre, fp.nfre_red
@@ -647,7 +704,7 @@ def slice_check(ms, model, dev, full, above_cut, r0=None):
         bytes=nbytes(fl, args[1], args[2], *ck))
     all_rows = (model._f_srl.clone(), model._env2d, scal,
                  model._tail.clone())
-    if not full:
+    if not full and not storm:
         r["all_rows_ms"] = cuda_ms(lambda _: run_kernel(all_rows), 3)
     keys = ipk.SCAL_OUT_FULL if full else ipk.SCAL_OUT_MIN
     data["shallow"] = float((scal[depth] < BATHYMAX).double().mean())
@@ -913,6 +970,24 @@ def options_phase(dev) -> dict:
             f"{r['compact']['spec_rel']:.3e}, same as SRL "
             f"{r['compact']['same_as_srl']}")
         check_slice(r, full, f"implsch {mode} options")
+    # the same slice under storm winds, where LLCAPCHNK's capped Charnock
+    # parameter and RNFAC act (above about 25 m/s), with the same limits
+    n_storm = int((storm_winds(PHYS_ROWS) > 25.0).sum())
+    for full in (False, True):
+        mode = "full" if full else "minimal"
+        r = sl[f"storm_{mode}"] = slice_check(ms, model, dev, full,
+                                              above_cut, storm=True)
+        log(f"implsch {mode} options, storm winds 5–55 m/s ({n_storm} of "
+            f"{PHYS_ROWS} rows above 25 m/s): kernel {r['ms']:.3f} ms; "
+            f"spectrum {r['spec_rel']:.3e} of max, stress "
+            f"{r['stress_rel']:.3e}"
+            + (f", worst row {max(r['rows'].values()):.3e}" if full else "")
+            + f"; {r['n_tie']} FRCUTINDEX ties, {r['n_gc']} of "
+            f"{r['n_sea']} rows on a gc edge (largest margin "
+            f"{r['gc_margin']:.3e}), {r['n_off']} other rows off; compact: "
+            f"spectrum {r['compact']['spec_rel']:.3e}, same as SRL "
+            f"{r['compact']['same_as_srl']}")
+        check_slice(r, full, f"implsch {mode} options, storm winds")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1131,7 +1206,8 @@ def opclass_phase(dev) -> list:
             f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']}; bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}: hbm {r['hbm_ms']:.3f},"
             f" ops {r['ops_ms']:.3f}, smem {r['smem_ms']:.3f}) = "
-            f"{100 * r['share']:.1f} %; {r['launches']} launches")
+            f"{100 * r['share']:.1f} %; the first design's smem bound "
+            f"{r['smem_first_ms']:.3f}; {r['launches']} launches")
         if not r["ok"]:
             raise AssertionError(f"opclass {name}: kernel disagrees")
     del x
@@ -1442,7 +1518,8 @@ def compact_check(cfg, fl, env2d, scal, *, reps=10) -> dict:
     data = dict(above_cut=cfg.tables.nfre - 1 - float(mij.double().mean()),
                 windsea=float(got[2].mean()),
                 shallow=float((scal[depth] < BATHYMAX).double().mean()),
-                gc_terms=0.0, ice=float((scal[cithick] > 0).double().mean()))
+                gc_terms=gc_terms(got[1][keys.index("ufric")]),
+                ice=float((scal[cithick] > 0).double().mean()))
     return dict(
         n=n, n_tie=int(tie.sum()), n_z0=int(z0.sum()),
         z0_margin=float(z0_m.max()) if z0_m.numel() else 0.0,
@@ -1669,17 +1746,11 @@ def wavemodel_phase(dev, *, o320=None, cli=None, launches=True,
         log(f"kernel C on all {ms.n_pad} points, full mode: "
             f"{r['all_ms']:.3f} ms; bound {r['all_bound'][0]:.3f} ms "
             f"({r['all_bound'][1]})")
-    # u* from seed 0 swapped in as NEWWIND does (driver.WaveModel.newwind):
-    # TAUW = u*²·(1 − (α/CHARNOCK)²), zeroed below USTMIN_RESET_TAUW
+    # u* from seed 0 swapped in as NEWWIND does
     cfg_u = dataclasses.replace(ms.phys, icode_wnd=1)
-    scal_u = sl[2].clone()
-    row = {k: ipk.SCAL_IN.index(k) for k in ("ufric", "tauw", "chrnck")}
-    us = torch.as_tensor(0.2 + 0.5 * np.random.default_rng(0).random(n),
-                         dtype=scal_u.dtype, device=dev)
-    tauw = us**2 * (1.0 - (ms.phys.params.alpha / scal_u[row["chrnck"]])**2)
-    scal_u[row["ufric"]] = us
-    scal_u[row["tauw"]] = torch.where(
-        us < model.USTMIN_RESET_TAUW, torch.zeros_like(tauw), tauw)
+    scal_u = newwind_stress(ms, sl[2],
+                            0.2 + 0.5 * np.random.default_rng(0).random(n),
+                            model.USTMIN_RESET_TAUW)
     r = compact_check(cfg_u, sl[0], sl[1], scal_u)
     check_compact(r, f"kernel C UST on WaveModel's state ({n} points, u* "
                   "0.2–0.7 m/s from seed 0)")
@@ -2198,6 +2269,262 @@ def boundary_phase(dev, *, coarse=None, fine=None, o320=None, nobs=2000,
     return out
 
 
+# -- phase 11: the shapes kernel B/C takes beyond the default build ------
+
+FLUX_SWITCHES = ("lcflx", "lstokes", "lwvflx_snl")
+
+
+def fmt_ms(x) -> str:
+    return "not timed" if x is None else f"{x:.3f} ms"
+
+
+def drag_ustar(u10):
+    """u* = U10·√min(ACD + BCD·U10, CDMAX), the drag law TAUT_Z0 starts
+    from (taut_z0.F90), for a u*-forced model from U10 winds."""
+    import numpy as np
+    from ecwam_tpu_torch.core import constants as c
+    return u10 * np.sqrt(np.minimum(c.ACD + c.BCD * u10, c.CDMAX))
+
+
+def newwind_stress(ms, scal, us, usmin):
+    """``scal`` (SCAL_IN rows) with the friction velocity ``us`` swapped
+    in as NEWWIND does under u* (driver.WaveModel.newwind): TAUW =
+    u*²·(1 − (α/CHARNOCK)²), zeroed below ``usmin``."""
+    import torch
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    out = scal.clone()
+    row = {k: ipk.SCAL_IN.index(k) for k in ("ufric", "tauw", "chrnck")}
+    us = torch.as_tensor(us, dtype=out.dtype, device=out.device)
+    tauw = us**2 * (1.0 - (ms.phys.params.alpha / out[row["chrnck"]])**2)
+    out[row["ufric"]] = us
+    out[row["tauw"]] = torch.where(us < usmin, torch.zeros_like(tauw), tauw)
+    return out
+
+
+def shapes_phase(dev, *, over=None, nang=72, rows=PHYS_ROWS,
+                 launches=True) -> dict:
+    """Phase 11: kernel B/C beyond the default build's shapes, at full
+    width (:data:`O320_KW` with ``over``'s keywords: a rehearsal on the
+    CPU passes a small grid and ``launches=False``); returns the readings
+    of the kernels line."""
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch.device import synchronize
+    from ecwam_tpu_torch.model import cases, driver
+    from ecwam_tpu_torch.model import setup as setup_mod
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    cuda = dev.type == "cuda"
+    kw0 = dict(O320_KW, **(over or {}))
+    out = {}
+
+    def fresh():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    # -- 11a. full mode with each flux/Stokes switch off: the default
+    # build's EXT instantiation through output dates, then the slice
+    fresh()
+    ms = setup_mod.build_model(device=dev, **kw0)
+    wind = o320_wind(ms.n_real)
+    out["switches"] = {}
+    for sw in FLUX_SWITCHES:
+        ms_s = cases.with_phys(ms, **{sw: False})
+        model = driver.FastWaveModel(ms_s, lambda d: wind, cases.START)
+        model.advance(1)
+        f0 = ipk.implsch_srl.full_launches
+        model.advance(1, full_phys=True)
+        n_f = ipk.implsch_srl.full_launches - f0
+        n = ms.n_real
+        above_cut = ms.tb.nfre - 1 - float(
+            model.state["mij"][:n].double().mean())
+        r = slice_check(ms_s, model, dev, True, above_cut)
+        r["launches"] = n_f
+        zero = [k for k in ipk.SCAL_OUT_FULL
+                if k in model.state and not bool(model.state[k].any())]
+        log(f"implsch full, {sw} off ({ms.grid.name}, {rows} rows): "
+            f"{n_f} full-mode launches in the output date; kernel "
+            f"{fmt_ms(r['ms'])}, plain {fmt_ms(r['plain_ms'])}; spectrum "
+            f"{r['spec_rel']:.3e} of max, stress {r['stress_rel']:.3e}, "
+            f"worst row {max(r['rows'].values()):.3e}; rows zero in the "
+            f"state: {zero}; {r['n_tie']} ties, {r['n_off']} rows off; "
+            f"compact same as SRL {r['compact']['same_as_srl']}")
+        check_slice(r, True, f"implsch full, {sw} off")
+        if launches and n_f <= 0:
+            raise AssertionError(f"{sw} off: the output date bypassed "
+                                 "kernel B")
+        out["switches"][sw] = r
+        del model
+    del ms
+
+    # -- 11b. the fast path at ``nang`` directions: kernels A and B (the
+    # wide build), 4 steps and an output date
+    fresh()
+    t0 = time.perf_counter()
+    ms = setup_mod.build_model(device=dev, **dict(kw0, nang=nang))
+    wind = o320_wind(ms.n_real)
+    model = driver.FastWaveModel(ms, lambda d: wind, cases.START)
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    ft = ms.fused
+    tile = None
+    if cuda:
+        tabs = model.fp.tabs
+        tile = pcu.tile_rows(
+            pcu._lib(), tabs["cg_srl"].shape[1], model.fp.nfre_red,
+            tabs["ktaps"].shape[2], ft.S, False, False,
+            torch.cuda.get_device_properties(dev)
+            .shared_memory_per_block_optin)
+    pcu.advect.launches = 0
+    ipk.implsch_srl.launches = ipk.implsch_srl.full_launches = 0
+    steps = []
+    for _ in range(4):
+        t_p, t_f = model.timers.propag, model.timers.phys
+        model.advance(1)
+        steps.append((model.timers.propag - t_p, model.timers.phys - t_f))
+    step_s = sum(a + b for a, b in steps) / 4
+    model.advance(1)
+    t_f = model.timers.phys
+    model.advance(1, full_phys=True)
+    t_full = model.timers.phys - t_f
+    n_l = dict(advect=pcu.advect.launches, implsch=ipk.implsch_srl.launches,
+               implsch_full=ipk.implsch_srl.full_launches)
+    pk = peak()
+    n = ms.n_real
+    norms = model.norms()
+    bins = n * ms.tb.nang * ms.tb.nfre
+    log(f"{ms.grid.name} {ms.tb.nang}×{ms.tb.nfre}/"
+        f"{ms.tb.nfre_red} fast path "
+        f"(build {t_build:.1f} s, {n} sea points, {ft.nsrl} SRL rows; "
+        f"kernel A's tile {tile} rows, EW {ft.EW}): steps (t_propag s, "
+        f"t_phys s) " + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in steps)
+        + f"; mean step {step_s * 1e3:.3f} ms = "
+        f"{bins / step_s / 1e9:.3f} Gbins/s; output date t_phys "
+        f"{t_full:.4f} s; launches {n_l}; peak allocation {pk} GB; SWH "
+        f"{norms}")
+    if launches and min(n_l.values()) <= 0:
+        raise AssertionError(f"{nang} directions bypassed a kernel: {n_l}")
+    if not (np.isfinite([norms["average"], norms["maximum"]]).all()
+            and norms["minimum"] > 0):
+        raise AssertionError(f"{nang} directions: SWH not finite")
+    above_cut = ms.tb.nfre - 1 - float(model.state["mij"][:n].double().mean())
+    a = advect_check(model, ft, ms.irefra)
+    a_bound = bound(a[4], 0)
+    log(f"advect at {nang} directions: kernel {fmt_ms(a[2])}, plain "
+        f"{fmt_ms(a[3])}, max|k-p| {a[1]:.3e} = {a[0]:.3e} of max (tol "
+        f"{ADVECT_TOL}); bound {a_bound[0]:.3f} ms ({a_bound[1]}: "
+        f"{a[4] / 1e9:.3f} GB a pass)")
+    if not a[0] <= ADVECT_TOL:
+        raise AssertionError(f"advection at {nang} directions disagrees")
+    sl = {}
+    for full in (False, True):
+        mode = "full" if full else "minimal"
+        r = sl[mode] = slice_check(ms, model, dev, full, above_cut)
+        log(f"implsch {mode} at {nang} directions ({rows} rows, "
+            f"{ipk.library(ms.phys, full)}): kernel {fmt_ms(r['ms'])}, "
+            f"plain {fmt_ms(r['plain_ms'])}; spectrum {r['spec_rel']:.3e} "
+            f"of max, stress {r['stress_rel']:.3e}"
+            + (f", worst row {max(r['rows'].values()):.3e}, xllws "
+               f"{r['xllws']} of {r['xllws_bins']} on the edge, "
+               f"{r['xllws_off']} off" if full else "")
+            + f"; {r['n_tie']} ties, {r['n_off']} rows off"
+            + (f"; kernel on all rows {fmt_ms(r['all_rows_ms'])}"
+               if not full else "")
+            + f"; bound on all rows {r['all_rows_bound'][0]:.3f} ms "
+            f"({r['all_rows_bound'][1]}); compact: kernel "
+            f"{fmt_ms(r['compact']['ms'])}, spectrum "
+            f"{r['compact']['spec_rel']:.3e}, same as SRL "
+            f"{r['compact']['same_as_srl']}")
+        check_slice(r, full, f"implsch {mode} at {nang} directions")
+    out.update(wide=dict(launches=n_l, advect=a, step_ms=step_s * 1e3,
+                         peak_gb=pk, tile=tile, **sl))
+    del model, ms, ft
+
+    # -- 11c. the dense WaveModel under u* with the cycle-50r1 options:
+    # kernel C's UST×OPTS instantiation
+    fresh()
+    ms = setup_mod.build_model(device=dev, weights_mode="fused",
+                               icode_wnd=1, **dict(kw0, **cases.CY50R1))
+    n = ms.n_real
+    wind = o320_wind(n)
+    wind["ufric"] = drag_ustar(wind["wswave"])
+    model = driver.WaveModel(ms, lambda d: wind, cases.START)
+    model = model.newwind(model.date)
+    a0, c0 = pcu.advect.launches, ipk.implsch_compact.launches
+    for _ in range(4):
+        model.advance(1)
+    n_a = pcu.advect.launches - a0
+    n_c = ipk.implsch_compact.launches - c0
+    tm = model.timers
+    pk = peak()
+    u10 = model.state["wswave"][:n]
+    log(f"WaveModel {ms.grid.name} fused, u* (drag law of the 8–12 m/s "
+        f"winds) with cy50r1: 4 steps, mean advection step "
+        f"{tm.propag / 4 * 1e3:.3f} ms, mean physics step "
+        f"{tm.phys / 2 * 1e3:.3f} ms; (kernel A passes, kernel C launches)"
+        f" {(n_a, n_c)}; U10 {float(u10.min()):.3f}..{float(u10.max()):.3f}"
+        f" m/s; peak allocation {pk} GB; SWH {model.norms()}")
+    if launches and (n_a, n_c) != (4, 2):
+        raise AssertionError(f"u* cy50r1 WaveModel launches {(n_a, n_c)}")
+    fl1, env2d, scal = cases.wavemodel_inputs(model)
+    m_ = min(rows, ms.n_pad)
+    s0 = (ms.n_pad - m_) // 2
+    sl_ = tuple(x[..., s0:s0 + m_].contiguous() for x in (fl1, env2d, scal))
+    del fl1, env2d, scal
+    r = compact_check(ms.phys, *sl_)
+    r["launches"] = n_c
+    check_compact(r, f"kernel C UST×OPTS on the WaveModel's state ({m_} "
+                  "points)")
+    # the same points under storm winds and their drag-law u*
+    u = storm_winds(m_)
+    scal_s = newwind_stress(ms, sl_[2], drag_ustar(u),
+                            model.USTMIN_RESET_TAUW)
+    scal_s[ipk.SCAL_IN.index("wswave")] = torch.as_tensor(
+        u, dtype=scal_s.dtype, device=dev)
+    rs = compact_check(ms.phys, sl_[0], sl_[1], scal_s)
+    check_compact(rs, f"kernel C UST×OPTS under storm winds 5–55 m/s and "
+                  f"their u* ({int((u > 25.0).sum())} of {m_} points above "
+                  "25 m/s)")
+    out.update(ustar_options=r, ustar_options_storm=rs,
+               ustar_options_model=dict(phys_ms=tm.phys / 2 * 1e3,
+                                        peak_gb=pk))
+    del model, ms, sl_, scal_s
+
+    # -- 11d. 66 frequencies (the wide build's shared mask) on the shallow
+    # grid: one physics step in each mode, and a run through an output date
+    fresh()
+    kw66 = dict(cases.shallow_kw(), nfre=66)
+    spec, stress, _ = cases.physics_kernel_vs_plain(kw66, dev)
+    f = cases.full_kernel_vs_plain(kw66, dev, width=MASK_WIDTH)
+    ms = cases.build(kw66, dev)
+    model = driver.FastWaveModel(ms, cases.provider(
+        cases.golden_forcing(ms.n_real), ms.idelpro), cases.START)
+    f0 = ipk.implsch_srl.full_launches
+    model.advance(2, full_phys=True)
+    n_f = ipk.implsch_srl.full_launches - f0
+    worst = max(f["rows"], key=f["rows"].get)
+    log(f"shallow 12° at 66 frequencies: minimal spectrum {spec:.3e}, "
+        f"stress {stress:.3e}; full spectrum {f['spec']:.3e}, worst row "
+        f"{worst} {f['rows'][worst]:.3e}, xllws {f['xllws']} of "
+        f"{f['bins']} on the edge and {f['off_edge']} off; {n_f} full-mode "
+        f"launches in 2 output-date steps; SWH {model.norms()}")
+    if not (spec <= PHYS_TOL and stress <= STRESS_TOL
+            and f["spec"] <= PHYS_TOL and f["rows"][worst] <= FULL_ROW_TOL
+            and f["off_edge"] == 0
+            and f["xllws"] <= XLLWS_SHARE * f["bins"]
+            and (n_f > 0 or not launches)):
+        raise AssertionError("66 frequencies: kernel disagrees")
+    out["nfre66"] = dict(spec=spec, stress=stress, full=f, launches=n_f)
+    del model, ms
+    fresh()
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -2468,7 +2795,12 @@ def main():
     torch.cuda.empty_cache()
     boundary_phase(dev)
 
-    # ---- 11. report --------------------------------------------------------
+    # ---- 11. the shapes beyond the default build
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sh = shapes_phase(dev)
+
+    # ---- 12. report --------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)
@@ -2531,6 +2863,35 @@ def main():
         e["max_rel_err"] = r["spec_rel"]
     kernels[3]["all_points_ms"] = wm["slice"]["all_ms"]
     kernels[3]["all_points_bound_ms"] = wm["slice"]["all_bound"][0]
+    w, us = sh["wide"], sh["ustar_options"]
+    new = [
+        (entry("advect_72", "ecwam_tpu_torch/csrc/advect.cu",
+               "ecwam_tpu/ops/propagation_pallas.py:564",
+               w["launches"]["advect"], w["advect"][1], w["advect"][2],
+               w["advect"][3], w["advect"][4], 0), w["advect"][0])]
+    for mode in ("minimal", "full"):
+        r = w[mode]
+        new.append((entry(
+            f"implsch_{mode}_72", isrc,
+            "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+            w["launches"]["implsch" if mode == "minimal" else "implsch_full"],
+            r["spec_abs"], r["ms"], r["plain_ms"], r["bytes"], r["ops"]),
+            r["spec_rel"]))
+    new.append((entry(
+        "implsch_compact_ustar_options", isrc,
+        "ecwam_tpu/ops/physics/implsch_pallas.py:250", us["launches"],
+        us["spec_abs"], us["ms"], us["plain_ms"], us["bytes"], us["ops"]),
+        us["spec_rel"]))
+    for sw, r in sh["switches"].items():
+        new.append((entry(
+            f"implsch_full_no_{sw}", isrc,
+            "ecwam_tpu/ops/physics/implsch_pallas.py:381", r["launches"],
+            r["spec_abs"], r["ms"], r["plain_ms"], r["bytes"], r["ops"]),
+            r["spec_rel"]))
+    for e, rel in new:
+        e["max_rel_err"] = rel
+        kernels.append(e)
+    kernels[-len(new) + 1]["all_rows_ms"] = w["minimal"]["all_rows_ms"]
     for r in od:
         kernels.append(dict(
             name=f"opclass_{r['name']}", route="cuda",

@@ -3,9 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/ecwam_tpu_torch/`` at the repository root, keyed by a hash of the
-source and the flags; the library is loaded with ``ctypes``.  Nothing
-here runs at import time, so the package imports on machines without
-``nvcc``.
+source and the flags; the library is loaded with ``ctypes``.  A library
+of VARIANTS is a build of a source with its own defines: kernel B/C's
+source in four, its SRL and compact entries (``implsch``,
+``implsch_compact``) at up to 64 directions and again in its wide build
+(``implsch_wide``, ``implsch_wide_compact``: 128 directions), so that they
+compile in parallel.  Nothing here runs at import time, so the package
+imports on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,16 @@ BUILD_DIR = os.path.join(
     "build", "ecwam_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("advect", "implsch", "opclass")
+SOURCES = ("advect", "implsch", "implsch_compact", "implsch_wide",
+           "implsch_wide_compact", "opclass")
+# library name: (source, extra nvcc flags); the others are their source's
+VARIANTS = {
+    "implsch": ("implsch", ("-DIMPLSCH_SRL",)),
+    "implsch_compact": ("implsch", ("-DIMPLSCH_COMPACT",)),
+    "implsch_wide": ("implsch", ("-DIMPLSCH_WIDE", "-DIMPLSCH_SRL")),
+    "implsch_wide_compact": ("implsch", ("-DIMPLSCH_WIDE",
+                                         "-DIMPLSCH_COMPACT")),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -36,9 +49,16 @@ def nvcc_path() -> str:
     return path
 
 
+def source_and_flags(name: str) -> tuple:
+    """(path of the .cu source, nvcc flags) of library ``name``."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC, src + ".cu"), NVCC_FLAGS + tuple(extra)
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    src, flags = source_and_flags(name)
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -53,8 +73,8 @@ def build(names=SOURCES) -> dict:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, name + ".cu")]
+        src, flags = source_and_flags(name)
+        cmd = [nvcc_path(), *flags, "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out,
@@ -74,7 +94,8 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if missing."""
+    """The loaded library ``name`` (``csrc/<name>.cu`` or a VARIANTS
+    build), built if missing."""
     lib = _libs.get(name)
     if lib is None:
         path = library_path(name)

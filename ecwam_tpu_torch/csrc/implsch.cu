@@ -76,13 +76,34 @@
 //    SETICE; LMASKICE off SETICE.
 //
 // u*-driven forcing (ICODE_WND 1/2, template flag UST, the compact entry
-// in full mode only, without the options above: the dense model's
-// physics step): AIRSEA's u* branch replaces the TAUT_Z0 solve in both
-// SINFLX calls — Z0WAVE from the carried u* and TAUW, then U10 from the
-// log profile, u*/κ·(ln XNLEV − ln z0), floored at WSPMIN — and that U10
-// feeds the rest of the chain (SINPUT, the sea-ice flux branch, Stokes)
-// and goes out as one more row after the full mode's (airsea.F90:44-70,
-// implsch.py's ICODE 1/2 hand-over).
+// in either mode: the dense model's physics step), instantiated with OPTS
+// and with EXT/JAN, so that every option combines with it: AIRSEA's u*
+// branch replaces the TAUT_Z0 solve (and, under LLGCBZ0, TAUT_Z0_GC and
+// HALPHAP) in both SINFLX calls — Z0WAVE from the carried u* and TAUW
+// (LLCAPCHNK: the Charnock parameter capped at the call's incoming U10),
+// then U10 from the log profile, u*/κ·(ln XNLEV − ln z0), floored at
+// WSPMIN — and that U10 feeds the rest of the chain (RNFAC of the second
+// call, SINPUT, the sea-ice flux branch, Stokes) and goes out as one more
+// row after the mode's (airsea.F90:44-70, implsch.py's ICODE 1/2
+// hand-over).
+//
+// Full mode's switches (EXT bits, so that the default and OPTS
+// instantiations keep their code): LCFLX off leaves out the flux sums and
+// WNFLUXES and writes their rows as 0, LSTOKES off STOKESTRN and CIMSSTRN
+// (their rows 0); LWVFLX_SNL off takes the flux source before SNONLIN
+// and without the implicit factor (implsch.F90:281-306), summed per
+// frequency into the row's own ``pre`` arrays, which SNONLIN leaves alone.
+//
+// Two widths of this file (implsch_cuda picks one from nang and nfre):
+// the default, KPL = 2 directions a lane (nang <= 64) with each lane's
+// windsea-mask bits in a 64-bit register word per direction (full mode,
+// nfre <= 64); and IMPLSCH_WIDE, KPL = 4 (nang <= 128) with the mask in
+// the row's shared words, nfre words of 32 bits per direction rounded up
+// (any nfre), at most 8 warps a block (a 72×36 row takes ≈ 35 KB, so
+// about six rows an SM) and so up to 255 registers a thread.  Each width
+// is built twice, with IMPLSCH_SRL (the SRL entry's instantiations) and
+// with IMPLSCH_COMPACT (the compact entry's, UST among them), so that
+// the four libraries compile in parallel.
 //
 // What bounds it: arithmetic and transcendentals.  Its only bulk traffic
 // is one read and one write of each spectrum row (≈2·nang·nfre·4 bytes);
@@ -140,7 +161,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+// A named namespace, not an anonymous one: nvcc names an anonymous
+// namespace with a hash drawn anew at each compilation, and ptxas then gave
+// one source's default minimal kernel 152 or 161 registers from build to
+// build (83 or 94 ms on all O320 rows); under a fixed name every build of
+// a source is the same (tools/ptxas_registers.py).  Each build is its own
+// shared library, loaded with RTLD_LOCAL, so the names cannot clash.
+namespace ecwam_implsch {
 
 // scalar parameters, in the order of implsch_cuda.PAR_NAMES
 enum Par {
@@ -182,8 +209,10 @@ enum Opt { OPT_LLGCBZ0 = 1, OPT_LLNORMAGAM = 2, OPT_LLCAPCHNK = 4,
            OPT_IPHYS0 = 32, OPT_ISNONLIN0 = 64, OPT_ISNONLIN2 = 128,
            OPT_LCIWA1 = 256, OPT_LCIWA2 = 512, OPT_LSTRN = 1024,
            OPT_NO_LBIWBK = 2048, OPT_NO_LICERUN = 4096,
-           OPT_NO_LMASKICE = 8192, OPT_USTAR = 16384 };
-constexpr int OPT_EXT = 32 * 511;            // the EXT instantiations' bits
+           OPT_NO_LMASKICE = 8192, OPT_NO_LCFLX = 16384,
+           OPT_NO_LSTOKES = 32768, OPT_NO_LWVFLX_SNL = 65536,
+           OPT_USTAR = 131072 };
+constexpr int OPT_EXT = 32 * 4095;           // the EXT instantiations' bits
 
 // gravity-capillary tables (NWAV each), in the order of
 // implsch_cuda.GC_TABLES
@@ -204,14 +233,23 @@ enum Out { O_UFRIC, O_TAUW, O_TAUWDIR, O_Z0M, O_Z0B, O_CHRNCK, O_MIJ,
            O_EMEANWS, O_FMEANWS, O_WSEMEAN, O_WSFMEAN, O_TAUXD, O_TAUYD,
            O_TAUOCXD, O_TAUOCYD, O_TAUOC, O_PHIOCD, O_PHIEPS, O_PHIAW,
            O_EM_OC, O_F1_OC, O_USTOKES, O_VSTOKES, O_STRNMS, NOUT_FULL };
-// UST's extra row: the U10 of the log profile (after the full mode's)
+// UST's extra row: the U10 of the log profile, after the mode's rows
 constexpr int O_WSWAVE = NOUT_FULL;
+constexpr int NOUT_MIN = O_MIJ;              // the minimal mode's rows
 
 constexpr int RL = 32;          // lanes a row
 constexpr int RPW = 32 / RL;    // rows a warp
+#ifdef IMPLSCH_WIDE
+constexpr bool WIDE = true;     // the mask in shared memory
+constexpr int KPL = 128 / RL;   // directions a lane: nang <= 128
+constexpr int MAX_WARPS = 8;    // warps a block (the launch takes fewer
+                                // where shared memory holds fewer)
+#else
+constexpr bool WIDE = false;
 constexpr int KPL = 64 / RL;    // directions a lane: nang <= 64
 constexpr int MAX_WARPS = 12;   // warps a block (the launch takes fewer
                                 // where shared memory holds fewer)
+#endif
 constexpr int JTOT = 19;        // tail-integral nodes (tables.JTOT_TAUHF)
 constexpr int NITER = 18;       // TAUT_Z0 Newton steps
 constexpr float EPS1 = 1.0e-5f; // tauw/u*² margin (yowtabl.F90:34)
@@ -344,14 +382,18 @@ __device__ void taut_z0(const float* P, int opts, float utop, float udir,
 }
 
 // AIRSEA's u* branch (airsea.F90 ICODE 1/2): Z0WAVE (z0wave.F90:40-60)
-// from u* and the wave stress, then U10 from the log profile, floored at
+// from u* and the wave stress (LLCAPCHNK: the Charnock parameter capped
+// at the incoming U10 ``u10``), then U10 from the log profile, floored at
 // WSPMIN = 1
-__device__ float z0wave_u10(const float* P, float ustar, float tauw,
-                            float& z0, float& z0b, float& chrnck) {
+__device__ float z0wave_u10(const float* P, int opts, float ustar,
+                            float tauw, float u10, float& z0, float& z0b,
+                            float& chrnck) {
+  const float alphaog = (opts & OPT_LLCAPCHNK) ? chnkmin(P, u10) * P[P_GM1]
+                                               : P[P_ALPHAOG];
   const float ust2 = ustar * ustar;
   const float arg = fmaxf(ust2 - tauw, EPS1);
-  z0 = P[P_ALPHAOG] * (ust2 * ustar) / sqrtf(arg);
-  z0b = P[P_ALPHAOG] * ust2;
+  z0 = alphaog * (ust2 * ustar) / sqrtf(arg);
+  z0b = alphaog * ust2;
   chrnck = P[P_G] * z0 / ust2;
   return fmaxf((1.f / P[P_XKAPPA]) * ustar * (P[P_XLOGXL] - logf(z0)), 1.f);
 }
@@ -604,7 +646,8 @@ __device__ float transf(const float* P, float xk, float depth) {
 // them once STRESSO is done), the three per-direction rows and dx
 // (SNONLIN's four transfer arrays; in full mode, each in its own stage,
 // also sp, the flux-source sums sumt/sumx/sumy and the windsea-mask words
-// of the second FEMEANWS)
+// of the second FEMEANWS); in full mode, after them, the wide build's
+// mask words (mask_at) and EXT's pre-SNONLIN flux sums (pre_at)
 struct Work {
   float* fl; float* fld; float* sl;
   float* wav; float* cinv; float* xk2cg; float* tm; float* ws;
@@ -622,11 +665,20 @@ __host__ __device__ __forceinline__ int dx_floats(int nang, int nfre,
   return full && nfre > nang ? 4 * nfre : 4 * nang;
 }
 
-// floats a row takes, rounded to whole bank rows
+// 32-bit mask words a direction (the wide build's shared mask)
+__host__ __device__ __forceinline__ int mask_words(int nfre) {
+  return (nfre + 31) >> 5;
+}
+
+// floats a row takes, rounded to whole bank rows (``pre``: the
+// pre-SNONLIN flux sums of LWVFLX_SNL off)
 __host__ __device__ __forceinline__ int row_floats(int nang, int nfre,
-                                                   int mlsthg, bool full) {
-  const int n = 3 * nang * (nfre | 1) + 5 * nfre + sxy_floats(nfre, mlsthg)
+                                                   int mlsthg, bool full,
+                                                   bool pre) {
+  int n = 3 * nang * (nfre | 1) + 5 * nfre + sxy_floats(nfre, mlsthg)
       + 3 * nang + dx_floats(nang, nfre, full);
+  if (full && WIDE) n += nang * mask_words(nfre);
+  if (full && pre) n += 3 * nfre;
   return (n + 31) & ~31;
 }
 
@@ -653,6 +705,45 @@ __device__ __forceinline__ Work work_at(float* w, const Tabs& T) {
   W.sumx = W.sumt + nfre;
   W.sumy = W.sumx + nfre;
   return W;
+}
+
+// full mode only, the rest of the row (see row_floats), derived where it
+// is used so that minimal mode keeps no pointer to it: the wide build's
+// windsea-mask words (mask_words(nfre) a direction), then EXT's three
+// pre-SNONLIN flux sums of nfre floats each
+__device__ __forceinline__ unsigned* mask_at(const Work& W, const Tabs& T) {
+  return reinterpret_cast<unsigned*>(W.dx + dx_floats(T.nang, T.nfre, true));
+}
+
+__device__ __forceinline__ float* pre_at(const Work& W, const Tabs& T) {
+  return reinterpret_cast<float*>(
+      mask_at(W, T) + (WIDE ? T.nang * mask_words(T.nfre) : 0));
+}
+
+// the windsea mask of the second SINPUT call, bit m of the lane's
+// direction q (k): a register word in the default build, the row's
+// shared words in the wide one
+__device__ __forceinline__ void mask_clear(unsigned long long* xbits,
+                                           const Work& W, const Tabs& T,
+                                           int lane) {
+  if constexpr (WIDE) {
+    const int nwd = mask_words(T.nfre);
+    unsigned* xw = mask_at(W, T);
+    for (int k = lane; k < T.nang; k += RL)
+      for (int w = 0; w < nwd; ++w) xw[k * nwd + w] = 0u;
+  } else {
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) xbits[q] = 0ull;
+  }
+}
+
+__device__ __forceinline__ void mask_set(unsigned long long* xbits,
+                                         const Work& W, const Tabs& T, int q,
+                                         int k, int m) {
+  if constexpr (WIDE)
+    mask_at(W, T)[k * mask_words(T.nfre) + (m >> 5)] |= 1u << (m & 31);
+  else
+    xbits[q] |= 1ull << m;
 }
 
 // HALPHAP (halphap.F90:54-99): half the Phillips parameter of the
@@ -753,8 +844,7 @@ __device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lan
   }
   const float rogoroair = P[P_G] / raorw;
   if (fw) {
-#pragma unroll
-    for (int q = 0; q < KPL; ++q) xbits[q] = 0ull;
+    mask_clear(xbits, W, T, lane);
     phw = 0.f;
   }
 
@@ -906,7 +996,7 @@ __device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lan
       if (fw) {
         spp += sp;
         dph += (fm * f - sp) * T.rhowg[m];
-        if (xll[q] != 0.f) xbits[q] |= 1ull << m;
+        if (xll[q] != 0.f) mask_set(xbits, W, T, q, k, m);
       }
     }
     wsp = row_sum(wsp);
@@ -1292,8 +1382,7 @@ __device__ __forceinline__ void sinput_jan(const Tabs& T, const Work& W, int lan
     us[0] = us[1] = ufric;
   }
   if (fw) {
-#pragma unroll
-    for (int q = 0; q < KPL; ++q) xbits[q] = 0ull;
+    mask_clear(xbits, W, T, lane);
     phw = 0.f;
   }
   for (int m = 0; m < nfre; ++m) {
@@ -1367,7 +1456,7 @@ __device__ __forceinline__ void sinput_jan(const Tabs& T, const Work& W, int lan
       if (fw) {
         spp += sp;
         dph += (fm * f - sp) * T.rhowg[m];
-        if (xll[q] != 0.f) xbits[q] |= 1ull << m;
+        if (xll[q] != 0.f) mask_set(xbits, W, T, q, k, m);
       }
     }
     wsp = row_sum(wsp);
@@ -1650,8 +1739,9 @@ __device__ __forceinline__ void row_step(
   __syncwarp();
   const float raorw = fmaxf(aird, 1.f) * P[P_ROWATERM1];
   const int opts = OPTS ? T.opts : 0;
-  // RNFAC (sinflx.F90:92-98)
-  const float rnfac = (opts & OPT_LLNORMAGAM) && (opts & OPT_LLCAPCHNK)
+  // RNFAC (sinflx.F90:92-98) of the call's incoming U10: under UST the
+  // second call's is the first call's log-profile U10
+  float rnfac = (opts & OPT_LLNORMAGAM) && (opts & OPT_LLCAPCHNK)
       ? 1.f + P[P_DTHRN_A] * (1.f + tanhf(wswave - P[P_DTHRN_U])) : 1.f;
 
   // ---- 2×SINFLX (sinflx.F90:190-260), SDISSIP ARD between the calls
@@ -1667,13 +1757,15 @@ __device__ __forceinline__ void row_step(
         W.fl[b] = fmaxf(W.fl[b], W.flm[k]);
       }
       __syncwarp();
-      if (opts & OPT_LLGCBZ0) halp = halphap(T, W, lane);
+      if (!UST && (opts & OPT_LLGCBZ0)) halp = halphap(T, W, lane);
+    } else if (UST && (opts & OPT_LLNORMAGAM) && (opts & OPT_LLCAPCHNK)) {
+      rnfac = 1.f + P[P_DTHRN_A] * (1.f + tanhf(wswave - P[P_DTHRN_U]));
     }
-    if (opts & OPT_LLGCBZ0)
+    if (UST)
+      wswave = z0wave_u10(P, opts, ufric, tauw, wswave, z0m, z0b, chrnck);
+    else if (opts & OPT_LLGCBZ0)
       taut_z0_gc(T, lane, wswave, wdwave, tauw, tauwdir, ufric, halp, rnfac,
                  second ? 1 : 0, ufric, z0m, z0b, chrnck);
-    else if (UST)                              // opts is 0 here
-      wswave = z0wave_u10(P, ufric, tauw, z0m, z0b, chrnck);
     else
       taut_z0<OPTS>(P, opts, wswave, wdwave, tauw, tauwdir, ufric,
                     second ? 1 : 0, ufric, z0m, z0b, chrnck);
@@ -1711,10 +1803,40 @@ __device__ __forceinline__ void row_step(
     enhfr = 1.f + (5.5f / e) * (1.f - 0.833f * e) * expf(-1.25f * e);
   }
   if (EXT && (xo & OPT_ISNONLIN2)) peak_ang(T, W, lane, xnu, sig_th);
+  // EXT's full-mode switches: LCFLX and LSTOKES off leave out their rows,
+  // LWVFLX_SNL off takes the flux source here, before SNONLIN and
+  // without the implicit factor (implsch.F90:281-306)
+  const bool lcflx = !(xo & OPT_NO_LCFLX);
+  const bool lstokes = !(xo & OPT_NO_LSTOKES);
+  const bool snl_flux = !(xo & OPT_NO_LWVFLX_SNL);
+  if (FULL && lcflx && !snl_flux) {
+    float* pre = pre_at(W, T);
+    for (int m = lane; m < nfre; m += RL) {
+      float st = 0.f, sx = 0.f, sy = 0.f;
+      for (int k = 0; k < nang; ++k) {
+        const float ss = W.sl[k * nfp + m];
+        st += ss;
+        sx += T.sinth[k] * ss;
+        sy += T.costh[k] * ss;
+      }
+      pre[m] = st;
+      pre[nfre + m] = sx;
+      pre[2 * nfre + m] = sy;
+    }
+    __syncwarp();
+  }
   snonlin<EXT>(T, W, lane, depth, enhfr, xnu, sig_th);
 
   // ---- WNFLUXES' source sums, SNONLIN included (implsch.F90:297-305)
-  if (FULL) {
+  if (FULL && lcflx && !snl_flux) {
+    const float* pre = pre_at(W, T);
+    for (int m = lane; m < nfre; m += RL) {
+      W.sumt[m] = pre[m];
+      W.sumx[m] = pre[nfre + m];
+      W.sumy[m] = pre[2 * nfre + m];
+    }
+    __syncwarp();
+  } else if (FULL && lcflx) {
     for (int m = lane; m < nfre; m += RL) {
       float st = 0.f, sx = 0.f, sy = 0.f;
       for (int k = 0; k < nang; ++k) {
@@ -1886,73 +2008,77 @@ __device__ __forceinline__ void row_step(
     if (live && lane == 0) out[i * (long)nrows + p] = v;
   };
   if (FULL) {
-    // the cap term joins the source sums (implsch.F90:375,390)
-    for (int m = lane; m < nfre; m += RL) {
-      float st = 0.f, sx = 0.f, sy = 0.f;
-      for (int k = 0; k < nang; ++k) {
-        const float cap = W.fld[k * nfp + m];
-        st += cap;
-        sx += T.sinth[k] * cap;
-        sy += T.costh[k] * cap;
+    if (lcflx) {
+      // the cap term joins the source sums (implsch.F90:375,390)
+      for (int m = lane; m < nfre; m += RL) {
+        float st = 0.f, sx = 0.f, sy = 0.f;
+        for (int k = 0; k < nang; ++k) {
+          const float cap = W.fld[k * nfp + m];
+          st += cap;
+          sx += T.sinth[k] * cap;
+          sy += T.costh[k] * cap;
+        }
+        W.sumt[m] += st;
+        W.sumx[m] += sx;
+        W.sumy[m] += sy;
       }
-      W.sumt[m] += st;
-      W.sumx[m] += sx;
-      W.sumy[m] += sy;
-    }
-    __syncwarp();
+      __syncwarp();
 
-    // WNFLUXES (wnfluxes.F90:150-340) with the first FKMEAN's em, f1
-    auto rhowgdfth = [&](int m) {
-      if (m > mij) return 0.f;
-      const float w = T.rhowg[m];
-      return (m == mij && mij != nfre - 1) ? 0.5f * w : w;
-    };
-    const float philf = msum(nfre, lane, [&](int m) {
-      return W.sumt[m] * rhowgdfth(m); });
-    const float xstr = msum(nfre, lane, [&](int m) {
-      return W.sumx[m] * (W.cinv[m] * rhowgdfth(m)); });
-    const float ystr = msum(nfre, lane, [&](int m) {
-      return W.sumy[m] * (W.cinv[m] * rhowgdfth(m)); });
-    float ooval = 1.f, ustar = ufric, em_oc = emean, f1_oc = f1mean;
-    if (P[P_LWAMRSETCI] != 0.f && icerun && cicover > P[P_ZCITHRS]) {
-      const float ci4 = cicover * P[P_CITHRSH_INV];
-      const float oi = expf(-fminf((ci4 * ci4) * (ci4 * ci4), P[P_ZMAXEXP]));
-      const float u10p = fmaxf(wswave, P[P_EPSU10]);
-      const float cd_bulk = fminf((P[P_CDB_C1] + P[P_CDB_C2]
-                                   * powf(u10p, P[P_CDB_P1]))
-                                  * powf(u10p, P[P_CDB_P2]), P[P_CDB_MAX]);
-      const float uu = ufric / u10p;
-      const float cd_ice = oi * (uu * uu) + (1.f - oi) * cd_bulk;
-      const float us_i = fmaxf(sqrtf(cd_ice) * u10p, P[P_EPSUS]);
-      const float us2 = us_i * us_i;
-      const float efd = fminf(P[P_EFD_FAC] * (us2 * us2), P[P_EFD_MAX]);
-      em_oc = fmaxf(oi * emean + (1.f - oi) * efd, P[P_EFD_MIN]);
-      const float ffd = P[P_FFD_FAC] / us_i;
-      f1_oc = fminf(fmaxf(oi * f1mean + (1.f - oi) * ffd, T.fr[1]),
-                    T.fr[nfre - 1]);
-      ooval = oi;
-      ustar = us_i;
+      // WNFLUXES (wnfluxes.F90:150-340) with the first FKMEAN's em, f1
+      auto rhowgdfth = [&](int m) {
+        if (m > mij) return 0.f;
+        const float w = T.rhowg[m];
+        return (m == mij && mij != nfre - 1) ? 0.5f * w : w;
+      };
+      const float philf = msum(nfre, lane, [&](int m) {
+        return W.sumt[m] * rhowgdfth(m); });
+      const float xstr = msum(nfre, lane, [&](int m) {
+        return W.sumx[m] * (W.cinv[m] * rhowgdfth(m)); });
+      const float ystr = msum(nfre, lane, [&](int m) {
+        return W.sumy[m] * (W.cinv[m] * rhowgdfth(m)); });
+      float ooval = 1.f, ustar = ufric, em_oc = emean, f1_oc = f1mean;
+      if (P[P_LWAMRSETCI] != 0.f && icerun && cicover > P[P_ZCITHRS]) {
+        const float ci4 = cicover * P[P_CITHRSH_INV];
+        const float oi = expf(-fminf((ci4 * ci4) * (ci4 * ci4), P[P_ZMAXEXP]));
+        const float u10p = fmaxf(wswave, P[P_EPSU10]);
+        const float cd_bulk = fminf((P[P_CDB_C1] + P[P_CDB_C2]
+                                     * powf(u10p, P[P_CDB_P1]))
+                                    * powf(u10p, P[P_CDB_P2]), P[P_CDB_MAX]);
+        const float uu = ufric / u10p;
+        const float cd_ice = oi * (uu * uu) + (1.f - oi) * cd_bulk;
+        const float us_i = fmaxf(sqrtf(cd_ice) * u10p, P[P_EPSUS]);
+        const float us2 = us_i * us_i;
+        const float efd = fminf(P[P_EFD_FAC] * (us2 * us2), P[P_EFD_MAX]);
+        em_oc = fmaxf(oi * emean + (1.f - oi) * efd, P[P_EFD_MIN]);
+        const float ffd = P[P_FFD_FAC] / us_i;
+        f1_oc = fminf(fmaxf(oi * f1mean + (1.f - oi) * ffd, T.fr[1]),
+                      T.fr[nfre - 1]);
+        ooval = oi;
+        ustar = us_i;
+      }
+      const float tau = aird * fmaxf(ustar * ustar, P[P_EPSUS]);
+      const float tauxd = tau * sinf(wdwave), tauyd = tau * cosf(wdwave);
+      const float tauocxd = tauxd - ooval * xstr;
+      const float tauocyd = tauyd - ooval * ystr;
+      const float tauo = sqrtf(tauocxd * tauocxd + tauocyd * tauocyd);
+      const float xn = aird * fmaxf(ustar * ustar * ustar, P[P_EPSUS3]);
+      const float phioc = ooval * (philf - phiwa)
+          + (1.f - ooval) * P[P_PHIOC_ICE] * xn;
+      const float phieps = fminf(fmaxf(phioc / xn, P[P_PHIEPSMIN]),
+                                 P[P_PHIEPSMAX]);
+      put(O_TAUXD, tauxd);
+      put(O_TAUYD, tauyd);
+      put(O_TAUOCXD, tauocxd);
+      put(O_TAUOCYD, tauocyd);
+      put(O_TAUOC, fminf(fmaxf(tauo / tau, P[P_TAUOCMIN]), P[P_TAUOCMAX]));
+      put(O_PHIOCD, phieps * xn);
+      put(O_PHIEPS, phieps);
+      put(O_PHIAW, ooval * phiwa / xn + (1.f - ooval) * P[P_PHIAW_ICE]);
+      put(O_EM_OC, em_oc);
+      put(O_F1_OC, f1_oc);
+    } else {
+      for (int i = O_TAUXD; i <= O_F1_OC; ++i) put(i, 0.f);
     }
-    const float tau = aird * fmaxf(ustar * ustar, P[P_EPSUS]);
-    const float tauxd = tau * sinf(wdwave), tauyd = tau * cosf(wdwave);
-    const float tauocxd = tauxd - ooval * xstr;
-    const float tauocyd = tauyd - ooval * ystr;
-    const float tauo = sqrtf(tauocxd * tauocxd + tauocyd * tauocyd);
-    const float xn = aird * fmaxf(ustar * ustar * ustar, P[P_EPSUS3]);
-    const float phioc = ooval * (philf - phiwa)
-        + (1.f - ooval) * P[P_PHIOC_ICE] * xn;
-    const float phieps = fminf(fmaxf(phioc / xn, P[P_PHIEPSMIN]),
-                               P[P_PHIEPSMAX]);
-    put(O_TAUXD, tauxd);
-    put(O_TAUYD, tauyd);
-    put(O_TAUOCXD, tauocxd);
-    put(O_TAUOCYD, tauocyd);
-    put(O_TAUOC, fminf(fmaxf(tauo / tau, P[P_TAUOCMIN]), P[P_TAUOCMAX]));
-    put(O_PHIOCD, phieps * xn);
-    put(O_PHIEPS, phieps);
-    put(O_PHIAW, ooval * phiwa / xn + (1.f - ooval) * P[P_PHIAW_ICE]);
-    put(O_EM_OC, em_oc);
-    put(O_F1_OC, f1_oc);
     put(O_PHIWA, phiwa);
     put(O_MIJ, (float)mij);
 
@@ -1978,22 +2104,29 @@ __device__ __forceinline__ void row_step(
     const float xr = (xk + P[P_COEFX] * tl) / e2;
     put(O_XKMEAN, xr * xr);
     // the windsea sums Σ_k xllws·F per frequency: each direction's mask
-    // word goes to shared memory (W.dx, free after the flux sums), then
-    // one lane per frequency sums the directions in order
-    unsigned* xw = reinterpret_cast<unsigned*>(W.dx);
+    // word goes to shared memory (W.dx, free after the flux sums; the
+    // wide build's mask is there already), then one lane per frequency
+    // sums the directions in order
+    const unsigned* xw = mask_at(W, T);
+    int nwd = mask_words(nfre);
+    if constexpr (!WIDE) {
+      unsigned* x2 = reinterpret_cast<unsigned*>(W.dx);
 #pragma unroll
-    for (int q = 0; q < KPL; ++q) {
-      const int k = lane + RL * q;
-      if (k >= nang) continue;
-      xw[2 * k] = (unsigned)xbits[q];
-      xw[2 * k + 1] = (unsigned)(xbits[q] >> 32);
+      for (int q = 0; q < KPL; ++q) {
+        const int k = lane + RL * q;
+        if (k >= nang) continue;
+        x2[2 * k] = (unsigned)xbits[q];
+        x2[2 * k + 1] = (unsigned)(xbits[q] >> 32);
+      }
+      xw = x2;
+      nwd = 2;
     }
     __syncwarp();
     for (int m = lane; m < nfre; m += RL) {
       const int word = m >> 5, bit = m & 31;
       float w = 0.f;
       for (int k = 0; k < nang; ++k)
-        if ((xw[2 * k + word] >> bit) & 1u) w += W.fl[k * nfp + m];
+        if ((xw[k * nwd + word] >> bit) & 1u) w += W.fl[k * nfp + m];
       W.ws[m] = w;
     }
     __syncwarp();
@@ -2031,7 +2164,11 @@ __device__ __forceinline__ void row_step(
   __syncwarp();
 
   // ---- STOKESTRN (stokesdrift.F90:95-145), STOKFAC from (k, d)
-  if (FULL) {
+  if (FULL && !lstokes) {
+    put(O_USTOKES, 0.f);
+    put(O_VSTOKES, 0.f);
+    put(O_STRNMS, 0.f);
+  } else if (FULL) {
     const int nodd = nfre - 1 + nfre % 2;
     for (int m = lane; m < nodd; m += RL) {
       const float om = T.zpifr[m], xk = W.wav[m];
@@ -2093,16 +2230,22 @@ __device__ __forceinline__ void row_step(
       out[O_Z0M * (long)nrows + p] = z0m;
       out[O_Z0B * (long)nrows + p] = z0b;
       out[O_CHRNCK * (long)nrows + p] = chrnck;
-      if (UST) out[O_WSWAVE * (long)nrows + p] = wswave;
+      if (UST) out[(FULL ? O_WSWAVE : NOUT_MIN) * (long)nrows + p] = wswave;
     }
     if (FULL) {
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
         const int k = lane + RL * q;
         if (k >= nang) continue;
-        for (int m = 0; m < nfre; ++m)
-          xllws[(long)(k * nfre + m) * nrows + p] =
-              (float)((xbits[q] >> m) & 1ull);
+        for (int m = 0; m < nfre; ++m) {
+          if constexpr (WIDE)
+            xllws[(long)(k * nfre + m) * nrows + p] = (float)(
+                (mask_at(W, T)[k * mask_words(nfre) + (m >> 5)] >> (m & 31))
+                & 1u);
+          else
+            xllws[(long)(k * nfre + m) * nrows + p] =
+                (float)((xbits[q] >> m) & 1ull);
+        }
       }
     }
   }
@@ -2221,7 +2364,8 @@ int launch(const Layout& Lo, const float* env2d, const float* scal,
   // instantiation 7-9 % faster at 36×36 (PERF.md), and it keeps two rows
   // a warp apart
   const long tb = 4L * table_floats<OPTS>(T.nang, T.nfre, T.mlsthg, T.nwav);
-  const int rf = row_floats(T.nang, T.nfre, T.mlsthg, FULL);
+  const int rf = row_floats(T.nang, T.nfre, T.mlsthg, FULL,
+                            EXT && (T.opts & OPT_NO_LWVFLX_SNL));
   auto fit = [&](int stride) {
     const long n = (optin - tb) / (4L * RPW * stride);
     return (int)(n < MAX_WARPS ? n : MAX_WARPS);
@@ -2247,18 +2391,21 @@ int launch(const Layout& Lo, const float* env2d, const float* scal,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace ecwam_implsch
+
+using namespace ecwam_implsch;
 
 // Host entry, bound from Python with ctypes.  ``tab``/``itab`` hold the
 // parameter block and tables laid out by implsch_cuda.pack_tables; the
 // layout arguments are those of ``Layout`` above.  ``out`` takes 6 rows
 // (minimal) or NOUT_FULL rows and ``xllws`` the (nang, nfre, nrows) mask
-// (full; with OPT_USTAR one more row, U10).  ``nred`` is the configuration's
-// nfre_red, the top of the SDIWBK/SBOTTOM range, whatever the layout.
-// ``opts`` picks the instantiation: OPT_USTAR alone the UST one (full mode,
-// compact layout), with bits of OPT_EXT the EXT one (JAN too for
-// iphys=0), with other bits OPTS, with none the default.  Returns the CUDA
-// error code of the launch (0 = launched).
+// (full; with OPT_USTAR one more row, U10, in either mode).  ``nred`` is
+// the configuration's nfre_red, the top of the SDIWBK/SBOTTOM range,
+// whatever the layout.  ``opts`` picks the instantiation: with OPT_USTAR
+// a UST one (compact layout; with OPTS where another bit is set, and
+// EXT/JAN where their bits are set), else with bits of OPT_EXT the EXT one (JAN too for iphys=0), with
+// other bits OPTS, with none the default.  Returns the CUDA error code of
+// the launch (0 = launched).
 extern "C" int implsch_launch(
     int full, const float* fin, float* fout, long f_ps, long f_bs,
     const float* tin, float* tout, const float* env2d, const float* scal,
@@ -2266,8 +2413,8 @@ extern "C" int implsch_launch(
     int nang, int nfre, int nfr, int nred, int mlsthg, int niab, int nwav,
     int opts, void* stream) {
   if (nang > RL * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre
-      || nred < 1 || nred > nfre || (full && nfre > 64) || nwav < 2
-      || (nfr < nfre && (!tin || !tout)))
+      || nred < 1 || nred > nfre || (full && !WIDE && nfre > 64)
+      || nwav < 2 || (nfr < nfre && (!tin || !tout)))
     return (int)cudaErrorInvalidValue;
   Tabs T;
   T.nang = nang; T.nfre = nfre; T.nred = nred; T.mlsthg = mlsthg;
@@ -2309,22 +2456,37 @@ extern "C" int implsch_launch(
   const cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(F, C, O, E, J) \
   launch<F, C, O, E, J>(Lo, env2d, scal, out, xllws, T, nrows, s)
-  if ((opts & OPT_USTAR) && (opts != OPT_USTAR || !full || f_bs == 1))
+  if ((opts & OPT_USTAR) && f_bs == 1)          // u*: the compact entry
     return (int)cudaErrorInvalidValue;
-#ifdef IMPLSCH_MINIMAL_SRL
-  // a build of tools/implsch_stages.py: the two instantiations it times
-  if (full || f_bs != 1 || (opts & (OPT_EXT | OPT_USTAR)))
-    return (int)cudaErrorInvalidValue;
-  return opts ? LAUNCH(false, false, true, false, false)
-              : LAUNCH(false, false, false, false, false);
-#else
+  // IMPLSCH_SRL or IMPLSCH_COMPACT: a build that holds one entry's
+  // instantiations (the libraries of _build.VARIANTS, built in parallel)
+#if defined(IMPLSCH_SRL)
+  if (f_bs != 1) return (int)cudaErrorInvalidValue;
 #define MODES(O, E, J)                                                    \
-  if (f_bs != 1)                                                          \
-    return full ? LAUNCH(true, true, O, E, J) : LAUNCH(false, true, O, E, J); \
   return full ? LAUNCH(true, false, O, E, J) : LAUNCH(false, false, O, E, J)
-  if (opts & OPT_USTAR)
-    return launch<true, true, false, false, false, true>(Lo, env2d, scal, out,
-                                                         xllws, T, nrows, s);
+#elif defined(IMPLSCH_COMPACT)
+  if (f_bs == 1) return (int)cudaErrorInvalidValue;
+#define MODES(O, E, J)                                                    \
+  return full ? LAUNCH(true, true, O, E, J) : LAUNCH(false, true, O, E, J)
+#else
+#error "build with -DIMPLSCH_SRL or -DIMPLSCH_COMPACT (_build.VARIANTS)"
+#endif
+#ifndef IMPLSCH_SRL
+#define UST_MODES(O, E, J)                                                \
+  return full ? launch<true, true, O, E, J, true>(Lo, env2d, scal, out,    \
+                                                  xllws, T, nrows, s)      \
+              : launch<false, true, O, E, J, true>(Lo, env2d, scal, out,   \
+                                                   xllws, T, nrows, s)
+  if (opts & OPT_USTAR) {
+    if (opts & OPT_EXT) {
+      if (opts & OPT_IPHYS0) { UST_MODES(true, true, true); }
+      UST_MODES(true, true, false);
+    }
+    if (opts != OPT_USTAR) { UST_MODES(true, false, false); }
+    UST_MODES(false, false, false);
+  }
+#undef UST_MODES
+#endif
   if (opts & OPT_EXT) {
     if (opts & OPT_IPHYS0) { MODES(true, true, true); }
     MODES(true, true, false);
@@ -2332,6 +2494,5 @@ extern "C" int implsch_launch(
   if (opts) { MODES(true, false, false); }
   MODES(false, false, false);
 #undef MODES
-#endif
 #undef LAUNCH
 }

@@ -17,37 +17,48 @@
 //   lane_bcast   x ← x·(1e-6·m + 0.9999)
 //   exp          x ← exp(1e-6·x)
 //
-// What bounds it, and the design:
+// What bounds it, and the design (the first design kept 16 columns in
+// shared memory twice over, one 512-thread block an SM, and moved every
+// entry through shared memory in each application; its six layout and
+// reduction classes ran at 34–50 % of that traffic's bound):
 //  * the elementwise classes (fma, lane_bcast, exp) need no neighbour: each
 //    thread keeps four elements in registers for all K applications, so
 //    the array is read and written once, and the FP32 pipes (fma,
 //    lane_bcast) or the special-function units (exp) are the limit;
-//  * the layout classes and the reductions keep a group of 16 columns in
-//    shared memory twice over (two 16·1440-float buffers, 184 KB of the
-//    227 KB a block may have, one block of 512 threads an SM), loaded and
-//    stored once, with the K applications done there from one buffer
-//    into the other.  The column is the fastest index (shared address
-//    (k·40 + m)·16 + column), and thread (row r, column c) owns entries
-//    i = r + 32·j, j < 45, of column c; a warp's two rows have entries of
-//    opposite parity, so its 32 accesses at one entry fall in 32 banks.
-//    A shift, roll or transpose is an index map from one buffer into the
-//    other (the transpose there and back, two maps), with no staging in
-//    registers.  A reduction sums along the thread's own column (the
-//    reduced axis lies in one column, not across lanes, so no shuffle is
-//    needed and the reads stay free of bank conflicts) into a 40×16
-//    scratch row, then each thread writes its entries plus that row into
-//    the other buffer.  Shared-memory bandwidth is their limit.
+//  * the shifts, the roll and the reductions act along one axis of a
+//    column, so each thread holds one line of one column along that axis
+//    in registers for all K applications (sub_shift, sub_shift4 and
+//    sub_reduce a k-row of 40 entries, lead_roll and lead_reduce an m-line
+//    of 36), 32 neighbouring columns across a warp's lanes, so that each
+//    load and store of the array is one 128-byte line a warp.  A shift is
+//    then a rotation of the thread's registers (each application moves
+//    every register: the K loop is not unrolled, so no rotation folds into
+//    the next), a reduction a register sum with four partial sums and the
+//    add; no data crosses lanes and no shared memory is used.  The array's
+//    one read and one write (HBM) or, for the reductions, the FP32 pipes
+//    bound them;
+//  * transpose2x really moves data across threads: each application
+//    materialises xᵀ and then (xᵀ)ᵀ.  A block of 8 columns × 40 threads
+//    holds the column's k-rows in registers (threads r < 36); the first
+//    transpose stores them into shared memory and threads r < 40 gather
+//    the m-lines (xᵀ's rows), scale them, store them back, and threads
+//    r < 36 gather their k-rows again — two shared-memory round trips per
+//    entry and application, the least a transpose through on-chip memory
+//    can take, and its limit.  Rows of the shared tile lie 8 banks apart
+//    (a k stride of 328 floats), so neither the k-row nor the m-line
+//    accesses of a warp (4 lines × 8 columns) conflict.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NANG = 36, MF = 40, NE = NANG * MF;   // one column: 1440
-constexpr int COLS = 16;                            // columns a block
-constexpr int THREADS = 512;
-constexpr int ROWS = THREADS / COLS;                // 32
-constexpr int EPT = NE / ROWS;                      // entries a thread: 45
 constexpr int EW_THREADS = 256, EW_PER = 4;         // elementwise blocks
+constexpr int LC = 32;                              // columns a line block
+constexpr int LPB = 4;                              // lines a line block
+constexpr int TC = 8;                               // columns a tile block
+constexpr int TR = MF;                              // threads a column
+constexpr int KS = MF * TC + 8;                     // tile's k stride
 
 enum Cls { FMA, SUB_SHIFT, SUB_SHIFT4, LEAD_ROLL, TRANSPOSE2X, LEAD_REDUCE,
            SUB_REDUCE, LANE_BCAST, EXP, NCLS };
@@ -82,105 +93,120 @@ elementwise(const float* __restrict__ in, float* __restrict__ out, long n,
   }
 }
 
-// the source entry of entry i under the index maps (shifts and roll)
-template <int CLS>
-__device__ __forceinline__ int source(int i) {
-  const int k = i / MF, m = i - k * MF;
-  if (CLS == SUB_SHIFT) return k * MF + (m + 1 == MF ? 0 : m + 1);
-  if (CLS == SUB_SHIFT4) return k * MF + (m + 4 >= MF ? m + 4 - MF : m + 4);
-  return i + MF >= NE ? i + MF - NE : i + MF;        // LEAD_ROLL
+// v[i] ← v[(i + S) mod N]: every register moves
+template <int S, int N>
+__device__ __forceinline__ void rotate(float (&v)[N]) {
+  float t[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = v[i];
+#pragma unroll
+  for (int i = 0; i < N - S; ++i) v[i] = v[i + S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) v[N - S + i] = t[i];
 }
 
-// the layout classes and the reductions: 16 columns in shared memory, two
-// buffers
+// the shifts, the roll and the reductions: one line of one column a
+// thread, in registers; a block is LC columns × LPB lines
 template <int CLS>
-__global__ void __launch_bounds__(THREADS, 1)
-columns(const float* __restrict__ in, float* __restrict__ out, long lanes,
-        int K) {
-  extern __shared__ float smem[];
-  float* a = smem;                                  // NE·COLS each
-  float* b = smem + NE * COLS;
-  float* red = smem + 2 * NE * COLS;                // MF·COLS
-  const int c = threadIdx.x % COLS, r = threadIdx.x / COLS;
-  const long col = (long)blockIdx.x * COLS + c;
-#pragma unroll 5
-  for (int j = 0; j < EPT; ++j) {
-    const int i = r + ROWS * j;
-    a[i * COLS + c] = in[(long)i * lanes + col];
-  }
-  __syncthreads();
+__global__ void __launch_bounds__(LC * LPB)
+lines(const float* __restrict__ in, float* __restrict__ out, long lanes,
+      int K) {
+  constexpr bool ALONG_M =
+      CLS == SUB_SHIFT || CLS == SUB_SHIFT4 || CLS == SUB_REDUCE;
+  constexpr int LEN = ALONG_M ? MF : NANG;          // the line's entries
+  constexpr int STEP = ALONG_M ? 1 : MF;            // their entry stride
+  const long col = (long)blockIdx.x * LC + (threadIdx.x % LC);
+  const int line = blockIdx.y * LPB + threadIdx.x / LC;
+  const long base = (long)(ALONG_M ? line * MF : line) * lanes + col;
+  float v[LEN];
+#pragma unroll
+  for (int j = 0; j < LEN; ++j) v[j] = in[base + (long)j * STEP * lanes];
+#pragma unroll 1
   for (int it = 0; it < K; ++it) {
-    if (CLS == SUB_SHIFT || CLS == SUB_SHIFT4 || CLS == LEAD_ROLL) {
-#pragma unroll 5
-      for (int j = 0; j < EPT; ++j) {
-        const int i = r + ROWS * j;
-        b[i * COLS + c] = a[source<CLS>(i) * COLS + c];
-      }
-    } else if (CLS == TRANSPOSE2X) {
-      // there: entry (k, m) to (m, k) of the (40, 36) layout, scaled
-#pragma unroll 5
-      for (int j = 0; j < EPT; ++j) {
-        const int i = r + ROWS * j, k = i / MF, m = i - k * MF;
-        b[(m * NANG + k) * COLS + c] = a[i * COLS + c] * 1.0000001f;
-      }
-      __syncthreads();
-      // and back: entry (m, k) of the (40, 36) layout to (k, m)
-#pragma unroll 5
-      for (int j = 0; j < EPT; ++j) {
-        const int i = r + ROWS * j, m = i / NANG, k = i - m * NANG;
-        a[(k * MF + m) * COLS + c] = b[i * COLS + c];
-      }
-    } else {
-      // LEAD_REDUCE: Σ over k for each m; SUB_REDUCE: Σ over m for each k
-      const int nred = CLS == LEAD_REDUCE ? MF : NANG;
-      for (int q = r; q < nred; q += ROWS) {
-        float acc = 0.f;
-        if (CLS == LEAD_REDUCE) {
-          for (int k = 0; k < NANG; ++k) acc += a[(k * MF + q) * COLS + c];
-        } else {
-          for (int m = 0; m < MF; ++m) acc += a[(q * MF + m) * COLS + c];
-        }
-        red[q * COLS + c] = acc;
-      }
-      __syncthreads();
-#pragma unroll 5
-      for (int j = 0; j < EPT; ++j) {
-        const int i = r + ROWS * j, k = i / MF;
-        const int q = CLS == LEAD_REDUCE ? i - k * MF : k;
-        b[i * COLS + c] = a[i * COLS + c] + red[q * COLS + c] * 1e-12f;
-      }
+    if constexpr (CLS == SUB_SHIFT || CLS == LEAD_ROLL) {
+      rotate<1>(v);
+    } else if constexpr (CLS == SUB_SHIFT4) {
+      rotate<4>(v);
+    } else {                                        // the reductions
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < LEN; ++j) a[j % 4] += v[j];
+      const float t = ((a[0] + a[1]) + (a[2] + a[3])) * 1e-12f;
+#pragma unroll
+      for (int j = 0; j < LEN; ++j) v[j] = v[j] + t;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < LEN; ++j) out[base + (long)j * STEP * lanes] = v[j];
+}
+
+// transpose2x: TC columns a block, TR threads a column; entry (k, m) of
+// column c at s[k·KS + m·TC + c].  One register array a thread holds its
+// k-row (v[0..MF)) and, between the transposes, its m-line (v[0..NANG))
+__global__ void __launch_bounds__(TC * TR, 3)
+transpose2x(const float* __restrict__ in, float* __restrict__ out,
+            long lanes, int K) {
+  extern __shared__ float s[];
+  const int c = threadIdx.x % TC, r = threadIdx.x / TC;
+  const long col = (long)blockIdx.x * TC + c;
+  const bool krow = r < NANG;                       // holds k-row r
+  float v[MF];
+  if (krow) {
+#pragma unroll
+    for (int m = 0; m < MF; ++m) v[m] = in[(long)(r * MF + m) * lanes + col];
+  }
+#pragma unroll 1
+  for (int it = 0; it < K; ++it) {
+    // xᵀ: the k-rows out, the m-lines (xᵀ's rows) in, scaled
+    if (krow) {
+#pragma unroll
+      for (int m = 0; m < MF; ++m) s[r * KS + m * TC + c] = v[m];
     }
     __syncthreads();
-    if (CLS != TRANSPOSE2X) {                       // the result is in b
-      float* t = a;
-      a = b;
-      b = t;
+#pragma unroll
+    for (int k = 0; k < NANG; ++k) v[k] = s[k * KS + r * TC + c] * 1.0000001f;
+    __syncthreads();
+    // (xᵀ)ᵀ: the m-lines out, the k-rows in
+#pragma unroll
+    for (int k = 0; k < NANG; ++k) s[k * KS + r * TC + c] = v[k];
+    __syncthreads();
+    if (krow) {
+#pragma unroll
+      for (int m = 0; m < MF; ++m) v[m] = s[r * KS + m * TC + c];
     }
+    __syncthreads();
   }
-#pragma unroll 5
-  for (int j = 0; j < EPT; ++j) {
-    const int i = r + ROWS * j;
-    out[(long)i * lanes + col] = a[i * COLS + c];
+  if (krow) {
+#pragma unroll
+    for (int m = 0; m < MF; ++m) out[(long)(r * MF + m) * lanes + col] = v[m];
   }
 }
 
 template <int CLS>
 int launch(const float* in, float* out, long lanes, int K,
            cudaStream_t stream) {
-  if (CLS == FMA || CLS == LANE_BCAST || CLS == EXP) {
+  if constexpr (CLS == FMA || CLS == LANE_BCAST || CLS == EXP) {
     const long n = (long)NE * lanes;
     const long per = (long)EW_THREADS * EW_PER;
     elementwise<CLS><<<(unsigned)((n + per - 1) / per), EW_THREADS, 0,
                        stream>>>(in, out, n, lanes, K);
     return (int)cudaGetLastError();
+  } else if constexpr (CLS == TRANSPOSE2X) {
+    const size_t smem = (size_t)NANG * KS * sizeof(float);
+    const cudaError_t e = cudaFuncSetAttribute(
+        transpose2x, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    transpose2x<<<(unsigned)(lanes / TC), TC * TR, smem, stream>>>(
+        in, out, lanes, K);
+    return (int)cudaGetLastError();
+  } else {
+    constexpr bool ALONG_M =
+        CLS == SUB_SHIFT || CLS == SUB_SHIFT4 || CLS == SUB_REDUCE;
+    const dim3 grid((unsigned)(lanes / LC), (ALONG_M ? NANG : MF) / LPB);
+    lines<CLS><<<grid, LC * LPB, 0, stream>>>(in, out, lanes, K);
+    return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)(2 * NE + MF) * COLS * sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      columns<CLS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  columns<CLS><<<(unsigned)(lanes / COLS), THREADS, smem, stream>>>(
-      in, out, lanes, K);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -192,7 +218,7 @@ int launch(const float* in, float* out, long lanes, int K,
 // launch (0 = launched).
 extern "C" int opclass_launch(int cls, const float* in, float* out,
                               long lanes, int K, void* stream) {
-  if (lanes <= 0 || lanes % COLS || K < 0 || in == out)
+  if (lanes <= 0 || lanes % LC || K < 0 || in == out)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (cls) {

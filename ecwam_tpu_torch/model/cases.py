@@ -752,15 +752,17 @@ def wavemodel_kernel_vs_plain(device, config: str, mode: str,
 
 
 def ustar_model(device, icode: int, *, plain: bool = False,
-                ustar: float = 0.5):
+                ustar: float = 0.5, **kw):
     """tests/test_forcing_fidelity.py's u* case: the 12° aqua grid, 12×25,
     idelpro = idelt = 900 s, cached weights, u* forcing (``icode`` 1 or 2)
-    of ``ustar`` m/s everywhere with no U10 (zero wind speed).  Returns
-    the setup and a ``WaveModel`` whose stress state has taken the
+    of ``ustar`` m/s everywhere with no U10 (zero wind speed), with
+    ``kw``'s further ``build_model`` keywords (the physics options).
+    Returns the setup and a ``WaveModel`` whose stress state has taken the
     forcing's u* (``newwind``)."""
-    ms = build_model(grid_name="12.0", nang=12, nfre=25, idelpro=900.0,
-                     idelt=900.0, pad_to=64, icode_wnd=icode,
-                     weights_mode="cached", device=device)
+    ms = build_model(**dict(dict(
+        grid_name="12.0", nang=12, nfre=25, idelpro=900.0, idelt=900.0,
+        pad_to=64, icode_wnd=icode, weights_mode="cached", device=device),
+        **kw))
     n = ms.n_real
 
     def at(date14):

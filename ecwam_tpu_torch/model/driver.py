@@ -277,17 +277,23 @@ class FastWaveModel(WaveModel):
 
     The forcing provider and the ``fl1``/``stress`` state are those of
     :class:`WaveModel`; without ``fl1`` the JONSWAP cold start is built in
-    the SRL layout on the device.  U10 forcing (icode_wnd 3) only, as the
-    reference's fast path.  ``plain=True`` runs the plain PyTorch versions
-    of kernels A and B.
+    the SRL layout on the device.  U10 forcing (icode_wnd 3) only, on
+    purpose: the reference's fast path accepts icode_wnd 1/2 but its
+    ``newwind`` on SRL rows handles ICODE 3 alone and never reads
+    ``ufric`` (ecwam_tpu/model/driver.py:362-376), so it steps with the
+    forcing's ``wswave`` as given; u* forcing runs in :class:`WaveModel`.
+    ``plain=True`` runs the plain PyTorch versions of kernels A and B.
     """
 
     def __init__(self, setup: ModelSetup, forcing_provider: Callable,
                  start_date: str | _dt.datetime, fl1=None, stress=None,
                  *, plain: bool = False):
         if setup.phys.icode_wnd != 3:
-            raise NotImplementedError("the SRL fast path takes U10 forcing "
-                                      "(icode_wnd 3) only")
+            raise NotImplementedError(
+                "FastWaveModel takes U10 forcing (icode_wnd 3) only; u* "
+                "forcing (icode_wnd 1/2) runs in the dense WaveModel (the "
+                "reference's fast path would accept it but never read "
+                "ufric)")
         if setup.fused is None:
             raise ValueError("FastWaveModel runs on a setup built with "
                              "weights_mode='fused'")

@@ -19,21 +19,27 @@ Layouts (point index fastest in every row block, no lane pad):
   env2d (3·nfre, n)             [wavnum; cinv; xk2cg] row blocks
   scal  (14, n)                 SCAL_IN rows
 Minimal mode returns the 6 STRESS_KEYS rows; full mode (the output-date
-diagnostics, ``cfg`` with lcflx and lstokes) the 30 SCAL_OUT_FULL rows and
-the windsea mask xllws (nang, nfre, n) as float 0/1.
+diagnostics) the 30 SCAL_OUT_FULL rows — those that ``cfg``'s lcflx or
+lstokes switch off are 0 — and the windsea mask xllws (nang, nfre, n) as
+float 0/1.
 
 ECMWF's cycle-49/50 physics options (the gravity-capillary closure
 LLGCBZ0 with HALPHAP, LLNORMAGAM, LLCAPCHNK, LCISCAL and the SDICE3
 sea-ice attenuation LCIWA3) run in a separate instantiation of the kernel
 (``OPTS``), so the default configuration's code is untouched by them.
 The rest of the physics (iphys=0's Janssen input and cycle-4
-dissipation, ISNONLIN 0/2, SDICE1/2, the sea-ice strain LSTRN and the
-LBIWBK/LICERUN/LMASKICE switches off) runs in the ``EXT``
-instantiations (with ``JAN`` for iphys=0), so that neither earlier
-instantiation changes.  u*-driven forcing (icode_wnd 1/2), which only the
-dense model's compact spectrum takes, runs in full mode in the ``UST``
-instantiation and returns one more row, the log profile's U10
-(:data:`SCAL_OUT_UST`).
+dissipation, ISNONLIN 0/2, SDICE1/2, the sea-ice strain LSTRN, the
+LBIWBK/LICERUN/LMASKICE switches off and, in full mode, LCFLX, LSTOKES
+or LWVFLX_SNL off) runs in the ``EXT`` instantiations (with ``JAN`` for
+iphys=0), so that neither earlier instantiation changes.  u*-driven
+forcing (icode_wnd 1/2), which only the dense model's compact spectrum
+takes, runs in the ``UST`` instantiations (alone under the default
+physics; with ``OPTS`` where another bit is set, and with ``EXT``/``JAN``
+where those bits are set), in either mode, and returns
+one more row, the log profile's U10 (:data:`SCAL_OUT_UST`,
+:data:`SCAL_OUT_UST_MIN`).  Up to 64 directions (and, in full mode, 64
+frequencies) run in the default build of the source; up to 128
+directions, or more frequencies, in its wide build (:data:`WIDE_LIB`).
 """
 
 from __future__ import annotations
@@ -83,8 +89,9 @@ SCAL_OUT_FULL = STRESS_KEYS + (
     "tauxd", "tauyd", "tauocxd", "tauocyd", "tauoc",
     "phiocd", "phieps", "phiaw", "em_oc", "f1_oc",
     "ustokes", "vstokes", "strnms")
-# full mode under u* forcing: U10 from the log profile after those rows
+# u* forcing: U10 from the log profile after the mode's rows
 SCAL_OUT_UST = SCAL_OUT_FULL + ("wswave",)
+SCAL_OUT_UST_MIN = SCAL_OUT_MIN + ("wswave",)
 
 # scalar parameter block of the kernel, in the order of csrc/implsch.cu's
 # Par enum (P_<NAME>)
@@ -122,14 +129,23 @@ PAR_NAMES = (
 # option bits of the kernel's ``opts`` argument, in the order of
 # csrc/implsch.cu's Opt enum: the cycle-49/50 options (the OPTS
 # instantiation), then those of the EXT instantiations — iphys=0 (JAN),
-# ISNONLIN 0/2, SDICE1/2, LSTRN and the three switches switched off —
-# then u* forcing (the UST instantiation)
+# ISNONLIN 0/2, SDICE1/2, LSTRN, the three switches switched off and full
+# mode's three flux/Stokes switches switched off — then u* forcing (the
+# UST instantiations)
 OPT_FLAGS = ("llgcbz0", "llnormagam", "llcapchnk", "lciwa3", "lciscal",
              "iphys0", "isnonlin0", "isnonlin2", "lciwa1", "lciwa2", "lstrn",
-             "no_lbiwbk", "no_licerun", "no_lmaskice", "ustar")
+             "no_lbiwbk", "no_licerun", "no_lmaskice", "no_lcflx",
+             "no_lstokes", "no_lwvflx_snl", "ustar")
 UST_BIT = 1 << OPT_FLAGS.index("ustar")
 EXT_BITS = sum(1 << i for i in range(5, OPT_FLAGS.index("ustar")))
 LSTRN_BIT = 1 << OPT_FLAGS.index("lstrn")
+# the bits that only full mode sets (the tables are the same for both)
+MODE_BITS = LSTRN_BIT | sum(1 << OPT_FLAGS.index(f) for f in (
+    "no_lcflx", "no_lstokes", "no_lwvflx_snl"))
+# the default build takes nang <= KPL_DEFAULT·32 (and full mode nfre <=
+# 64), the wide build nang <= MAX_NANG and any nfre
+KPL_DEFAULT, MAX_NANG = 2, 128
+WIDE_LIB = "implsch_wide"
 # gravity-capillary tables the kernel reads, NWAV values each, in the
 # order of csrc/implsch.cu's GcTab enum
 GC_TABLES = ("logxk", "cm", "om3gmkm", "xkmsqrtvgoc2", "delkcc_omxkm3",
@@ -144,21 +160,22 @@ def minimal_config(cfg: impl.PhysicsConfig) -> impl.PhysicsConfig:
     return dataclasses.replace(cfg, lcflx=False, lstokes=False, lstrn=False)
 
 
+def _row_keys(full: bool, ustar: bool) -> tuple:
+    if full:
+        return SCAL_OUT_UST if ustar else SCAL_OUT_FULL
+    return SCAL_OUT_UST_MIN if ustar else SCAL_OUT_MIN
+
+
 def out_keys(cfg: impl.PhysicsConfig, full: bool) -> tuple:
-    """The output rows of a step: the stress rows (minimal mode), the
+    """The output rows of a step: the stress rows (minimal mode) or the
     full mode's, and under u* forcing U10 after them."""
-    if not full:
-        return SCAL_OUT_MIN
-    return SCAL_OUT_UST if cfg.icode_wnd in (1, 2) else SCAL_OUT_FULL
+    return _row_keys(full, cfg.icode_wnd in (1, 2))
 
 
 def unpack_scal_out(so, *, full: bool) -> dict:
     """(NSO, n) packed output rows → state dict (mij back to int64); u*
     forcing's extra row comes out as ``wswave``."""
-    keys = SCAL_OUT_MIN
-    if full:
-        keys = SCAL_OUT_UST if so.shape[0] == len(SCAL_OUT_UST) \
-            else SCAL_OUT_FULL
+    keys = _row_keys(full, so.shape[0] == len(_row_keys(full, True)))
     out = {k: so[i] for i, k in enumerate(keys)}
     if "mij" in out:
         out["mij"] = out["mij"].to(torch.int64)
@@ -168,49 +185,56 @@ def unpack_scal_out(so, *, full: bool) -> dict:
 def pack_scal_out(state: dict, *, full: bool):
     """A chain's state dict → (NSO, n) rows; keys the configuration does
     not compute are zero, as in the TPU kernel; u* forcing's ``wswave``
-    (in the state only then) after the full mode's rows."""
-    keys = SCAL_OUT_MIN
-    if full:
-        keys = SCAL_OUT_UST if "wswave" in state else SCAL_OUT_FULL
+    (in the state only then) after the mode's rows."""
+    keys = _row_keys(full, "wswave" in state)
     like = state["ufric"]
     return torch.stack([state[k].to(like.dtype) if k in state
                         else torch.zeros_like(like) for k in keys])
 
 
-def option_bits(cfg: impl.PhysicsConfig) -> int:
+def option_bits(cfg: impl.PhysicsConfig, full: bool = False) -> int:
     """The ``opts`` bit mask of the configuration (OPT_FLAGS order): 0
-    runs the default instantiation, bits of EXT_BITS the EXT ones."""
+    runs the default instantiation, bits of EXT_BITS the EXT ones, the
+    u* bit the UST ones.  The flux/Stokes switches count in full mode
+    (``full``) only: minimal mode computes neither."""
     p = cfg.params
     on = (p.llgcbz0, p.llnormagam, p.llcapchnk, cfg.lciwa3, cfg.lciscal,
           p.iphys == 0, cfg.isnonlin == 0, cfg.isnonlin == 2, cfg.lciwa1,
           cfg.lciwa2, cfg.lstrn, not cfg.lbiwbk, not cfg.licerun,
-          not cfg.lmaskice, cfg.icode_wnd in (1, 2))
+          not cfg.lmaskice, full and not cfg.lcflx,
+          full and not cfg.lstokes,
+          full and cfg.lcflx and not cfg.lwvflx_snl,
+          cfg.icode_wnd in (1, 2))
     return sum(1 << i for i, v in enumerate(on) if v)
+
+
+def library(cfg: impl.PhysicsConfig, full: bool,
+            compact: bool = False) -> str:
+    """The build of csrc/implsch.cu that takes the configuration on the
+    SRL entry or the ``compact`` one: the default width up to 64
+    directions (full mode: and 64 frequencies), else the wide one
+    (:data:`WIDE_LIB`); each entry's instantiations are a library of
+    their own (``_build.VARIANTS``)."""
+    tb = cfg.tables
+    narrow = tb.nang <= 32 * KPL_DEFAULT and not (full and tb.nfre > 64)
+    return ("implsch" if narrow else WIDE_LIB) + (
+        "_compact" if compact else "")
 
 
 def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False, *,
                     compact: bool = False) -> None:
     """Raise for configurations the kernel does not take: u* forcing
-    (icode_wnd 1/2) only on the compact entry (``compact``), in full mode
-    and without the other options (the UST instantiation)."""
+    (icode_wnd 1/2) on the SRL entry (the compact one, ``compact``, takes
+    it with every option), an unknown ISNONLIN, a WSPMIN other than 1, and
+    more than MAX_NANG directions (a lane holds at most 4)."""
     impl.check_ported(cfg, srl=not compact)
-    if cfg.icode_wnd != 3 and not (
-            full and option_bits(cfg) == UST_BIT):
-        raise NotImplementedError(
-            "the physics kernel takes icode_wnd 1/2 in full mode and "
-            "without the other physics options only")
     if cfg.isnonlin not in (0, 1, 2):
         raise ValueError(f"unknown ISNONLIN={cfg.isnonlin}")
-    if cfg.tables.nang > 64:
-        raise NotImplementedError("the physics kernel takes nang <= 64 "
-                                  "(ROADMAP)")
+    if cfg.tables.nang > MAX_NANG:
+        raise NotImplementedError(f"the physics kernel takes nang <= "
+                                  f"{MAX_NANG} (ROADMAP)")
     if WSPMIN_DEFAULT != 1.0:
         raise NotImplementedError("the physics kernel assumes WSPMIN=1")
-    if full and not (cfg.lcflx and cfg.lstokes and cfg.lwvflx_snl
-                     and cfg.tables.nfre <= 64):
-        raise NotImplementedError(
-            "the full-mode kernel computes lcflx, lstokes and lwvflx_snl, "
-            "for nfre <= 64")
 
 
 def _parameters(cfg: impl.PhysicsConfig) -> np.ndarray:
@@ -339,7 +363,7 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
         itab=torch.as_tensor(itab.astype(np.int32), device=device),
         mlsthg=int(dia.mlsthg), niab=int(swellft.shape[0]),
         nwav=int(gc_mod.gc_tables().nwav),
-        opts=option_bits(cfg) & ~LSTRN_BIT)
+        opts=option_bits(cfg) & ~MODE_BITS)
 
 
 
@@ -371,12 +395,8 @@ def srl_inputs(cfg, f_srl, env2d, scal, tail, *, nang: int,
 
 
 def _outputs(state, full: bool):
-    if full:
-        return pack_scal_out(state, full=True), state["xllws"]
-    if "wswave" in state:
-        raise NotImplementedError("u* forcing (icode_wnd 1/2) runs in "
-                                  "full mode only")
-    return torch.stack([state[k] for k in STRESS_KEYS]), None
+    return pack_scal_out(state, full=full), (state["xllws"] if full
+                                             else None)
 
 
 def implsch_srl_plain(cfg, f_srl, env2d, scal, tail, *, nang: int,
@@ -399,7 +419,8 @@ def implsch_srl_plain(cfg, f_srl, env2d, scal, tail, *, nang: int,
 
 def implsch_compact_plain(cfg, fl1, env2d, scal, *, full: bool = False):
     """The plain PyTorch chain on the compact (nang, nfre, n) spectrum:
-    (fl1, stress6), or in full mode (fl1, scal_out (30, n), xllws)."""
+    (fl1, stress6), or in full mode (fl1, scal_out (30, n), xllws); under
+    u* forcing the U10 row after the mode's rows."""
     env, frc, stress = _unpack_inputs(cfg, env2d, scal)
     out, state = impl.implsch(cfg, fl1, env, frc, *stress)
     so, xllws = _outputs(state, full)
@@ -449,8 +470,8 @@ def _no_kernel(t):
         raise ValueError(f"no physics kernel for device {t.device}")
 
 
-def _lib():
-    fn = _build.load("implsch").implsch_launch
+def _lib(name: str = "implsch"):
+    fn = _build.load(name).implsch_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_long] * 2 + [ctypes.c_void_p] * 8
@@ -472,15 +493,15 @@ def _launch(cfg, full, fin, fout, f_ps, f_bs, tin, tout, env2d, scal, *,
         tables_dev = pack_tables(cfg, dev)
     if tables_dev["tab"].device != dev:
         raise ValueError("physics tables on another device")
-    opts = option_bits(cfg)
-    if tables_dev["opts"] != opts & ~LSTRN_BIT:
+    opts = option_bits(cfg, full)
+    if tables_dev["opts"] != opts & ~MODE_BITS:
         raise ValueError("physics tables packed for other options")
     keys = out_keys(cfg, full)
     out = torch.empty((len(keys), nrows), dtype=torch.float32, device=dev)
     xllws = (torch.empty((nang, nfre, nrows), dtype=torch.float32,
                          device=dev) if full else None)
     with torch.cuda.device(dev):
-        err = _lib()(
+        err = _lib(library(cfg, full, f_bs != 1))(
             int(full), fin.data_ptr(), fout.data_ptr(), f_ps, f_bs,
             tin.data_ptr() if tin is not None else None,
             tout.data_ptr() if tout is not None else None,
@@ -532,8 +553,8 @@ implsch_srl.full_launches = 0
 def implsch_compact(cfg, fl1, env2d, scal, *, full: bool = False,
                     tables_dev: dict | None = None, out=None):
     """One physics step on the compact (nang, nfre, n) spectrum, the
-    counterpart of ``implsch_pallas``: (fl1_new, stress6) or in full mode
-    (fl1_new, scal_out (30, n; 31 under u*), xllws).  On CUDA the same
+    counterpart of ``implsch_pallas``: (fl1_new, stress6; 7 rows under
+    u*) or in full mode (fl1_new, scal_out (30, n; 31 under u*), xllws).  On CUDA the same
     kernel as :func:`implsch_srl` reads bin (k, m) of point p at
     (k·nfre + m)·s + p, where s is fl1's bin stride: fl1 may be a view of
     n points of a wider spectrum (a chunk, no copy), and ``out`` (a new

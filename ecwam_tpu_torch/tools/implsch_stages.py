@@ -121,7 +121,9 @@ VARIANTS = {
     "sound": (),
     "no_sinput": (("    else\n      sinput_ard<FULL, OPTS>(",
                    "    else if (false)\n      sinput_ard<FULL, OPTS>("),),
-    "no_taut_z0": PARENT["no_taut_z0"],
+    "no_taut_z0": (("    else if (opts & OPT_LLGCBZ0)\n      taut_z0_gc(",
+                    "    else if (false)\n      taut_z0_gc("),
+                   PARENT["no_taut_z0"][1]),
     "no_stress_tail": PARENT["no_stress_tail"],
     "no_sdissip": (("    if (!JAN && !second) sdissip_ard(T, W, lane);",
                     "    if (false) sdissip_ard(T, W, lane);"),),
@@ -224,8 +226,9 @@ def main():
     dev = torch.device("cuda")
     card = cs.card_line()
     with tempfile.TemporaryDirectory(prefix="implsch_stages_") as tmp:
-        # only the two instantiations timed here (the parent builds all)
-        flags = (("-DIMPLSCH_MINIMAL_SRL",) if args.variants == "current"
+        # the shipped SRL library's flags (the parent's source has one
+        # library and no defines)
+        flags = (("-DIMPLSCH_SRL",) if args.variants == "current"
                  else ())
         paths, log = build(tmp, _build.CSRC, VARIANT_SETS[args.variants],
                            flags)

@@ -24,7 +24,10 @@ rebased taps, the staged windows and the OBS route) the golden grid's
 pass (obstructions) and the shallow grid's (open water), the golden
 trajectory and the O320 pass; for ``minimal`` (kernel B's default
 minimal mode, the main path between output dates) the golden and shallow
-physics steps, the 4-step golden trajectory and the O320 minimal slice.
+physics steps, the 4-step golden trajectory and the O320 minimal slice;
+for ``shapes`` (kernel B/C beyond the default build: the full-mode
+switches, the wide build at 72 directions, u* with the cycle-50r1
+options, 66 frequencies) chip_smoke.py's phase 11.
 The sound copy reads them all.  Prints one JSON line per copy: the
 readings and the checks it fails.
 """
@@ -42,7 +45,8 @@ CSRC = os.path.join("ecwam_tpu_torch", "csrc")
 IMPLSCH, ADVECT = "implsch.cu", "advect.cu"
 
 # the kinds of check a copy is read against (see the module docstring)
-KINDS = ("full", "options", "currents", "legacy", "advect", "minimal")
+KINDS = ("full", "options", "currents", "legacy", "advect", "minimal",
+         "shapes")
 
 # name: (checks, source, text, replacement); the sound copy reads every
 # kind of check
@@ -173,6 +177,21 @@ MUTATIONS = {
         "    const float temp = usfm * (T.cofrm4[m] * P[P_DELT]);",
         "    if (k == T.nang - 1) return;\n"
         "    const float temp = usfm * (T.cofrm4[m] * P[P_DELT]);"),
+    # Z0WAVE under u* without LLCAPCHNK's capped Charnock parameter
+    "ust_no_capchnk": (("shapes",), IMPLSCH,
+        "const float alphaog = (opts & OPT_LLCAPCHNK) ? chnkmin(P, u10) * P[P_GM1]",
+        "const float alphaog = (opts & OPT_LLCAPCHNK) ? P[P_ALPHAOG]"),
+    # the wide build's third and fourth directions of a lane (k ≥ 64)
+    # left out of SNONLIN's target bins
+    "kpl4_snonlin_targets": (("shapes",), IMPLSCH,
+        "        if (k >= nang) continue;\n"
+        "        float* slk = W.sl + k * nfp;",
+        "        if (k >= nang || q >= 2) continue;\n"
+        "        float* slk = W.sl + k * nfp;"),
+    # LWVFLX_SNL off: the flux source before SNONLIN dropped
+    "no_pre_snonlin_flux": (("shapes",), IMPLSCH,
+        "        const float ss = W.sl[k * nfp + m];",
+        "        const float ss = 0.f * W.sl[k * nfp + m];"),
     # the row sums' butterfly started one step too wide: with two rows a
     # warp it adds the other row's lanes, with one row a warp each lane's
     # own value (out of range), so the sums double
@@ -403,8 +422,29 @@ def _legacy(dev, out, fails):
         fails.append("o320 legacy slice")
 
 
+def _shapes(dev, out, fails):
+    """Kernel B/C beyond the default build: chip_smoke.py's phase 11,
+    which raises at its first check off the limits."""
+    import chip_smoke as cs
+    try:
+        r = cs.shapes_phase(dev)
+    except AssertionError as e:
+        fails.append(f"shapes: {e}")
+        return
+    w = r["wide"]
+    out["shapes"] = dict(
+        switches={k: max(v["rows"].values())
+                  for k, v in r["switches"].items()},
+        wide=dict(minimal=w["minimal"]["spec_rel"],
+                  full=w["full"]["spec_rel"]),
+        ustar_options=r["ustar_options"]["stress_rel"],
+        ustar_options_storm=r["ustar_options_storm"]["stress_rel"],
+        nfre66=r["nfre66"]["full"]["spec"])
+
+
 CHECKS = dict(full=_full, options=_options, currents=_currents,
-              legacy=_legacy, advect=_advect, minimal=_minimal)
+              legacy=_legacy, advect=_advect, minimal=_minimal,
+              shapes=_shapes)
 
 
 def prepare(name: str, build_dir: str) -> str:

@@ -36,6 +36,11 @@ CLASSES = ("fma", "sub_shift", "sub_shift4", "lead_roll", "transpose2x",
            "lead_reduce", "sub_reduce", "lane_bcast", "exp")
 # the classes that only move data: the kernel must equal the plain version
 LAYOUT = ("sub_shift", "sub_shift4", "lead_roll", "transpose2x")
+# the classes whose data stays in each thread's registers in the kernel's
+# design (a line of a column a thread: a rotation or a register sum), so
+# that no entry crosses lanes; transpose2x alone needs shared memory
+IN_REGISTERS = ("sub_shift", "sub_shift4", "lead_roll", "lead_reduce",
+                "sub_reduce")
 NANG, MF = 36, 40
 TILE = 128                       # lanes of the reference's tile
 
@@ -151,24 +156,34 @@ opclass.launches = 0
 
 
 def bounds(name: str, lanes: int, k: int) -> dict:
-    """The least time (ms) of one call: ``hbm`` (the array read and
-    written once), ``ops`` (float32 operations at the FP32 peak: 2 an
-    element and application for fma, 1 for lane_bcast; for exp the ex2 at
-    the special-function rate), ``smem`` (the layout classes and the
-    reductions: each application reads and writes each element in shared
-    memory once — twice for transpose2x — and a reduction reads it once
-    more), and ``bound`` (the largest) with ``by`` its name."""
+    """The least time (ms) of one call for the class's own work: ``hbm``
+    (the array read and written once), ``ops`` (float32 operations at the
+    FP32 peak: 2 an element and application for fma — one FMA — and for
+    the reductions — the add into the line's sum and the add of the
+    scaled sum — 1 for lane_bcast and transpose2x's scaling; for exp the
+    ex2 at the special-function rate), ``smem`` (transpose2x only: each of
+    its two transposes moves every element across threads, at least one
+    shared-memory round trip, a write and a read, an element and
+    application; a shift along a line a thread holds needs no on-chip
+    movement, a register rotation, and a reduction along it none across
+    lanes), and ``bound`` (the largest) with ``by`` its name.
+    ``smem_first`` is the first design's shared-memory bound of the five
+    IN_REGISTERS classes (each application reads and writes each element
+    in shared memory, a reduction reads it once more), kept beside it."""
     n = NANG * MF * lanes
-    t = dict(hbm=2 * 4 * n / HBM_BYTES_PER_S * 1e3, ops=0.0, smem=0.0)
-    if name == "fma":
+    t = dict(hbm=2 * 4 * n / HBM_BYTES_PER_S * 1e3, ops=0.0, smem=0.0,
+             smem_first=0.0)
+    if name in ("fma", "lead_reduce", "sub_reduce"):
         t["ops"] = 2 * n * k / FP32_OPS_PER_S * 1e3
-    elif name == "lane_bcast":
+    elif name in ("lane_bcast", "transpose2x"):
         t["ops"] = n * k / FP32_OPS_PER_S * 1e3
     elif name == "exp":
         t["ops"] = n * k / SFU_OPS_PER_S * 1e3
-    else:
-        trips = dict(transpose2x=4, lead_reduce=3, sub_reduce=3).get(name, 2)
-        t["smem"] = trips * 4 * n * k / SMEM_BYTES_PER_S * 1e3
+    if name == "transpose2x":
+        t["smem"] = 4 * 4 * n * k / SMEM_BYTES_PER_S * 1e3
+    elif name in IN_REGISTERS:
+        trips = 3 if name.endswith("reduce") else 2
+        t["smem_first"] = trips * 4 * n * k / SMEM_BYTES_PER_S * 1e3
     t["by"] = max(("hbm", "ops", "smem"), key=lambda key: t[key])
     t["bound"] = t[t["by"]]
     return t
@@ -221,7 +236,7 @@ def measure(name: str, x, k: int, reps: int) -> dict:
                 ns_per_app_tile=ms * 1e6 / (k * lanes / TILE),
                 bound_ms=b["bound"], bound_by=b["by"],
                 share=b["bound"] / ms, hbm_ms=b["hbm"], ops_ms=b["ops"],
-                smem_ms=b["smem"])
+                smem_ms=b["smem"], smem_first_ms=b["smem_first"])
 
 
 def main():

@@ -282,13 +282,29 @@ def test_legacy_physics_kernels_match_plain_on_card(cuda, name):
 # Kernel B/C's option sets on the shallow grid's state: the default
 # instantiation, OPTS (cy50r1 under polar ice), EXT (ISNONLIN=2 and SDICE1)
 # and EXT with JAN (iphys=0); with the two modes and the two layouts, all
-# 16 instantiations
+# 16 instantiations of the default build, and the same four at 72
+# directions (the wide build, KPL = 4); full mode's three switches (EXT);
+# and 66 frequencies (the wide build's shared mask)
 INSTANTIATIONS = {
     "default": (shallow_kw, {}, None),
     "opts": (lambda: shallow_kw(options=True), {}, cases.shallow_ice),
     "ext": (lambda: dict(shallow_kw(), isnonlin=2), dict(lciwa1=True),
             cases.shallow_ice),
     "jan": (lambda: dict(shallow_kw(), iphys=0), {}, cases.shallow_ice),
+    "wide_default": (lambda: dict(shallow_kw(), nang=72), {}, None),
+    "wide_opts": (lambda: dict(shallow_kw(options=True), nang=72), {},
+                  cases.shallow_ice),
+    "wide_ext": (lambda: dict(shallow_kw(), nang=72, isnonlin=2),
+                 dict(lciwa1=True), cases.shallow_ice),
+    "wide_jan": (lambda: dict(shallow_kw(), nang=72, iphys=0), {},
+                 cases.shallow_ice),
+    "wide128_default": (lambda: dict(shallow_kw(), nang=128), {}, None),
+    "wide128_opts": (lambda: dict(shallow_kw(options=True), nang=128), {},
+                     cases.shallow_ice),
+    "no_lcflx": (shallow_kw, dict(lcflx=False), None),
+    "no_lstokes": (shallow_kw, dict(lstokes=False), cases.shallow_ice),
+    "no_lwvflx_snl": (shallow_kw, dict(lwvflx_snl=False), None),
+    "nfre66": (lambda: dict(shallow_kw(), nfre=66), {}, None),
 }
 # a row count that is a multiple of neither the two rows a warp takes nor
 # the warps of a block (the grid's rows repeated in order: a grid row held
@@ -403,6 +419,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                # taps wider than EW
         pcu.advect(f, fp.tabs, fp.lc, **dict(kw, EW=0))
     cfg = ipk.minimal_config(ms.phys)
+    # u* forcing: the compact entry takes it in either mode, the SRL
+    # entry refuses it
+    ipk.kernel_supports(dataclasses.replace(cfg, icode_wnd=1), compact=True)
     with pytest.raises(NotImplementedError, match="icode_wnd"):
         ipk.kernel_supports(dataclasses.replace(cfg, icode_wnd=1))
     env2d = torch.zeros((3 * ms.tb.nfre, f.shape[0]), device=cuda)
@@ -439,6 +458,52 @@ def test_ustar_kernel_matches_plain_on_card(cuda, icode):
                                  reps=1)
     chip_smoke.check_compact(r, f"UST ICODE {icode}")
     assert "wswave" in r["rows"]
+
+
+# u* forcing under the default physics and with every option set: the
+# UST instantiations alone, with OPTS (cy50r1), EXT (ISNONLIN=2 with
+# SDICE1 and LSTRN) and EXT with JAN (iphys=0, cy49r1), on the 12° u* case
+USTAR_OPTIONS = {
+    "ust_default": {},
+    "ust_opts": dict(cases.CY50R1),
+    "ust_ext": dict(isnonlin=2),
+    "ust_jan": dict(cases.CY49R1, iphys=0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(USTAR_OPTIONS))
+def test_ustar_option_instantiations_match_plain_on_card(cuda, name):
+    """Kernel C under u* with the options: 2 model steps through it, then
+    one step against plain in full mode (chip_smoke.check_compact) and in
+    minimal mode (spectrum ≤ PHYS_TOL, the 6 stress rows and U10 ≤
+    STRESS_TOL, the direction on the circle as check_compact takes it)."""
+    import chip_smoke
+    ms, m = cases.ustar_model(cuda, 1, **USTAR_OPTIONS[name])
+    if name == "ust_ext":
+        ms = cases.with_phys(ms, lciwa1=True, lstrn=True)
+        m = tdriver.WaveModel(ms, m.forcing_provider, cases.START)
+        m = m.newwind(m.date)
+    n0 = ipk.implsch_compact.launches
+    m.advance(2)
+    assert ipk.implsch_compact.launches == n0 + 2
+    args = cases.wavemodel_inputs(m)
+    r = chip_smoke.compact_check(ms.phys, *args, reps=1)
+    chip_smoke.check_compact(r, f"UST {name}")
+    cfg = ipk.minimal_config(ms.phys)
+    got = ipk.implsch_compact(cfg, *args)
+    want = ipk.implsch_compact_plain(cfg, *args)
+    keys = ipk.out_keys(cfg, False)
+    assert got[1].shape[0] == len(keys) == len(ipk.SCAL_OUT_UST_MIN)
+    assert float((got[0] - want[0]).abs().max()
+                 / want[0].abs().max()) <= PHYS_TOL
+    # the wave-stress direction on the circle over 2π: under the case's
+    # uniform wind direction it is round-off around 0 in both versions
+    err = cases.row_errors(got[1], want[1])
+    d = (got[1][keys.index("tauwdir")] - want[1][keys.index("tauwdir")]).abs()
+    err[keys.index("tauwdir")] = float(
+        torch.minimum(d, 2.0 * np.pi - d).max() / (2.0 * np.pi))
+    assert float(err.max()) <= STRESS_TOL
 
 
 @pytest.mark.gpu

@@ -237,32 +237,48 @@ def test_unported_physics_options_raise(prob):
     from ecwam_tpu_torch.core.spectral import build_spectral_tables
     cfg = t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,
                                      icode_wnd=1)
-    # u* forcing: the compact entry in full mode (the dense model) only
+    # u* forcing: the compact entry (the dense model), in both modes and
+    # with any other option; the SRL fast path takes U10 only
     with pytest.raises(NotImplementedError, match="icode_wnd"):
         t_impl.check_ported(cfg, srl=True)
     t_impl.check_ported(cfg)
-    t_ipk.kernel_supports(cfg, full=True, compact=True)
-    for kw in (dict(full=False, compact=True), dict(full=True)):
+    for c in (cfg, dataclasses.replace(cfg, lciwa1=True, lstrn=True),
+              t_impl.make_physics_config(
+                  prob.tb, t_pp.set_phys_params(iphys=0, nang=prob.tb.nang,
+                                                llgcbz0=True),
+                  idelt=900.0, icode_wnd=2, isnonlin=2)):
+        for full in (False, True):
+            t_ipk.kernel_supports(c if full else t_ipk.minimal_config(c),
+                                  full, compact=True)
         with pytest.raises(NotImplementedError, match="icode_wnd"):
-            t_ipk.kernel_supports(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="icode_wnd"):
-        t_ipk.kernel_supports(dataclasses.replace(cfg, lciwa1=True),
-                              full=True, compact=True)
-    # iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN and the switches are ported,
-    # in the plain chain and in the kernel, in both modes
+            t_ipk.kernel_supports(c, full=True)
+    # iphys=0, ISNONLIN 0/2, SDICE1/2, LSTRN, the switches and full mode's
+    # flux/Stokes switches are ported, in the plain chain and in the
+    # kernel, in both modes
     t_impl.check_ported(t_impl.make_physics_config(
         prob.tb, t_pp.set_phys_params(iphys=0, nang=prob.tb.nang),
         idelt=900.0))
     for kw in (dict(isnonlin=0), dict(isnonlin=2),
                dict(lciwa1=True, lciwa2=True, lstrn=True, lbiwbk=False,
-                    licerun=False, lmaskice=False)):
+                    licerun=False, lmaskice=False),
+               dict(lcflx=False, lstokes=False, lwvflx_snl=False)):
         c = t_impl.make_physics_config(prob.tb, prob.params, idelt=900.0,
                                        **kw)
         t_impl.check_ported(c)
         t_ipk.kernel_supports(c, full=True)
         t_ipk.kernel_supports(t_ipk.minimal_config(c))
-    # the kernel takes at most 64 directions
+    # up to 128 directions (the wide build), any frequency count; an
+    # unknown ISNONLIN and more directions stay refused
     tb72 = build_spectral_tables(nang=72, nfre=prob.tb.nfre)
+    c72 = t_impl.make_physics_config(
+        tb72, t_pp.set_phys_params(iphys=1, nang=72), idelt=900.0)
+    t_ipk.kernel_supports(c72, full=True)
+    assert t_ipk.library(c72, False) == t_ipk.WIDE_LIB
+    assert t_ipk.library(t_impl.make_physics_config(
+        prob.tb, prob.params, idelt=900.0), True) == "implsch"
+    tb130 = build_spectral_tables(nang=130, nfre=prob.tb.nfre)
     with pytest.raises(NotImplementedError, match="nang"):
         t_ipk.kernel_supports(t_impl.make_physics_config(
-            tb72, t_pp.set_phys_params(iphys=1, nang=72), idelt=900.0))
+            tb130, t_pp.set_phys_params(iphys=1, nang=130), idelt=900.0))
+    with pytest.raises(ValueError, match="ISNONLIN"):
+        t_ipk.kernel_supports(dataclasses.replace(c72, isnonlin=3))

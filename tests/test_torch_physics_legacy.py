@@ -532,3 +532,28 @@ def test_option_bits_route_each_configuration(prob):
         assert b & t_ipk.EXT_BITS, name
     assert not t_ipk.option_bits(_configs(prob, "lstrn", False)[1])
     assert bits["lstrn"] == t_ipk.LSTRN_BIT
+
+
+@pytest.mark.parametrize("name", oc.CLASSES)
+def test_opclass_bounds_follow_the_kernel_design(name):
+    """Kernel D's bounds at the reference's size (K=64 over 131,072
+    lanes): the classes whose lines stay in a thread's registers need no
+    shared memory, so the HBM floor bounds them (their first design's
+    shared-memory bound is kept beside it); transpose2x keeps its two
+    shared round trips an entry and application; the elementwise classes
+    the HBM floor (fma, lane_bcast) or the special-function rate (exp)."""
+    b = oc.bounds(name, 128 * 1024, 64)
+    hbm = 2 * 4 * 36 * 40 * 128 * 1024 / oc.HBM_BYTES_PER_S * 1e3
+    assert abs(b["hbm"] - hbm) < 1e-12 and abs(hbm - 0.451) < 1e-3
+    assert b["bound"] == max(b["hbm"], b["ops"], b["smem"])
+    if name in oc.IN_REGISTERS:
+        assert b["smem"] == 0.0 and b["by"] == "hbm"
+        first = 3 if name.endswith("reduce") else 2
+        assert b["smem_first"] == pytest.approx(
+            first * 4 * 36 * 40 * 128 * 1024 * 64 / oc.SMEM_BYTES_PER_S * 1e3)
+    elif name == "transpose2x":
+        assert b["by"] == "smem" and b["smem"] == pytest.approx(5.777,
+                                                               abs=1e-3)
+    else:
+        assert b["smem"] == b["smem_first"] == 0.0
+        assert b["by"] == ("ops" if name == "exp" else "hbm")
