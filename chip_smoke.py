@@ -156,7 +156,20 @@ Phases (any failure raises and the script exits non-zero):
      grid at 66 frequencies (the wide build's shared windsea mask): one
      physics step in each mode against plain and 2 output-date steps
      through the kernel;
- 12. one JSON line with each kernel's launches, errors, times and bound;
+ 12. the multi-device slice on the one card (``chip_smoke.sharded_phase``,
+     rehearsed by tests/test_torch_smoke_sharded.py at O24): the sharded
+     fused model (``parallel.sharded``) at O320 36×36/29 on 2 and 4 shards
+     of the card from ``FastWaveModel``'s cold start, 6 steps, the last an
+     output date, against ``FastWaveModel`` (bit for bit, else the golden
+     trajectory's limits), kernels A and B launched k × passes and k ×
+     physics steps, per shard count the mean step, the device time outside
+     the kernels, the halo bytes a step and the peak allocation a shard;
+     kernels A and B on shard 0 against plain; ``norms_device`` through
+     NCCL at world size 1 against ``norms``; the cached model on the golden
+     grid in 2×2 patches and 4 row bands through kernel C against one
+     device; kernels A and B at 144×36/29 (past 128 directions: C2),
+     4 steps with an output date and the slice in both modes;
+ 13. one JSON line with each kernel's launches, errors, times and bound;
      the card's name and power limit; the final ``{"ok": true, ...}`` line.
 
 Tolerances on the card, each relative to the field's maximum (PERF.md
@@ -208,6 +221,11 @@ gives the sound readings and those of deliberately broken kernels):
   SWH after wamassi vs analysis   ≤ WAMASSI_SWH_RTOL relative (the
                                   reference test's)
   phys_srl_chunked vs phys_srl    bit for bit (else ≤ RIM_TOL, reported)
+  sharded fused vs FastWaveModel  bit for bit (else fl1 ≤ TRAJ_TOL, stress
+                                  ≤ TRAJ_STRESS_TOL, reported); the
+                                  cached model against one device within
+                                  the same limits; norms_device within
+                                  1e-12 of norms
   products on the card vs float64 each field within PRODUCT_TOL of its
   on the CPU (O320, 32,768 pts)   largest magnitude (directions on the
                                   circle); points over it held out only
@@ -2525,6 +2543,371 @@ def shapes_phase(dev, *, over=None, nang=72, rows=PHYS_ROWS,
     return out
 
 
+SHARD_COUNTS = (2, 4)
+SHARD_STEPS = 6                 # 4 steps, one more, an output date
+NANG_WIDE = 144                 # kernel B past 128 directions (C2)
+
+
+def fused_shard_run(ms, fl1, stress, wind, dev, k, launches=True):
+    """The sharded fused model of ``ms`` on ``k`` shards of ``dev``, from
+    the compact state ``fl1``/``stress``: SHARD_STEPS steps through
+    ``step_rows`` (physics on every second, as ``FastWaveModel.advance``
+    at idelt = 2·idelpro), the last an output date
+    (``step_rows_full``).  Returns (model, rows, tail, stress6, state,
+    readings)."""
+    import torch
+    from ecwam_tpu_torch.device import synchronize
+    from ecwam_tpu_torch.ops import propagation_cuda as pcu
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    from ecwam_tpu_torch.parallel import multihost, sharded
+    cuda = dev.type == "cuda"
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    sm = sharded.build_sharded_model(ms, multihost.make_point_mesh([dev] * k))
+    rows, tail = sm.put_rows(fl1)
+    s6 = sm.put_stress6(stress)
+    frc6 = sm.put_forcing(wind)
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    n0 = (pcu.advect.launches, ipk.implsch_srl.launches,
+          ipk.implsch_srl.full_launches)
+    sm.halo_bytes = 0
+    steps = []
+    for i in range(SHARD_STEPS - 1):
+        t0 = time.perf_counter()
+        rows, tail, s6 = sm.step_rows(rows, tail, s6, frc6,
+                                      phys=i % 2 == 1)
+        synchronize(dev)
+        steps.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows, tail, s6, state = sm.step_rows_full(rows, tail, s6, frc6)
+    synchronize(dev)
+    t_full = time.perf_counter() - t0
+    n_l = dict(advect=pcu.advect.launches - n0[0],
+               implsch=ipk.implsch_srl.launches - n0[1],
+               implsch_full=ipk.implsch_srl.full_launches - n0[2])
+    passes = SHARD_STEPS * sm.fps[0].nsub
+    want = dict(advect=k * passes, implsch=k * (SHARD_STEPS // 2 - 1))
+    if launches and (n_l["advect"] != want["advect"]
+                     or n_l["implsch"] != want["implsch"]
+                     or n_l["implsch_full"] < k):
+        raise AssertionError(f"{k} shards: launches {n_l}, expected "
+                             f"{want} and at least {k} full-mode")
+    # the peak above what was held before the model was built
+    peak = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9 if cuda
+            else None)
+    r = dict(build_s=t_build, step_ms=1e3 * sum(steps[1:]) / len(steps[1:]),
+             full_ms=1e3 * t_full, launches=n_l,
+             halo_bytes_step=sm.halo_bytes / SHARD_STEPS,
+             rows=sm.fused_shard_tables.nsrl_loc, peak_gb=peak,
+             peak_gb_shard=None if peak is None else peak / k)
+    return sm, (rows, tail, s6, frc6), state, r
+
+
+def sharded_phase(dev, *, o320=None, over=None, cached_kw=None,
+                  launches=True, nccl=True, rows=PHYS_ROWS) -> dict:
+    """Phase 12: the multi-device slice on one card.
+
+    12a. the sharded fused model at O320 36×36/29 (phase 3's setup,
+    ``o320``, or :data:`O320_KW` with ``over``'s keywords: a rehearsal on
+    the CPU passes a small grid) on 2 and 4 shards of ``dev``, beside
+    ``FastWaveModel`` from the same cold start: 6 steps, the last an
+    output date; the spectrum, stress and output state bit for bit, else
+    within the golden trajectory's limits (reported); kernel A and B
+    launches as k × passes and k × physics steps; per shard count the
+    mean step, the device time outside the kernels, the halo bytes a step
+    and the peak allocation per shard;
+    12b. the cached model in 2×2 patches and in 4 row bands (the golden
+    12° grid, or ``cached_kw``) through kernel C, 4 steps, against the
+    single-device cached step, within the golden trajectory's limits;
+    12c. NCCL at world size 1 (``nccl``): ``init_distributed`` on a free
+    localhost port, ``norms_device`` through ``all_reduce`` equal to the
+    host's ``norms``, the group destroyed (gloo in a CPU rehearsal);
+    12d. kernel B at 144 directions (C2, the wide build's further
+    passes), minimal and full, against plain on the 32,768-row slice of
+    the 144×36/29 O320 cold start.
+    Returns the readings of the kernels line."""
+    import socket
+    import dataclasses
+    import numpy as np
+    import torch
+    from ecwam_tpu_torch.core import physparams as pp
+    from ecwam_tpu_torch.core.spectral import build_spectral_tables
+    from ecwam_tpu_torch.device import synchronize
+    from ecwam_tpu_torch.model import cases, driver
+    from ecwam_tpu_torch.model import setup as setup_mod
+    from ecwam_tpu_torch.model import stepper
+    from ecwam_tpu_torch.ops.physics import implsch as impl
+    from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+    from ecwam_tpu_torch.parallel import multihost, sharded
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {}
+
+    def fresh():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # -- 12a. the sharded fused model against FastWaveModel ----------------
+    fresh()
+    ms = o320 if o320 is not None else setup_mod.build_model(
+        device=dev, **dict(O320_KW, **(over or {})))
+    n = ms.n_real
+    wind = o320_wind(n)
+    m = driver.FastWaveModel(ms, lambda d: wind, cases.START)
+    fl1, stress = m.fl1, m.stress
+    steps = []
+    for _ in range(SHARD_STEPS - 1):
+        t0 = time.perf_counter()
+        m.advance(1)
+        synchronize(dev)
+        steps.append(time.perf_counter() - t0)
+    m.advance(1, full_phys=True)
+    want = m.fl1[..., :n].cpu().numpy()
+    want_s = {k: v[:n].cpu().numpy() for k, v in m.stress.items()}
+    want_st = {k: m.state[k][:n].cpu().numpy()
+               for k in ("emean", "tauoc", "mij", "ustokes")}
+    want_st["esea"] = m.state["sep"]["esea"][:n].cpu().numpy()
+    # the mean of steps 2-5 (the first packs the physics tables)
+    t_steps = sum(steps[1:]) / len(steps[1:])
+    del m
+    fresh()
+    wind_pad = {k: setup_mod.pad_point_field(ms, v) for k, v in wind.items()}
+    out["fused"] = {}
+    for k in SHARD_COUNTS:
+        sm, (rows_k, tail, s6, frc6), state, r = fused_shard_run(
+            ms, fl1, stress, wind_pad, dev, k, launches)
+        got = sm.rows_to_compact(rows_k, tail)[..., :n]
+        got_s = {key: v[:n] for key, v in sm.stress6_to_dict(s6).items()}
+        got_st = {key: sm.from_layout(state[key])[:n] for key in want_st
+                  if key != "esea"}
+        got_st["esea"] = sm.from_layout(state["sep"]["esea"])[:n]
+        same = (np.array_equal(got, want)
+                and all(np.array_equal(got_s[key], want_s[key])
+                        for key in want_s)
+                and all(np.array_equal(got_st[key], want_st[key])
+                        for key in want_st))
+        fl_err = float(np.abs(got - want).max() / np.abs(want).max())
+        s_err = max(float(np.abs(got_s[key] - want_s[key]).max()
+                          / max(np.abs(want_s[key]).max(), 1e-30))
+                    for key in want_s)
+        r.update(bit_for_bit=same, fl1_err=fl_err, stress_err=s_err,
+                 fast_wave_model_step_ms=t_steps * 1e3)
+        outside = None
+        if cuda:
+            wall, split, busy, tries = profile(
+                lambda: [sm.step_rows(rows_k, tail, s6, frc6,
+                                      phys=i % 2 == 1) for i in range(2)])
+            outside = (busy - sum(t for t, _ in split.values())) / 2
+            r.update(profiled=dict(
+                wall_ms=wall, busy_ms=busy, tries=tries,
+                kernels={key: t for key, (t, _) in split.items()}))
+        r["outside_ms_step"] = outside
+        log(f"sharded fused {ms.grid.name} {ms.tb.nang}×{ms.tb.nfre}/"
+            f"{ms.tb.nfre_red} on {k} shards of {dev} (build "
+            f"{r['build_s']:.1f} s, {r['rows']} SRL rows a shard): mean "
+            f"of steps 2-5 {r['step_ms']:.3f} ms (FastWaveModel "
+            f"{t_steps * 1e3:.3f}), output date {r['full_ms']:.3f} ms; "
+            f"device time outside kernels A and B {outside} ms a step; "
+            f"halo {r['halo_bytes_step'] / 1e6:.3f} MB a step; peak above "
+            f"what was held before the build {r['peak_gb']} GB, "
+            f"{r['peak_gb_shard']} GB a shard; launches "
+            f"{r['launches']}; against FastWaveModel bit for bit {same} "
+            f"(fl1 {fl_err:.3e} of max, stress {s_err:.3e})")
+        if not same:
+            log(f"  not bit for bit at {k} shards: held to the golden "
+                f"trajectory's limits (fl1 {TRAJ_TOL}, stress "
+                f"{TRAJ_STRESS_TOL})")
+            if not (fl_err <= TRAJ_TOL and s_err <= TRAJ_STRESS_TOL):
+                raise AssertionError(f"{k} shards disagree with "
+                                     "FastWaveModel")
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{k} shards: spectrum not finite")
+        out["fused"][k] = r
+        if k == SHARD_COUNTS[-1]:
+            # kernels A and B on shard 0, against plain (the kernels line)
+            shard = sm.tables[0]
+            shim = type("ShardState", (), {})()
+            shim.fp = sm.fps[0]
+            shim._f_srl, shim._tail = rows_k[0], tail[0]
+            shim._env2d, shim._denv = sm._env2d[0], sm._denv[0]
+            shim._stress6, shim._frc6 = s6[0], frc6[0]
+            out["advect"] = advect_check(shim, shard, ms.irefra)
+            sms = dataclasses.replace(ms, fused=shard)
+            above = ms.tb.nfre - 1 - float(np.asarray(got_st["mij"],
+                                                      np.float64).mean())
+            out["implsch"] = slice_check(sms, shim, dev, False, above,
+                                         r0=0)
+            a = out["advect"]
+            log(f"shard 0 of {k}: advect kernel {fmt_ms(a[2])}, plain "
+                f"{fmt_ms(a[3])}, {a[0]:.3e} of max (tol {ADVECT_TOL}); "
+                f"implsch minimal ({rows} rows) kernel "
+                f"{fmt_ms(out['implsch']['ms'])}, spectrum "
+                f"{out['implsch']['spec_rel']:.3e}, stress "
+                f"{out['implsch']['stress_rel']:.3e}")
+            if not a[0] <= ADVECT_TOL:
+                raise AssertionError("shard 0: advection kernel disagrees")
+            check_slice(out["implsch"], False, "shard 0 implsch minimal")
+            out["above_cut"] = above
+            # 12c. the device norms through NCCL (gloo on the CPU) at
+            # world size 1, against the host's gathered norms
+            if nccl:
+                parts = sm.rows_to_parts(rows_k, tail)
+                dfim = torch.as_tensor(ms.tb.dfim, dtype=torch.float64,
+                                       device=dev)
+                swh = [4.0 * torch.sqrt(torch.einsum(
+                    "kmn,m->n", p.double(), dfim)) for p in parts]
+                so = socket.socket()
+                so.bind(("localhost", 0))
+                port = so.getsockname()[1]
+                so.close()
+                backend = "nccl" if cuda else "gloo"
+                multihost.init_distributed(f"localhost:{port}", 1, 0,
+                                           backend=backend)
+                try:
+                    dn = sm.norms_device(swh)
+                finally:
+                    multihost.shutdown()
+                hn = sm.norms(swh)
+                rel = abs(dn["average"] - hn["average"]) / hn["average"]
+                log(f"{backend} at world size 1: norms_device {dn}, host "
+                    f"norms {hn} (average {rel:.3e} apart)")
+                if not (dn["count"] == hn["count"] == n
+                        and dn["minimum"] == hn["minimum"]
+                        and dn["maximum"] == hn["maximum"] and rel <= 1e-12):
+                    raise AssertionError(f"{backend} norms differ")
+                out["nccl"] = dict(device=dn, host=hn, rel=rel)
+                del parts, swh
+        del sm, rows_k, tail, s6, frc6, state
+        fresh()
+
+    # -- 12b. the cached model: 2×2 patches and 4 row bands ----------------
+    ck = dict(cached_kw or cases.golden_kw(), weights_mode="cached")
+    mc = setup_mod.build_model(device=dev, **ck)
+    frc = cases.golden_forcing(mc.n_real)(0)
+    frc_p = {key: setup_mod.pad_point_field(mc, v) for key, v in frc.items()}
+    fl0 = preset_spectrum(mc, frc_p)
+    st0 = {key: v.cpu().numpy() for key, v in
+           stepper.initial_stress(mc, frc_p).items()}
+    sb = stepper.make_step(mc)
+    f = torch.as_tensor(fl0, dtype=mc.dtype, device=dev)
+    frc_t = {key: torch.as_tensor(v, dtype=mc.dtype, device=dev)
+             for key, v in frc_p.items()}
+    st = {key: torch.as_tensor(v, device=dev) for key, v in st0.items()}
+    for _ in range(4):
+        f, s2 = sb.step_full(f, frc_t, st)
+        st = {key: s2[key] for key in st}
+    ref = f.cpu().numpy()[..., :mc.n_real]
+    ref_s = {key: v.cpu().numpy()[:mc.n_real] for key, v in st.items()}
+    out["cached"] = {}
+    for name, layout in (("patches 2×2", (2, 2)), ("bands 4", None)):
+        c0 = ipk.implsch_compact.launches
+        scm = sharded.build_sharded_model(
+            mc, multihost.make_point_mesh([dev] * 4), layout)
+        fs = scm.device_put(fl0)
+        frc_s = {key: scm.device_put(v) for key, v in frc_p.items()}
+        sts = {key: scm.device_put(v) for key, v in st0.items()}
+        t0 = time.perf_counter()
+        for _ in range(4):
+            fs, state = scm.step_full(fs, frc_s, sts)
+            sts = {key: state[key] for key in sts}
+        synchronize(dev)
+        t_step = (time.perf_counter() - t0) / 4
+        n_c = ipk.implsch_compact.launches - c0
+        got = scm.from_layout(fs)[..., :mc.n_real]
+        e_fl = float(np.abs(got - ref).max() / np.abs(ref).max())
+        e_s = max(float(np.abs(scm.from_layout(sts[key])[:mc.n_real]
+                               - ref_s[key]).max()
+                        / max(np.abs(ref_s[key]).max(), 1e-30))
+                  for key in ref_s)
+        log(f"sharded cached {name} ({mc.grid.name}, "
+            f"{mc.tb.nang}×{mc.tb.nfre}/{mc.tb.nfre_red}, irefra "
+            f"{mc.irefra}, ifrelfmax {mc.ifrelfmax}): 4 steps, mean "
+            f"{t_step * 1e3:.3f} ms, kernel C launches {n_c}, halo "
+            f"{scm.halo_bytes / 4 / 1e3:.1f} kB a step; against one device "
+            f"fl1 {e_fl:.3e} (tol {TRAJ_TOL}), stress {e_s:.3e} (tol "
+            f"{TRAJ_STRESS_TOL})")
+        if launches and n_c != 4 * 4:
+            raise AssertionError(f"cached {name}: kernel C launches {n_c}")
+        if not (e_fl <= TRAJ_TOL and e_s <= TRAJ_STRESS_TOL):
+            raise AssertionError(f"cached {name} disagrees with one device")
+        out["cached"][name] = dict(fl1=e_fl, stress=e_s, launches=n_c,
+                                   step_ms=t_step * 1e3)
+        del scm, fs, state
+    del mc, sb, f
+    fresh()
+
+    # -- 12d. kernel B past 128 directions (C2) ----------------------------
+    tb_w = build_spectral_tables(nang=NANG_WIDE, nfre=ms.tb.nfre,
+                                 nfre_red=ms.tb.nfre_red)
+    phys_w = impl.make_physics_config(
+        tb_w, pp.set_phys_params(1, nang=NANG_WIDE), ms.idelt,
+        nfre_red=ms.tb.nfre_red)
+    ms_w = dataclasses.replace(ms, tb=tb_w, phys=phys_w)
+    model_w = driver.FastWaveModel(ms_w, lambda d: wind, cases.START)
+    n0 = (ipk.implsch_srl.launches, ipk.implsch_srl.full_launches)
+    t0 = time.perf_counter()
+    model_w.advance(2)
+    model_w.advance(1)
+    model_w.advance(1, full_phys=True)
+    synchronize(dev)
+    w_l = dict(implsch=ipk.implsch_srl.launches - n0[0],
+               implsch_full=ipk.implsch_srl.full_launches - n0[1])
+    log(f"{ms.grid.name} {NANG_WIDE}×{ms.tb.nfre}/{ms.tb.nfre_red}: 4 "
+        f"steps, the last an output date, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; kernel B launches "
+        f"{w_l}; SWH {model_w.norms()}")
+    if launches and min(w_l.values()) <= 0:
+        raise AssertionError(f"{NANG_WIDE} directions bypassed kernel B")
+    a = advect_check(model_w, ms_w.fused, ms_w.irefra)
+    log(f"advect at {NANG_WIDE} directions: kernel {fmt_ms(a[2])}, plain "
+        f"{fmt_ms(a[3])}, max|k-p| {a[1]:.3e} = {a[0]:.3e} of max (tol "
+        f"{ADVECT_TOL})")
+    if not a[0] <= ADVECT_TOL:
+        raise AssertionError(f"advection at {NANG_WIDE} directions "
+                             "disagrees")
+    out["wide"] = dict(launches=w_l, advect=a)
+    for full in (False, True):
+        mode = "full" if full else "minimal"
+        ipk.kernel_supports(phys_w if full else ipk.minimal_config(phys_w),
+                            full)
+        r = slice_check(ms_w, model_w, dev, full, out["above_cut"])
+        log(f"implsch {mode} at {NANG_WIDE} directions ({rows} rows, "
+            f"{ipk.library(phys_w, full)}, "
+            f"{ipk.shared_bytes(phys_w, full)} bytes of shared memory a "
+            f"row with the tables): kernel {fmt_ms(r['ms'])}, plain "
+            f"{fmt_ms(r['plain_ms'])}; spectrum {r['spec_rel']:.3e} of "
+            f"max, stress {r['stress_rel']:.3e}"
+            + (f", worst row {max(r['rows'].values()):.3e}, xllws "
+               f"{r['xllws']} of {r['xllws_bins']} on the edge, "
+               f"{r['xllws_off']} off" if full else "")
+            + f"; {r['n_tie']} ties, {r['n_off']} rows off"
+            + (f"; kernel on all rows {fmt_ms(r['all_rows_ms'])}"
+               if not full else "")
+            + f"; bound on all rows {r['all_rows_bound'][0]:.3f} ms "
+            f"({r['all_rows_bound'][1]})")
+        check_slice(r, full, f"implsch {mode} at {NANG_WIDE} directions")
+        out["wide"][mode] = r
+    del model_w, ms_w
+    fresh()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['phase_s']:.1f} s")
+    return out
+
+
+def preset_spectrum(ms, frc):
+    """The JONSWAP cold start (MSTART) of ``ms`` under ``frc``'s winds,
+    host float64 (nang, nfre, n_pad)."""
+    import numpy as np
+    from ecwam_tpu_torch.model import preset
+    return np.asarray(preset.mstart(ms.tb, frc["wswave"], frc["wdwave"]),
+                      np.float64)
+
+
 def main():
     import numpy as np
     import torch
@@ -2764,7 +3147,9 @@ def main():
         + f"; outside the kernels (windsea/swell split, chunk copies) "
         f"{rest:.3f} ms")
 
-    # ---- 5. the operational options (the default O320 model freed first)
+    # ---- 5. the operational options (the default O320 model freed first;
+    # its setup kept for phase 12)
+    o320 = ms
     del model, ms, ft
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2800,7 +3185,13 @@ def main():
     torch.cuda.empty_cache()
     sh = shapes_phase(dev)
 
-    # ---- 12. report --------------------------------------------------------
+    # ---- 12. the multi-device slice: sharded models on one card, C2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sd = sharded_phase(dev, o320=o320)
+    del o320
+
+    # ---- 13. report --------------------------------------------------------
     def entry(name, source, replaces, n_launch, abs_err, ms_k, ms_p,
               byte_count, ops):
         b_ms, b_by = bound(byte_count, ops)
@@ -2892,6 +3283,30 @@ def main():
         e["max_rel_err"] = rel
         kernels.append(e)
     kernels[-len(new) + 1]["all_rows_ms"] = w["minimal"]["all_rows_ms"]
+    sa, si = sd["advect"], sd["implsch"]
+    n_sh = {key: sum(r["launches"][key] for r in sd["fused"].values())
+            for key in ("advect", "implsch", "implsch_full")}
+    new = [(entry("advect_sharded", "ecwam_tpu_torch/csrc/advect.cu",
+                  "ecwam_tpu/ops/propagation_pallas.py:564",
+                  n_sh["advect"], sa[1], sa[2], sa[3], sa[4], 0), sa[0]),
+           (entry("implsch_minimal_sharded", isrc,
+                  "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+                  n_sh["implsch"], si["spec_abs"], si["ms"],
+                  si["plain_ms"], si["bytes"], si["ops"]), si["spec_rel"])]
+    for mode in ("minimal", "full"):
+        r = sd["wide"][mode]
+        new.append((entry(
+            f"implsch_{mode}_{NANG_WIDE}", isrc,
+            "ecwam_tpu/ops/physics/implsch_pallas.py:381",
+            sd["wide"]["launches"]["implsch" if mode == "minimal"
+                                   else "implsch_full"],
+            r["spec_abs"], r["ms"], r["plain_ms"], r["bytes"], r["ops"]),
+            r["spec_rel"]))
+    for e, rel in new:
+        e["max_rel_err"] = rel
+        kernels.append(e)
+    kernels[-3]["shard_full_launches"] = n_sh["implsch_full"]
+    kernels[-2]["all_rows_ms"] = sd["wide"]["minimal"]["all_rows_ms"]
     for r in od:
         kernels.append(dict(
             name=f"opclass_{r['name']}", route="cuda",

@@ -79,7 +79,7 @@ enum Row { R_Z, R_CI, R_TP, R_DPS, R_DPN, R_XD, R_GRADS = 8, R_SEAW = 16,
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
 constexpr int KB = 4;           // directions per band
-constexpr int MAX_BANDS = 32;   // nang ≤ 128
+constexpr int MAX_BANDS = 128;  // nang ≤ 512 (each band's sides: 512 B)
 // per-(row, freq) fields of phase 1: edge velocities (4), cg, ω/sinh·k,
 // and with currents cg·k and ω/sinh·k·k
 template <bool CUR>

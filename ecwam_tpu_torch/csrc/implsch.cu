@@ -97,10 +97,17 @@
 // Two widths of this file (implsch_cuda picks one from nang and nfre):
 // the default, KPL = 2 directions a lane (nang <= 64) with each lane's
 // windsea-mask bits in a 64-bit register word per direction (full mode,
-// nfre <= 64); and IMPLSCH_WIDE, KPL = 4 (nang <= 128) with the mask in
-// the row's shared words, nfre words of 32 bits per direction rounded up
-// (any nfre), at most 8 warps a block (a 72×36 row takes ≈ 35 KB, so
-// about six rows an SM) and so up to 255 registers a thread.  Each width
+// nfre <= 64); and IMPLSCH_WIDE, KPL = 4 with the mask in the row's
+// shared words, nfre words of 32 bits per direction rounded up (any nfre),
+// at most 8 warps a block (a 72×36 row takes ≈ 35 KB, so about six rows
+// an SM) and so up to 255 registers a thread.  The wide build takes any
+// nang whose row and tables fit one block's shared memory: the first GRP
+// = 128 directions as before, in the lanes' registers; past them (the
+// per-direction stages of SINPUT, SNONLIN, STRESSO and PEAK_ANG) the rest
+// in further passes of RL directions, one a lane, their sums added to the
+// first group's, and LLNORMAGAM's direction sums taken in a pass of their
+// own first.  Past 128 directions W stays in global memory (it is nang²;
+// SDISSIP reads its band through the cache).  Each width
 // is built twice, with IMPLSCH_SRL (the SRL entry's instantiations) and
 // with IMPLSCH_COMPACT (the compact entry's, UST among them), so that
 // the four libraries compile in parallel.
@@ -241,7 +248,8 @@ constexpr int RL = 32;          // lanes a row
 constexpr int RPW = 32 / RL;    // rows a warp
 #ifdef IMPLSCH_WIDE
 constexpr bool WIDE = true;     // the mask in shared memory
-constexpr int KPL = 128 / RL;   // directions a lane: nang <= 128
+constexpr int KPL = 128 / RL;   // directions a lane in registers: the
+                                // first 128; the rest in further passes
 constexpr int MAX_WARPS = 8;    // warps a block (the launch takes fewer
                                 // where shared memory holds fewer)
 #else
@@ -250,6 +258,9 @@ constexpr int KPL = 64 / RL;    // directions a lane: nang <= 64
 constexpr int MAX_WARPS = 12;   // warps a block (the launch takes fewer
                                 // where shared memory holds fewer)
 #endif
+// the directions the lanes' registers hold (one group); past it, the wide
+// build walks the rest a direction a lane at a time, in passes of RL
+constexpr int GRP = RL * KPL;
 constexpr int JTOT = 19;        // tail-integral nodes (tables.JTOT_TAUHF)
 constexpr int NITER = 18;       // TAUT_Z0 Newton steps
 constexpr float EPS1 = 1.0e-5f; // tauw/u*² margin (yowtabl.F90:34)
@@ -780,6 +791,37 @@ __device__ float halphap(const Tabs& T, const Work& W, int lane) {
   return 0.5f * fminf(ok ? spec : tail, P[P_ALPHAPMAX]);
 }
 
+#ifdef IMPLSCH_WIDE
+// The wide build's directions past the first group (sinput_ard and
+// sinput_jan walk them one a lane): a gust's growth rate in direction
+// (sk, ck) or at cos(θ − θ_wind) = cw, the expressions of the group's own
+// loops; coslp (ARD) and whether the bin is active come back
+__device__ __forceinline__ float ard_growth(float r2, float tx, float ty,
+                                           float um1, float ucn,
+                                           float ucnzalpd, float zcn,
+                                           float cnsn, float sk, float ck,
+                                           float& coslp, bool& active) {
+  coslp = r2 > 0.f ? (sk * tx + ck * ty) * (um1 * um1) : ck;
+  const float x = coslp * ucn;
+  const float zlog = zcn + ucnzalpd / (coslp > 0.01f ? coslp : 1.f);
+  active = coslp > 0.01f && zlog < 0.f;
+  const float zlog2x = zlog * zlog * x;
+  return active ? expf(zlog) * zlog2x * zlog2x * cnsn : 0.f;
+}
+
+__device__ __forceinline__ float jan_growth(const float* P, float ucn,
+                                           float cw, float zcn, float cnsn,
+                                           bool& active) {
+  const float ucnd = 1.f / ucn;
+  const bool lz = cw > 0.01f;
+  const float zlog = zcn + P[P_XKAPPA] / (lz ? cw : 1.f) * ucnd;
+  active = lz && zlog < 0.f;
+  const float x = cw * ucn;
+  const float zlog2x = zlog * zlog * x;
+  return active ? zlog2x * zlog2x * expf(zlog) * cnsn : 0.f;
+}
+#endif
+
 // SINPUT ARD (sinput_ard.F90:88-434) in SINFLX call 1 or 2 (``second``):
 // per frequency
 // ws = Σ_k xllws·F (FEMEANWS), sx/sy = Σ_k spos·sin/cos (STRESSO); the
@@ -874,6 +916,11 @@ __device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lan
       ucn[g] = ustp[g] * cim;
       ucnzalpd[g] = P[P_XKAPPA] / (ucn[g] + P[P_ZALP]);
     }
+#ifdef IMPLSCH_WIDE
+    float gnv[NG];                             // LLNORMAGAM's factors
+#pragma unroll
+    for (int g = 0; g < NG; ++g) gnv[g] = 1.f;
+#endif
     float fldacc[KPL], sposacc[KPL], xll[KPL], px[NG], py[NG];
 #pragma unroll
     for (int q = 0; q < KPL; ++q) fldacc[q] = sposacc[q] = xll[q] = 0.f;
@@ -938,6 +985,25 @@ __device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lan
           s2[g] += gf * W.sin2[k];
         }
       }
+#ifdef IMPLSCH_WIDE
+      // the sums' other directions
+      if (normagam) {
+        for (int k = lane + GRP; k < nang; k += RL) {
+          const float f = W.fl[k * nfp + m];
+#pragma unroll
+          for (int g = 0; g < NG; ++g) {
+            if (g == ng) break;
+            float coslp;
+            bool active;
+            const float gf = ard_growth(
+                r2[g], tx[g], ty[g], um1[g], ucn[g], ucnzalpd[g], zcn,
+                cnsn, T.sinth[k], T.costh[k], coslp, active) * f;
+            s1[g] += gf;
+            s2[g] += gf * W.sin2[k];
+          }
+        }
+      }
+#endif
       if (normagam) {
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
@@ -945,6 +1011,9 @@ __device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lan
           const float sumf = row_sum(s1[g]), sumfsin2 = row_sum(s2[g]);
           const float znz = cstrnfac * W.xk2cg[m] * um1[g];
           const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
+#ifdef IMPLSCH_WIDE
+          gnv[g] = gn;
+#endif
 #pragma unroll
           for (int q = 0; q < KPL; ++q) gam[g][q] = gam[g][q] * gn;
         }
@@ -970,13 +1039,62 @@ __device__ __forceinline__ void sinput_ard(const Tabs& T, const Work& W, int lan
         }
       }
     }
+#ifdef IMPLSCH_WIDE
+    float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
+    // the directions past the first group, one a lane: growth, the
+    // gusts' sums and the sources at once (the loops below do them for
+    // the group)
+    for (int k = lane + GRP; k < nang; k += RL) {
+      const float sk = T.sinth[k], ck = T.costh[k];
+      const int b = k * nfp + m;
+      const float f = W.fl[b];
+      float fa = 0.f, sa = 0.f, xl = 0.f;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        if (g == ng) break;
+        float coslp;
+        bool active;
+        const float gam = ard_growth(r2[g], tx[g], ty[g], um1[g],
+                                     ucn[g], ucnzalpd[g], zcn, cnsn, sk,
+                                     ck, coslp, active)
+            * (normagam ? gnv[g] : 1.f);
+        if (active) xl = 1.f;
+        const float dstab = neg
+            ? dstab1 + pturb * (temp1 * (temp2 + (P[P_FU] + P[P_FUD] * coslp)
+                                                    * ustp[g]))
+            : 0.f;
+        const float slp = gam * f;
+        px[g] += slp * sk;
+        py[g] += slp * ck;
+        sa += slp;
+        fa += gam + dstab;
+      }
+      const float fm = avg * fa;
+      const float sp = avg * sa;
+      if (neg) {
+        const float d = W.fld[b];            // SDISSIP's rate
+        W.fld[b] = fm + d;
+        W.sl[b] = fmaf(d, f, fm * f);
+      }
+      wsp += xl * f;
+      sxp += sp * sk;
+      syp += sp * ck;
+      if (fw) {
+        spp += sp;
+        dph += (fm * f - sp) * T.rhowg[m];
+        if (xl != 0.f) mask_set(xbits, W, T, 0, k, m);
+      }
+    }
+#endif
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       if (g == ng) break;
       xs[g] = xs[g] + row_sum(px[g]) * constf;
       ys[g] = ys[g] + row_sum(py[g]) * constf;
     }
+#ifndef IMPLSCH_WIDE
     float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
+#endif
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
       const int k = lane + RL * q;
@@ -1069,6 +1187,14 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, bool second,
     part += fc2 * cw;
     if (fw) part2 += fc2;
   }
+#ifdef IMPLSCH_WIDE
+  for (int k = lane + GRP; k < nang; k += RL) {
+    const float cw = fmaxf(W.cosw[k], 0.f);
+    const float fc2 = W.fl[k * nfp + mij] * (cw * cw);
+    part += fc2 * cw;
+    if (fw) part2 += fc2;
+  }
+#endif
   const float f1dcos3 = P[P_DELTH] * row_sum(part);
   const float delz_phi = fmaxf((0.f - zinf) / (float)(JTOT - 1), 0.f);
   float delz = delz_phi;
@@ -1090,6 +1216,13 @@ __device__ void stresso(const Tabs& T, const Work& W, int lane, bool second,
       ps += f * W.sin2[k];
       pt += f;
     }
+#ifdef IMPLSCH_WIDE
+    for (int k = lane + GRP; k < nang; k += RL) {
+      const float f = W.fl[k * nfp + mij];
+      ps += f * W.sin2[k];
+      pt += f;
+    }
+#endif
     const float confg = P[P_GAMNCONST] * T.fr5[mij] * rnfac * sqrtgz0;
     c1 = confg * (P[P_DELTH] * row_sum(ps));
     c2 = confg * (P[P_DELTH] * row_sum(pt));
@@ -1289,6 +1422,29 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
         delap[k] = (fij - 2.f * sam) * P[P_DAL1] * fcen;
         delam[k] = (fij - 2.f * sap) * P[P_DAL2] * fcen;
       }
+#ifdef IMPLSCH_WIDE
+      // the directions past the first group, their rows of fl at k + s
+      // found here (the same expressions as the group's)
+      for (int k = lane + GRP; k < nang; k += RL) {
+        const int q1 = wrap(k + s1, nang) * nfp;
+        const int q11 = wrap(k + s11, nang) * nfp;
+        const int q2 = wrap(k + s2, nang) * nfp;
+        const int q21 = wrap(k + s21, nang) * nfp;
+        const float sap = w(1) * fl[q1 + ip] + w(2) * fl[q11 + ip]
+            + w(3) * fl[q1 + ip1] + w(4) * fl[q11 + ip1];
+        const float sam = w(13) * fl[q2 + im] + w(14) * fl[q21 + im]
+            + w(15) * fl[q2 + im1] + w(16) * fl[q21 + im1];
+        const float fij = fl[k * nfp + ic] * w(0);
+        float fad1 = fij * (sap + sam);
+        const float fad2 = fad1 - 2.f * sap * sam;
+        fad1 = fad1 + fad2;
+        const float fcen = ftemp * fij;
+        ad[k] = fad2 * fcen;
+        delad[k] = fad1 * ftemp;
+        delap[k] = (fij - 2.f * sam) * P[P_DAL1] * fcen;
+        delam[k] = (fij - 2.f * sap) * P[P_DAL2] * fcen;
+      }
+#endif
       __syncwarp();
       // the MC's target frequencies: its own (inside the ladder) and the
       // four of ikm, ikm1, ikp, ikp1 inside it, distinct (pack_tables
@@ -1347,6 +1503,59 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
           fldk[tp1] = of[4] + (w(9) * a[8] + w(10) * a[9]);
         }
       }
+#ifdef IMPLSCH_WIDE
+      // the directions past the first group: the same update, the
+      // directions k − s found here
+      for (int k = lane + GRP; k < nang; k += RL) {
+        const int v1 = wrap(k - s1 + nang, nang);
+        const int v11 = wrap(k - s11 + nang, nang);
+        const int v2 = wrap(k - s2 + nang, nang);
+        const int v21 = wrap(k - s21 + nang, nang);
+        float* slk = W.sl + k * nfp;
+        float* fldk = W.fld + k * nfp;
+        float os[5], of[5], a[10];
+        os[0] = c0 ? slk[j] : 0.f;
+        of[0] = c0 ? fldk[j] : 0.f;
+        os[1] = cm ? slk[tm] : 0.f;
+        of[1] = cm ? fldk[tm] : 0.f;
+        os[2] = cm1 ? slk[tm1] : 0.f;
+        of[2] = cm1 ? fldk[tm1] : 0.f;
+        os[3] = cp ? slk[tp] : 0.f;
+        of[3] = cp ? fldk[tp] : 0.f;
+        os[4] = cp1 ? slk[tp1] : 0.f;
+        of[4] = cp1 ? fldk[tp1] : 0.f;
+        a[0] = ad[k];
+        a[1] = delad[k];
+        a[2] = ad[v2];
+        a[3] = ad[v21];
+        a[4] = delam[v2];
+        a[5] = delam[v21];
+        a[6] = ad[v1];
+        a[7] = ad[v11];
+        a[8] = delap[v1];
+        a[9] = delap[v11];
+        if (c0) {
+          slk[j] = os[0] + -2.f * a[0];
+          fldk[j] = of[0] + -2.f * a[1];
+        }
+        if (cm) {
+          slk[tm] = os[1] + (w(20) * a[2] + w(19) * a[3]);
+          fldk[tm] = of[1] + (w(23) * a[4] + w(24) * a[5]);
+        }
+        if (cm1) {
+          slk[tm1] = os[2] + (w(17) * a[2] + w(18) * a[3]);
+          fldk[tm1] = of[2] + (w(21) * a[4] + w(22) * a[5]);
+        }
+        if (cp) {
+          slk[tp] = os[3] + (w(8) * a[6] + w(7) * a[7]);
+          fldk[tp] = of[3] + (w(11) * a[8] + w(12) * a[9]);
+        }
+        if (cp1) {
+          slk[tp1] = os[4] + (w(5) * a[6] + w(6) * a[7]);
+          fldk[tp1] = of[4] + (w(9) * a[8] + w(10) * a[9]);
+        }
+      }
+#endif
       __syncwarp();
     }
   }
@@ -1390,6 +1599,11 @@ __device__ __forceinline__ void sinput_jan(const Tabs& T, const Work& W, int lan
     const float cnsn = (zp * P[P_CONST1]) * ((zp * zp) / (P[P_G] * wav))
         * raorw;
     const float zcn = logf(wav * z0m);
+#ifdef IMPLSCH_WIDE
+    float gnv[NG];                             // LLNORMAGAM's factors
+#pragma unroll
+    for (int g = 0; g < NG; ++g) gnv[g] = 1.f;
+#endif
     float u1[KPL], u2[KPL], xll[KPL];
 #pragma unroll
     for (int q = 0; q < KPL; ++q) u1[q] = u2[q] = xll[q] = 0.f;
@@ -1419,11 +1633,27 @@ __device__ __forceinline__ void sinput_jan(const Tabs& T, const Work& W, int lan
           s2 += gf * W.sin2[k];
         }
       }
+#ifdef IMPLSCH_WIDE
+      // the sums' other directions
+      if (normagam) {
+        for (int k = lane + GRP; k < nang; k += RL) {
+          bool active;
+          const float gf = jan_growth(P, us[g] * cim + P[P_ZALP],
+                                      W.cosw[k], zcn, cnsn, active)
+              * W.fl[k * nfp + m];
+          s1 += gf;
+          s2 += gf * W.sin2[k];
+        }
+      }
+#endif
       if (normagam) {
         const float sumf = row_sum(s1), sumfsin2 = row_sum(s2);
         const float znz = cstrnfac * W.xk2cg[m]
             * (1.f / fmaxf(us[g], P[P_EPSUS]));
         const float gn = (1.f + znz * sumfsin2) / (1.f + znz * sumf);
+#ifdef IMPLSCH_WIDE
+        gnv[g] = gn;
+#endif
 #pragma unroll
         for (int q = 0; q < KPL; ++q) gam[q] = gam[q] * gn;
       }
@@ -1438,6 +1668,43 @@ __device__ __forceinline__ void sinput_jan(const Tabs& T, const Work& W, int lan
       }
     }
     float wsp = 0.f, sxp = 0.f, syp = 0.f, spp = 0.f, dph = 0.f;
+#ifdef IMPLSCH_WIDE
+    // the directions past the first group, one a lane: both gusts'
+    // rates and the sources at once (the loops above and below do them
+    // for the group)
+    for (int k = lane + GRP; k < nang; k += RL) {
+      float v1 = 0.f, v2 = 0.f, xl = 0.f;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        if (g == ng) break;
+        const float ucn = us[g] * cim + P[P_ZALP];
+        bool active;
+        const float gam = jan_growth(P, ucn, W.cosw[k], zcn, cnsn, active)
+            * (normagam ? gnv[g] : 1.f);
+        xl = fmaxf(xl, active ? 1.f : 0.f);
+        const float c3u2 = P[P_CONST3] * (ucn * ucn);
+        const float xvd = 1.f / (-us[g] * P[P_XKAPPAD] * zcn * cim);
+        v1 += wsin * gam;
+        if (neg) v2 += wsin * (c3u2 * (W.cosw[k] - xvd));
+      }
+      const int b = k * nfp + m;
+      const float f = W.fl[b];
+      const float fm = v1 + v2 * cnsn;
+      const float sp = v1 * f;
+      if (neg) {
+        W.fld[b] = fm;
+        W.sl[b] = fm * f;
+      }
+      wsp += xl * f;
+      sxp += sp * T.sinth[k];
+      syp += sp * T.costh[k];
+      if (fw) {
+        spp += sp;
+        dph += (fm * f - sp) * T.rhowg[m];
+        if (xl != 0.f) mask_set(xbits, W, T, 0, k, m);
+      }
+    }
+#endif
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
       const int k = lane + RL * q;
@@ -1567,6 +1834,14 @@ __device__ void peak_ang(const Tabs& T, const Work& W, int lane, float& xnu,
       pc += T.costh[k] * f;
       pf += f;
     }
+#ifdef IMPLSCH_WIDE
+    for (int k = lane + GRP; k < nang; k += RL) {
+      const float f = W.fl[k * nfp + mm];
+      ps += T.sinth[k] * f;
+      pc += T.costh[k] * f;
+      pf += f;
+    }
+#endif
     ps = row_sum(ps);
     pc = row_sum(pc);
     pf = row_sum(pf);
@@ -1584,6 +1859,12 @@ __device__ void peak_ang(const Tabs& T, const Work& W, int lane, float& xnu,
       const float h = sinf(0.5f * (T.th[k] - thm));
       pd += 2.f * h * h * W.fl[k * nfp + mm];
     }
+#ifdef IMPLSCH_WIDE
+    for (int k = lane + GRP; k < nang; k += RL) {
+      const float h = sinf(0.5f * (T.th[k] - thm));
+      pd += 2.f * h * h * W.fl[k * nfp + mm];
+    }
+#endif
     pd = row_sum(pd);
     if (in) d += pd * T.dfim[mm];
   }
@@ -2247,21 +2528,41 @@ __device__ __forceinline__ void row_step(
                 (float)((xbits[q] >> m) & 1ull);
         }
       }
+#ifdef IMPLSCH_WIDE
+      for (int k = lane + GRP; k < nang; k += RL)
+        for (int m = 0; m < nfre; ++m)
+          xllws[(long)(k * nfre + m) * nrows + p] = (float)(
+              (mask_at(W, T)[k * mask_words(nfre) + (m >> 5)] >> (m & 31))
+              & 1u);
+#endif
     }
   }
   __syncwarp();                                // W is the next row's
 }
 
+#ifdef IMPLSCH_WIDE
+// W's floats in the staged tables (SDISSIP's saturation weights, nang²):
+// up to GRP directions; past them W is read from global memory through
+// the cache
+__host__ __device__ __forceinline__ int staged_w(int nang) {
+  return nang <= GRP ? nang * nang : 0;
+}
+#define STAGED_W(nang) staged_w(nang)
+#else
+#define STAGED_W(nang) nang * nang
+#endif
+
 // Each block's copy of the tables its inner loops read, in shared memory
 // from ``s``: the parameter block with the per-frequency and per-direction
-// tables and W (contiguous in the packed array), the tail-integral
-// weights, the DIA weights, (OPTS) the gc tables, and the DIA index
-// tables; then the bin walk's constants.  Every thread of the block takes
-// part; it returns the tables pointed there
+// tables and W (contiguous in the packed array; in the wide build only
+// while it is staged, STAGED_W), the
+// tail-integral weights, the DIA weights, (OPTS) the gc tables, and the
+// DIA index tables; then the bin walk's constants.  Every thread of the
+// block takes part; it returns the tables pointed there
 template <bool OPTS>
 __host__ __device__ __forceinline__ int table_floats(int nang, int nfre,
                                                      int mlsthg, int nwav) {
-  const int n = NPAR + NFREQTAB * nfre + 3 * nang + nang * nang + JTOT
+  const int n = NPAR + NFREQTAB * nfre + 3 * nang + STAGED_W(nang) + JTOT
       + 26 * mlsthg + (OPTS ? NGCSTAGE * nwav : 0) + 9 * mlsthg + 8;
   return (n + 31) & ~31;
 }
@@ -2274,7 +2575,7 @@ __device__ Tabs stage_tables(const Tabs& G, float* s) {
     for (int i = tid; i < n; i += nth) d[i] = g[i];
   };
   Tabs T = G;
-  const int n1 = NPAR + NFREQTAB * nfre + 3 * nang + nang * nang;
+  const int n1 = NPAR + NFREQTAB * nfre + 3 * nang + STAGED_W(nang);
   copy(s, G.par, n1);
   auto at = [&](const float* g) { return s + (g - G.par); };
   T.par = s;
@@ -2284,7 +2585,11 @@ __device__ Tabs stage_tables(const Tabs& G, float* s) {
   T.dfimsim = at(G.dfimsim); T.fr45 = at(G.fr45);
   T.dfimfr2 = at(G.dfimfr2);
   T.th = at(G.th); T.sinth = at(G.sinth); T.costh = at(G.costh);
+#ifdef IMPLSCH_WIDE
+  T.wmat = staged_w(nang) ? at(G.wmat) : G.wmat;
+#else
   T.wmat = at(G.wmat);
+#endif
   float* q = s + n1;
   copy(q, G.wtauhf, JTOT);
   T.wtauhf = q;
@@ -2412,7 +2717,8 @@ extern "C" int implsch_launch(
     float* out, float* xllws, const float* tab, const int* itab, int nrows,
     int nang, int nfre, int nfr, int nred, int mlsthg, int niab, int nwav,
     int opts, void* stream) {
-  if (nang > RL * KPL || nang < 1 || nfre < 1 || nfr < 1 || nfr > nfre
+  if ((!WIDE && nang > RL * KPL) || nang < 1 || nfre < 1 || nfr < 1
+      || nfr > nfre
       || nred < 1 || nred > nfre || (full && !WIDE && nfre > 64)
       || nwav < 2 || (nfr < nfre && (!tin || !tout)))
     return (int)cudaErrorInvalidValue;

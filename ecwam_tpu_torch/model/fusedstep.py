@@ -92,29 +92,37 @@ def full_chunked_rows(cfg, tb, f_srl, tail, scal_all, env2d, *,
 
 class FusedPropagation:
     """Static tables of the fused step for one domain, on the setup's
-    device."""
+    device.
 
-    def __init__(self, setup, *, plain: bool = False):
+    ``ft``/``fused_env`` give another domain's tables in place of the
+    setup's (a shard of :mod:`ecwam_tpu_torch.parallel.sharded`: its
+    ``srl_src`` indexes the setup's compact points, its ``from_srl`` each
+    of its ``npts`` layout slots), ``device`` another device."""
+
+    def __init__(self, setup, *, plain: bool = False, ft=None,
+                 fused_env: dict | None = None, device=None):
         self.setup = setup
-        self.ft = ft = setup.fused
+        self.ft = ft = setup.fused if ft is None else ft
         self.plain = plain
         tb = setup.tb
         self.nang, self.nfre_red = tb.nang, tb.nfre_red
         self.L = self.nang * self.nfre_red
         self.LT = self.nang * (tb.nfre - tb.nfre_red)
-        dt, device = setup.dtype, setup.device
+        dt = setup.dtype
+        device = setup.device if device is None else torch.device(device)
         self.dtype, self.device = dt, device
 
         def t(a):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-        fe = setup.fused_env
+        fe = setup.fused_env if fused_env is None else fused_env
         tabs = pfz.device_tables(ft, dt, device)
         tabs.update(cg_srl=t(fe["cg_srl"]), cg_land=t(fe["cg_land"]))
         tabs.update(prb.kernel_tables(prb.rebase(ft), dt, device))
         if setup.irefra:
             tabs["pf"] = t(fe["pf"])
         fs = np.asarray(ft.from_srl)
-        pad = np.full(setup.n_pad - ft.npts, fs[0] if fs.size else 0)
+        n_out = setup.n_pad if ft is setup.fused else ft.npts
+        pad = np.full(n_out - ft.npts, fs[0] if fs.size else 0)
         self.from_srl_pad = torch.as_tensor(np.concatenate([fs, pad]),
                                             dtype=torch.int64, device=device)
 
@@ -415,6 +423,13 @@ class FusedPropagation:
                   EW=self.ft.EW, irefra=self.setup.irefra, nw=nw,
                   with_cfl=with_cfl)
 
+    def advect_pass(self, f_srl, i: int):
+        """Pass ``i`` of an advection step (0: all bands, then the nsub−1
+        fast-wave sub-band passes) on ``f_srl`` with its wraps fresh."""
+        if i == 0:
+            return self._pass(f_srl, self.nfre_red, self.lc)
+        return self._pass(f_srl, self.mlf_w, self.lc_lo, nw=self.mlf)
+
     def _substeps(self, f_srl):
         """Main all-band pass + the extra fast-wave sub-band passes.
 
@@ -424,10 +439,10 @@ class FusedPropagation:
         before each sub-band pass, so the wrap rows of the high band hold
         copies rather than zeros afterwards; nothing reads them before the
         next step's refresh."""
-        f_srl = self._pass(f_srl, self.nfre_red, self.lc)
-        for _ in range(self.nsub - 1):
+        f_srl = self.advect_pass(f_srl, 0)
+        for i in range(1, self.nsub):
             f_srl = pfz.refresh_wraps(f_srl, self.tabs)
-            f_srl = self._pass(f_srl, self.mlf_w, self.lc_lo, nw=self.mlf)
+            f_srl = self.advect_pass(f_srl, i)
         return f_srl
 
 

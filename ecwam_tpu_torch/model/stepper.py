@@ -51,14 +51,16 @@ def _with_land(f):
     return torch.cat([f, f.new_zeros(f.shape[:-1] + (1,))], dim=-1)
 
 
-def _refraction(setup, wenv) -> dict:
+def _refraction(setup, wenv, stencil=None) -> dict:
     """PROPDOT's rates and the refraction inputs of CTUW, or {} without
-    refraction."""
+    refraction; ``stencil`` (numpy) is the domain's, the setup's by
+    default."""
     if not setup.irefra:
         return {}
     nfr = setup.tb.nfre_red
     thdd, thdc, sdot = prop.propdot(
-        setup.stencil, setup.tb, wenv["wavnum_ext"][:nfr],
+        setup.stencil if stencil is None else stencil, setup.tb,
+        wenv["wavnum_ext"][:nfr],
         wenv["cgroup_ext"][:nfr], wenv["omosnh2kd_ext"][:nfr],
         wenv["depth_ext"], wenv["ucur_ext"], wenv["vcur_ext"], setup.irefra)
     return dict(thdd=thdd, thdc=thdc, sdot=sdot,
@@ -93,7 +95,8 @@ def _band_weights(setup, st, cg_ext, refr, m0, m1, delpro, *,
     time into one preallocated (n_slots, nang, m1−m0, n) tensor (or, with
     ``keep`` false, only their CFL mask: each block is dropped)."""
     w = (torch.empty((prop.n_slots(setup.irefra), setup.tb.nang, m1 - m0,
-                      setup.n_pad), dtype=setup.dtype, device=setup.device)
+                      st["klon"].shape[0]), dtype=setup.dtype,
+                     device=cg_ext.device)
          if keep else None)
     fail = None
     for b0 in range(m0, m1, block):
@@ -106,12 +109,14 @@ def _band_weights(setup, st, cg_ext, refr, m0, m1, delpro, *,
     return prop.weight_views(w, m0, m1, fail) if keep else fail
 
 
-def _compute_weights(setup, st, cg_ext, wenv):
+def _compute_weights(setup, st, cg_ext, wenv, stencil=None):
     """CTUWUPDT equivalent (ctuwupdt.F90:185-215): the weights of each
     band (:func:`_bands`).  With current refraction a CFL failure triggers
     the reference's retry with the current terms dropped at the failing
-    points (ctuw.F90:114-123); the first pass keeps only its mask."""
-    refr = _refraction(setup, wenv)
+    points (ctuw.F90:114-123); the first pass keeps only its mask.
+    ``st``/``cg_ext``/``wenv`` are the domain's tensors over its ext
+    layout, ``stencil`` its numpy tables (the setup's by default)."""
+    refr = _refraction(setup, wenv, stencil)
     bands = _bands(setup)
     if setup.irefra in (2, 3):
         fail = None
@@ -215,27 +220,30 @@ def physics_env(setup) -> torch.Tensor:
     return torch.cat([setup.env[k] for k in ipk.ENV_FIELDS]).contiguous()
 
 
-def physics_scal(setup, frc: dict, stress: dict) -> torch.Tensor:
-    """The (14, n_pad) SCAL_IN rows: forcing (absent fields zero), depth
-    and emaxdpt, the stress state."""
+def physics_scal(setup, frc: dict, stress: dict,
+                 env: dict | None = None) -> torch.Tensor:
+    """The (14, n) SCAL_IN rows: forcing (absent fields zero), depth
+    and emaxdpt (of ``env``, the setup's by default), the stress state."""
+    env = setup.env if env is None else env
     zero = torch.zeros_like(frc["wswave"])
     rows = [frc.get(k, zero) for k in ipk.SCAL_IN[:ipk.N_FRC]]
-    rows += [setup.env["depth"], setup.env["emaxdpt"]]
+    rows += [env["depth"], env["emaxdpt"]]
     rows += [stress[k] for k in ipk.STRESS_KEYS]
     return torch.stack([r.to(setup.dtype) for r in rows])
 
 
 def _chunked_implsch(setup, fl1, env2d, frc, stress, *, plain: bool,
-                     tables):
+                     tables, env: dict | None = None):
     """One full-mode physics step on ``fl1`` in place (on a contiguous copy
     if it is not), over NPROMA chunks of ``phys_chunk`` points
     (mchunk.F90:44-45) where that divides the point axis (else in one
     piece), each chunk a view of the spectrum.  Returns (fl1, state): the
     SCAL_OUT_FULL rows as fields (and under u* ``wswave``) plus the
-    windsea mask ``xllws``."""
+    windsea mask ``xllws``.  ``env`` holds the domain's depth/emaxdpt
+    (the setup's by default)."""
     cfg = setup.phys
     fl1 = fl1.contiguous()
-    scal = physics_scal(setup, frc, stress)
+    scal = physics_scal(setup, frc, stress, env)
     n = fl1.shape[-1]
     C = setup.phys_chunk
     if not C or n % C != 0 or n == C:

@@ -143,9 +143,16 @@ LSTRN_BIT = 1 << OPT_FLAGS.index("lstrn")
 MODE_BITS = LSTRN_BIT | sum(1 << OPT_FLAGS.index(f) for f in (
     "no_lcflx", "no_lstokes", "no_lwvflx_snl"))
 # the default build takes nang <= KPL_DEFAULT·32 (and full mode nfre <=
-# 64), the wide build nang <= MAX_NANG and any nfre
-KPL_DEFAULT, MAX_NANG = 2, 128
+# 64), the wide build any nang and nfre whose row and tables fit one
+# block's shared memory (shared_bytes <= SMEM_BLOCK)
+KPL_DEFAULT = 2
 WIDE_LIB = "implsch_wide"
+# the shared memory one block may opt in to on the H100 (227 KB)
+SMEM_BLOCK = 232448
+# csrc/implsch.cu's table and row constants: the per-frequency tables
+# (FreqTab), the tail-integral nodes, the gc tables staged (NGCSTAGE) and
+# the directions whose W is staged (GRP of the wide build)
+NFREQTAB, JTOT, NGCSTAGE, GRP_WIDE = 12, 19, 5, 128
 # gravity-capillary tables the kernel reads, NWAV values each, in the
 # order of csrc/implsch.cu's GcTab enum
 GC_TABLES = ("logxk", "cm", "om3gmkm", "xkmsqrtvgoc2", "delkcc_omxkm3",
@@ -221,18 +228,52 @@ def library(cfg: impl.PhysicsConfig, full: bool,
         "_compact" if compact else "")
 
 
+def shared_bytes(cfg: impl.PhysicsConfig, full: bool = False) -> int:
+    """Bytes of shared memory a block of the kernel needs for its tables
+    and one row: csrc/implsch.cu's ``table_floats`` + ``row_floats`` for
+    the build :func:`library` picks and the instantiation the options
+    pick (OPTS stages the gc tables; EXT's LWVFLX_SNL off keeps three
+    more sums a row)."""
+    tb = cfg.tables
+    nang, nfre = tb.nang, tb.nfre
+    ml = int(cfg.dia.mlsthg)
+    wide = library(cfg, full) == WIDE_LIB
+    bits = option_bits(cfg, full)
+    opts = bool(bits & ~UST_BIT)
+    pre = bool(full and bits & (1 << OPT_FLAGS.index("no_lwvflx_snl")))
+
+    def up32(n):
+        return (n + 31) & ~31
+    staged_w = nang * nang if not wide or nang <= GRP_WIDE else 0
+    table = up32(len(PAR_NAMES) + NFREQTAB * nfre + 3 * nang + staged_w
+                 + JTOT + 26 * ml
+                 + (NGCSTAGE * int(gc_mod.gc_tables().nwav) if opts else 0)
+                 + 9 * ml + 8)
+    dx = 4 * nfre if full and nfre > nang else 4 * nang
+    row = (3 * nang * (nfre | 1) + 5 * nfre + max(2 * nfre, ml) + 3 * nang
+           + dx + (nang * ((nfre + 31) >> 5) if full and wide else 0)
+           + (3 * nfre if pre else 0))
+    return 4 * (table + up32(row))
+
+
 def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False, *,
                     compact: bool = False) -> None:
     """Raise for configurations the kernel does not take: u* forcing
     (icode_wnd 1/2) on the SRL entry (the compact one, ``compact``, takes
     it with every option), an unknown ISNONLIN, a WSPMIN other than 1, and
-    more than MAX_NANG directions (a lane holds at most 4)."""
+    a row whose bin arrays and tables do not fit one block's shared
+    memory (:func:`shared_bytes` > SMEM_BLOCK: at 36 frequencies, past
+    461 directions in minimal mode and 453 in full mode, by default)."""
     impl.check_ported(cfg, srl=not compact)
     if cfg.isnonlin not in (0, 1, 2):
         raise ValueError(f"unknown ISNONLIN={cfg.isnonlin}")
-    if cfg.tables.nang > MAX_NANG:
-        raise NotImplementedError(f"the physics kernel takes nang <= "
-                                  f"{MAX_NANG} (ROADMAP)")
+    need = shared_bytes(cfg, full)
+    if need > SMEM_BLOCK:
+        tb = cfg.tables
+        raise NotImplementedError(
+            f"the physics kernel's row of nang={tb.nang} × nfre={tb.nfre} "
+            f"with its tables takes {need} bytes of shared memory; a block "
+            f"holds {SMEM_BLOCK} (ROADMAP C2)")
     if WSPMIN_DEFAULT != 1.0:
         raise NotImplementedError("the physics kernel assumes WSPMIN=1")
 

@@ -5,7 +5,8 @@ originals.
 core.dispersion, core.grid, core.bathy, ops.physics.tables, model.preset,
 io.norms, config.schema, config.namelist, io.outcontrol, io.restart,
 io.waminfo, io.forcing, io.grib, io.gribout, io.multio, io.partition,
-io.outspec, model.tablecache, native}`` are copies of the ``ecwam_tpu``
+io.outspec, model.tablecache, native, parallel.decomp, parallel.decomp2d,
+parallel.fused_shard}`` are copies of the ``ecwam_tpu``
 modules of the same paths (numpy only), kept so that the port imports
 nothing of the JAX package.  Each case must give exactly what its original
 gives on the same inputs (``array_equal``: they run the same numpy code;
@@ -17,6 +18,7 @@ original's where obstructions are given (its own test).
 """
 
 import dataclasses
+import functools
 import os
 import tempfile
 
@@ -45,6 +47,9 @@ from ecwam_tpu.io import waminfo as j_waminfo
 from ecwam_tpu.model import preset as j_preset
 from ecwam_tpu.model import tablecache as j_tablecache
 from ecwam_tpu.ops.physics import tables as j_tables
+from ecwam_tpu.parallel import decomp as j_decomp
+from ecwam_tpu.parallel import decomp2d as j_decomp2d
+from ecwam_tpu.parallel import fused_shard as j_fused_shard
 from ecwam_tpu_torch import native as t_native
 from ecwam_tpu_torch.config import namelist as t_namelist
 from ecwam_tpu_torch.config import schema as t_schema
@@ -67,6 +72,9 @@ from ecwam_tpu_torch.io import waminfo as t_waminfo
 from ecwam_tpu_torch.model import preset as t_preset
 from ecwam_tpu_torch.model import tablecache as t_tablecache
 from ecwam_tpu_torch.ops.physics import tables as t_tables
+from ecwam_tpu_torch.parallel import decomp as t_decomp
+from ecwam_tpu_torch.parallel import decomp2d as t_decomp2d
+from ecwam_tpu_torch.parallel import fused_shard as t_fused_shard
 
 
 def _same(a, b, what="value"):
@@ -111,6 +119,49 @@ def _mstart(preset, sp):
     tb = sp.build_spectral_tables(nang=12, nfre=25)
     return preset.mstart(tb, 6.0 + 6.0 * rng.random(40),
                          rng.random(40) * 2.0 * np.pi)
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_setup():
+    """The 12° aqua grid's padded stencil, SRL tables and rows (the port's
+    build; both packages' copies take the same numpy tables)."""
+    from ecwam_tpu_torch.model import setup as tsetup
+    return tsetup.build_model(grid_name="12.0", nang=12, nfre=25,
+                              nfre_red=20, pad_to=64, device="cpu")
+
+
+def _decomp(m):
+    ms = _shard_setup()
+    rs = np.asarray(ms.blk.row_start)
+    dc = m["decomp"]
+    ss = dc.build_sharded_stencil(ms.stencil, 4, row_start=rs)
+    v = np.arange(3 * ms.n_pad, dtype=np.float64).reshape(3, ms.n_pad)
+    return (dc.row_cuts(rs, ms.n_pad, 4), dc.compute_halo_width(
+        ms.stencil, 4), ss, dc.build_sharded_stencil(ms.stencil, 4),
+        ss.to_layout(v), ss.from_layout(ss.to_layout(v)))
+
+
+def _decomp2d(m):
+    ms = _shard_setup()
+    rs = np.asarray(ms.blk.row_start)
+    d2 = m["decomp2d"]
+    return (d2.assign_shards(ms.n_pad, rs, 2, 2),
+            d2.build_sharded2d_stencil(ms.stencil, 2, 2, rs))
+
+
+def _fused_shard(m):
+    ms = _shard_setup()
+    fs = m["fused_shard"]
+    kxlt = np.asarray(ms.blk.kxlt)
+    ss = t_decomp.build_sharded_stencil(
+        ms.stencil, 3, row_start=np.asarray(ms.blk.row_start))
+    need = fs.required_halo(ms.fused, ss.perm, ss.g2l, ss.shard_size, 3,
+                            kxlt)
+    fst = fs.build_fused_shard_tables(ms.fused, ms.fused_env, ss.perm,
+                                      ss.g2l, ss.shard_size, 3,
+                                      max(need, ss.halo), kxlt)
+    g = np.arange(2 * ms.fused.nsrl, dtype=np.float64).reshape(-1, 2)
+    return need, fst, fs.slice_global_srl(fst, g)
 
 
 def _norms(norms, _):
@@ -372,6 +423,9 @@ BUILDERS = {
     "outspec_grib_and_points": _outspec,
     "partition_sep3tr": _sep3tr,
     "tablecache_save_load_key": _tablecache,
+    "decomp_bands": _decomp,
+    "decomp2d_patches": _decomp2d,
+    "fused_shard_tables": _fused_shard,
 }
 
 JAX_MODULES = dict(c=j_c, sp=j_sp, grid=j_grid, bathy=j_bathy, disp=j_disp,
@@ -381,7 +435,8 @@ JAX_MODULES = dict(c=j_c, sp=j_sp, grid=j_grid, bathy=j_bathy, disp=j_disp,
                    waminfo=j_waminfo, forcing=j_forcing, grib=j_grib,
                    gribout=j_gribout, multio=j_multio, native=j_native,
                    partition=j_partition, tablecache=j_tablecache,
-                   outspec=j_outspec)
+                   outspec=j_outspec, decomp=j_decomp, decomp2d=j_decomp2d,
+                   fused_shard=j_fused_shard)
 PORT_MODULES = dict(c=t_c, sp=t_sp, grid=t_grid, bathy=t_bathy, disp=t_disp,
                     pp=t_pp, tables=t_tables, preset=t_preset, norms=t_norms,
                     schema=t_schema, namelist=t_namelist,
@@ -389,7 +444,8 @@ PORT_MODULES = dict(c=t_c, sp=t_sp, grid=t_grid, bathy=t_bathy, disp=t_disp,
                     waminfo=t_waminfo, forcing=t_forcing, grib=t_grib,
                     gribout=t_gribout, multio=t_multio, native=t_native,
                     partition=t_partition, tablecache=t_tablecache,
-                    outspec=t_outspec)
+                    outspec=t_outspec, decomp=t_decomp, decomp2d=t_decomp2d,
+                    fused_shard=t_fused_shard)
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))

@@ -532,3 +532,50 @@ def test_compact_chunk_views_match_the_whole_field_on_card(cuda):
     with pytest.raises(ValueError):               # a view needs its out
         ipk.implsch_compact(ms.phys, fl1[..., :c], env2d[:, :c].contiguous(),
                             scal[:, :c].contiguous(), full=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nang,full", [(136, False), (144, False),
+                                       (144, True), (256, False),
+                                       (256, True)])
+def test_wide_kernel_past_128_directions_on_card(cuda, nang, full):
+    """Kernel B's wide build past 128 directions (its further passes of
+    the directions, W from global memory) against plain on the golden
+    grid, one step in each mode."""
+    kw = dict(golden_kw(), nang=nang)
+    if full:
+        r = full_kernel_vs_plain(kw, cuda, width=MASK_WIDTH)
+        assert r["spec"] <= PHYS_TOL
+        for key, e in r["rows"].items():
+            assert e <= FULL_ROW_TOL, key
+        assert r["off_edge"] == 0 and r["xllws"] <= XLLWS_SHARE * r["bins"]
+    else:
+        spec, stress, _ = physics_kernel_vs_plain(kw, cuda)
+        assert spec <= PHYS_TOL and stress <= STRESS_TOL
+
+
+@pytest.mark.gpu
+def test_advect_past_128_directions_on_card(cuda):
+    """Kernel A at 144 directions (36 bands of four) against plain on the
+    golden grid: a pass and a sub-band pass."""
+    a = cases.advect_kernel_vs_plain(dict(golden_kw(), nang=144), cuda)
+    assert a["main"] <= ADVECT_TOL and (a["sub"] or 0.0) <= ADVECT_TOL
+
+
+@pytest.mark.gpu
+def test_sharded_phase_on_card(cuda):
+    """chip_smoke's phase 12 at O24 36×20/16 on the card: the sharded
+    fused model on 2 and 4 shards of one card bit for bit against
+    FastWaveModel with kernels A and B launched k × passes and k ×
+    physics steps; the cached model in patches and bands through kernel
+    C; NCCL at world size 1; kernel B at 144 directions."""
+    import chip_smoke
+    out = chip_smoke.sharded_phase(
+        cuda, over=dict(grid_name="O24", nfre=20, nfre_red=16, pad_to=64))
+    for k in chip_smoke.SHARD_COUNTS:
+        assert out["fused"][k]["bit_for_bit"], k
+    for name, r in out["cached"].items():
+        assert r["launches"] == 16, name
+    assert out["nccl"]["rel"] <= 1e-12
+    for mode in ("minimal", "full"):
+        assert out["wide"][mode]["n_off"] == 0

@@ -49,7 +49,12 @@ def test_every_module_imports_with_jax_blocked():
             "ecwam_tpu_torch.ops.secondorder",
             "ecwam_tpu_torch.coupling", "ecwam_tpu_torch.model.nesting",
             "ecwam_tpu_torch.model.assimilation",
-            "ecwam_tpu_torch.io.outspec"} <= set(mods)
+            "ecwam_tpu_torch.io.outspec",
+            "ecwam_tpu_torch.parallel.decomp",
+            "ecwam_tpu_torch.parallel.decomp2d",
+            "ecwam_tpu_torch.parallel.fused_shard",
+            "ecwam_tpu_torch.parallel.multihost",
+            "ecwam_tpu_torch.parallel.sharded"} <= set(mods)
     code = ("import sys, importlib; sys.modules['jax'] = None\n"
             "sys.modules['ecwam_tpu'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -51,6 +51,7 @@ SHAPES = {
     "ustar1_cy50r1": (12, 25, 48, dict(CY50R1[0], icode_wnd=1), CY50R1[1]),
     "ustar2_cy50r1": (12, 25, 48, dict(CY50R1[0], icode_wnd=2), CY50R1[1]),
     "nang72": (72, 25, 128, {}, {}),
+    "nang144": (144, 25, 64, {}, {}),
     "no_lcflx": (12, 25, 48, dict(lcflx=False), {}),
     "no_lstokes": (12, 25, 48, dict(lstokes=False), {}),
     "no_lwvflx_snl": (12, 25, 48, dict(lwvflx_snl=False), {}),
@@ -143,6 +144,16 @@ def test_ustar_with_options_matches_reference_f64(name, full):
         t_ipk.out_keys(cfg, full))
     with pytest.raises(NotImplementedError, match="icode_wnd"):
         t_ipk.kernel_supports(cfg, full)             # the SRL entry
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_144_directions_match_reference_f64(full):
+    """Past 128 directions (the wide build's further passes): the plain
+    chain against the reference's, float64 rtol 1e-10."""
+    cfg = _accepted("nang144", full)
+    t_ipk.kernel_supports(cfg, full)                 # the SRL entry too
+    assert t_ipk.library(cfg, full) == t_ipk.WIDE_LIB
+    _same_f64("nang144", full)
 
 
 @pytest.mark.parametrize("full", [False, True])
@@ -263,19 +274,39 @@ def test_remaining_refusals():
     with pytest.raises(ValueError, match="ISNONLIN"):
         t_ipk.kernel_supports(dataclasses.replace(p.ct, isnonlin=3),
                               compact=True)
-    tb = t_tables(nang=136, nfre=12)
-    with pytest.raises(NotImplementedError, match="nang <= 128"):
-        t_ipk.kernel_supports(t_impl.make_physics_config(
-            tb, t_pp.set_phys_params(iphys=1, nang=136), idelt=900.0))
-    # every other configuration of this file, and 128 directions, pass
+    # every other configuration of this file, and 128, 136, 144 and 256
+    # directions, pass (the wide build walks the directions past 128 in
+    # further passes); the row's bytes of shared memory are the limit
     for name in SHAPES:
         if not name.startswith("ustar"):
             t_ipk.kernel_supports(_problem(name).ct, True)
-    tb = t_tables(nang=128, nfre=12)
-    cfg = t_impl.make_physics_config(
-        tb, t_pp.set_phys_params(iphys=1, nang=128), idelt=900.0)
-    t_ipk.kernel_supports(cfg, True)
-    assert t_ipk.library(cfg, False) == t_ipk.WIDE_LIB
+
+    def cfg_of(nang, nfre=36):
+        return t_impl.make_physics_config(
+            t_tables(nang=nang, nfre=nfre),
+            t_pp.set_phys_params(iphys=1, nang=nang), idelt=900.0)
+    for nang in (128, 136, 144, 256):
+        cfg = cfg_of(nang)
+        for full in (False, True):
+            t_ipk.kernel_supports(cfg if full else t_ipk.minimal_config(cfg),
+                                  full)
+            t_ipk.kernel_supports(cfg, full, compact=True)
+            assert t_ipk.library(cfg, full) == t_ipk.WIDE_LIB
+    # at 36 frequencies the block's 227 KB hold 461 directions' row and
+    # tables in minimal mode and 453 in full mode (the windsea mask and
+    # the flux sums); one more is refused by its bytes
+    for nang, full in ((461, False), (453, True)):
+        cfg = cfg_of(nang)
+        cfg = cfg if full else t_ipk.minimal_config(cfg)
+        t_ipk.kernel_supports(cfg, full)
+        assert t_ipk.shared_bytes(cfg, full) <= t_ipk.SMEM_BLOCK
+        big = cfg_of(nang + 1)
+        big = big if full else t_ipk.minimal_config(big)
+        need = t_ipk.shared_bytes(big, full)
+        assert need > t_ipk.SMEM_BLOCK
+        with pytest.raises(NotImplementedError,
+                           match=f"takes {need} bytes of shared memory"):
+            t_ipk.kernel_supports(big, full)
 
 
 def test_every_build_the_wrapper_picks_is_built():

@@ -267,8 +267,9 @@ def test_unported_physics_options_raise(prob):
         t_impl.check_ported(c)
         t_ipk.kernel_supports(c, full=True)
         t_ipk.kernel_supports(t_ipk.minimal_config(c))
-    # up to 128 directions (the wide build), any frequency count; an
-    # unknown ISNONLIN and more directions stay refused
+    # the wide build: more than 64 directions, any frequency count, past
+    # 128 directions too; an unknown ISNONLIN and a row past the block's
+    # shared memory stay refused
     tb72 = build_spectral_tables(nang=72, nfre=prob.tb.nfre)
     c72 = t_impl.make_physics_config(
         tb72, t_pp.set_phys_params(iphys=1, nang=72), idelt=900.0)
@@ -277,8 +278,11 @@ def test_unported_physics_options_raise(prob):
     assert t_ipk.library(t_impl.make_physics_config(
         prob.tb, prob.params, idelt=900.0), True) == "implsch"
     tb130 = build_spectral_tables(nang=130, nfre=prob.tb.nfre)
-    with pytest.raises(NotImplementedError, match="nang"):
+    t_ipk.kernel_supports(t_impl.make_physics_config(
+        tb130, t_pp.set_phys_params(iphys=1, nang=130), idelt=900.0))
+    tb800 = build_spectral_tables(nang=800, nfre=prob.tb.nfre)
+    with pytest.raises(NotImplementedError, match="nang=800"):
         t_ipk.kernel_supports(t_impl.make_physics_config(
-            tb130, t_pp.set_phys_params(iphys=1, nang=130), idelt=900.0))
+            tb800, t_pp.set_phys_params(iphys=1, nang=800), idelt=900.0))
     with pytest.raises(ValueError, match="ISNONLIN"):
         t_ipk.kernel_supports(dataclasses.replace(c72, isnonlin=3))
