@@ -15,6 +15,7 @@ Usage:
   python -m ecwam_tpu_torch preproc --config cfg.yml --rundir RUN
   python -m ecwam_tpu_torch preset  --config cfg.yml --rundir RUN [--swell]
   python -m ecwam_tpu_torch run     --config cfg.yml --rundir RUN [--validate]
+                                    [--trace FILE]
   python -m ecwam_tpu_torch validate --config cfg.yml --rundir RUN
   python -m ecwam_tpu_torch info
 
@@ -35,7 +36,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
-import dataclasses
 import datetime as _dt
 import json
 import os
@@ -239,25 +239,41 @@ def cmd_preset(args):
     return 0
 
 
-@dataclasses.dataclass
+def _seconds(key: str):
+    return property(lambda self: self.tallies[key].seconds,
+                    doc=f"seconds of the {key} spans")
+
+
 class OutputTimers:
-    """Where an output date's time goes, seconds of host clock around
-    synchronised device work (outside the full-mode physics step, which
-    the model's StepTimers count): the catalog, the second-order
-    correction, the device-to-host copy of the fields, and the
-    statistics/GRIB/FDB write; the restarts written; with nesting, the
-    fine rim's writes (one an advection step) and the coarse boundary
-    records (one an output date)."""
-    products: float = 0.0
-    secondorder: float = 0.0
-    d2h: float = 0.0
-    write: float = 0.0
-    dates: int = 0
-    restart: float = 0.0
-    restarts: int = 0
-    rim: float = 0.0
-    rims: int = 0
-    boundary: float = 0.0
+    """Where an output date's time goes (outside the full-mode physics
+    step, which the model's StepTimers count), the seconds of the run
+    loop's spans: device time between CUDA events on the card (never
+    waited on while running), host time on the CPU and for the host's
+    own work.  The catalog (``output.products``, less the second-order
+    correction inside it), the second-order correction
+    (``output.secondorder``), the device-to-host copy of the fields
+    (``output.d2h``), and the statistics/GRIB/FDB write (``output.write``,
+    host); the restarts written (``restart``, host); with nesting, the
+    fine rim's writes (``rim``, one an advection step) and the coarse
+    boundary records (``boundary``, one an output date)."""
+
+    secondorder = _seconds("secondorder")
+    d2h = _seconds("d2h")
+    write = _seconds("write")
+    restart = _seconds("restart")
+    rim = _seconds("rim")
+    boundary = _seconds("boundary")
+
+    def __init__(self):
+        from ecwam_tpu_torch.tracing import Tally
+        self.tallies = {k: Tally() for k in (
+            "products", "secondorder", "d2h", "write", "restart", "rim",
+            "boundary")}
+        self.dates = self.restarts = self.rims = 0
+
+    @property
+    def products(self) -> float:
+        return self.tallies["products"].seconds - self.secondorder
 
 
 def _refuse_unported(cfg: RunConfig, names) -> None:
@@ -311,7 +327,6 @@ def run_model(cfg: RunConfig, rundir: str, *, dtype=None, quiet=False,
 def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
                timers):
     import torch
-    from ecwam_tpu_torch.device import synchronize
     from ecwam_tpu_torch.io import norms as norms_mod
     from ecwam_tpu_torch.io import outcontrol
     from ecwam_tpu_torch.io import products as products_mod
@@ -319,6 +334,7 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
     from ecwam_tpu_torch.model import driver as driver_mod
     from ecwam_tpu_torch.model import nesting as nesting_mod
     from ecwam_tpu_torch.model.setup import pad_point_field
+    from ecwam_tpu_torch.tracing import span
 
     names = cfg.output_fields.names if cfg.output_fields else ("swh",)
     _refuse_unported(cfg, names)
@@ -405,20 +421,17 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
             print(f"[ecwave] fine nesting: {fine_tab.idx.size} rim "
                   f"points from {path} (MBOUNF)")
 
+    tal = timers.tallies
+
     def write_rim(date):
-        synchronize(dev)
-        t0 = time.perf_counter()
-        model.put_points(fine_tab.idx, nesting_mod.boundary_spectra(
-            bc_file, fine_tab, _fmt14(date)))
-        synchronize(dev)
-        timers.rim += time.perf_counter() - t0
+        with span("rim", dev, (tal["rim"],)):
+            model.put_points(fine_tab.idx, nesting_mod.boundary_spectra(
+                bc_file, fine_tab, _fmt14(date)))
         timers.rims += 1
 
     def add_boundary(date):
-        t0 = time.perf_counter()
-        bc_writer.add(_fmt14(date), model.take_points(bc_writer.cb.idx))
-        synchronize(dev)
-        timers.boundary += time.perf_counter() - t0
+        with span("boundary", dev, (tal["boundary"],)):
+            bc_writer.add(_fmt14(date), model.take_points(bc_writer.cb.idx))
 
     out_dates = set(cfg.output_dates())
     frc_dates = set(cfg.forcing_dates())
@@ -463,14 +476,10 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
         so_dev = so_mod.device_tables(so_tables, ms.env["depth"])
 
         def so_correct(fl, wavnum, depth):
-            synchronize(dev)
-            t0 = time.perf_counter()
-            out = so_mod.cal_second_order_spec(fl, wavnum, depth, ms.tb,
-                                               so_tables, sig=1.0,
-                                               tabs=so_dev)
-            synchronize(dev)
-            timers.secondorder += time.perf_counter() - t0
-            return out
+            with span("output.secondorder", dev, (tal["secondorder"],)):
+                return so_mod.cal_second_order_spec(
+                    fl, wavnum, depth, ms.tb, so_tables, sig=1.0,
+                    tabs=so_dev)
 
     # output-path point blocking: above this size the compact spectrum
     # is pulled per chunk (outblock.F90's NPROMA role) — the whole
@@ -481,36 +490,37 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
     def do_output(date):
         d14 = _fmt14(date)
         state = {**model.state, **model.stress}
-        synchronize(dev)
-        t0 = time.perf_counter()
-        so_before = timers.secondorder
-        if fast and ms.n_pad > chunk_threshold:
-            so_fn = None
-            if so_correct is not None:
-                def so_fn(fl, env_c):
-                    return so_correct(fl, env_c["wavnum"], env_c["depth"])
-            fields = products_mod.compute_chunked(
-                known, model.fl1_chunk, ms.n_pad, ms.tb, state, model.frc,
-                ms.phys.params, env=ms.env,
-                llgcbz0=ms.phys.params.llgcbz0, so_correct=so_fn)
-        else:
-            fl_out = model.fl1
-            if so_correct is not None:
-                fl_out = so_correct(fl_out, ms.env["wavnum"],
-                                    ms.env["depth"])
-            fields = products_mod.compute(
-                known, fl_out, ms.tb, state, model.frc, ms.phys.params,
-                env=ms.env, llgcbz0=ms.phys.params.llgcbz0)
-        synchronize(dev)
-        t1 = time.perf_counter()
-        timers.products += (t1 - t0) - (timers.secondorder - so_before)
-        stacked = torch.stack([fields[n][: ms.n_real].to(ms.dtype)
-                               for n in known]) if known else None
-        host_all = _host(stacked) if known else None
-        host = {n: host_all[i] for i, n in enumerate(known)}
-        cicover = _host(model.frc["cicover"])[: ms.n_real]
-        t2 = time.perf_counter()
-        timers.d2h += t2 - t1
+        # the second-order correction runs inside the products' span
+        with span("output.products", dev, (tal["products"],)):
+            if fast and ms.n_pad > chunk_threshold:
+                so_fn = None
+                if so_correct is not None:
+                    def so_fn(fl, env_c):
+                        return so_correct(fl, env_c["wavnum"],
+                                          env_c["depth"])
+                fields = products_mod.compute_chunked(
+                    known, model.fl1_chunk, ms.n_pad, ms.tb, state,
+                    model.frc, ms.phys.params, env=ms.env,
+                    llgcbz0=ms.phys.params.llgcbz0, so_correct=so_fn)
+            else:
+                fl_out = model.fl1
+                if so_correct is not None:
+                    fl_out = so_correct(fl_out, ms.env["wavnum"],
+                                        ms.env["depth"])
+                fields = products_mod.compute(
+                    known, fl_out, ms.tb, state, model.frc, ms.phys.params,
+                    env=ms.env, llgcbz0=ms.phys.params.llgcbz0)
+        with span("output.d2h", dev, (tal["d2h"],)):
+            stacked = torch.stack([fields[n][: ms.n_real].to(ms.dtype)
+                                   for n in known]) if known else None
+            host_all = _host(stacked) if known else None
+            host = {n: host_all[i] for i, n in enumerate(known)}
+            cicover = _host(model.frc["cicover"])[: ms.n_real]
+        with span("output.write", into=(tal["write"],)):
+            write_date(d14, host, cicover)
+        timers.dates += 1
+
+    def write_date(d14, host, cicover):
         # OUTSETWMASK: ice/shallow masking of flagged output params
         host = outcontrol.apply_output_masks(host, cicover=cicover,
                                              licerun=licerun)
@@ -534,16 +544,13 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
                 fdb_sink, {n: v for n, v in host.items()
                            if n in grib_set},
                 ms.blk, ms.grid, d14)
-        timers.write += time.perf_counter() - t2
-        timers.dates += 1
 
     def save(date):
-        t0 = time.perf_counter()
-        fn = restart_mod.save_restart(
-            rundir, _fmt14(date), _host(model.fl1),
-            {k: _host(v) for k, v in model.stress.items()},
-            {k: _host(v) for k, v in model.frc.items()})
-        timers.restart += time.perf_counter() - t0
+        with span("restart", into=(tal["restart"],)):
+            fn = restart_mod.save_restart(
+                rundir, _fmt14(date), _host(model.fl1),
+                {k: _host(v) for k, v in model.stress.items()},
+                {k: _host(v) for k, v in model.frc.items()})
         timers.restarts += 1
         return fn
 
@@ -608,7 +615,17 @@ def _run_model(cfg, rundir, stop_requested, *, dtype, quiet, device, plain,
 
 def cmd_run(args):
     cfg = load_config(args.config)
-    _, log = run_model(cfg, args.rundir, device=args.device)
+    if args.trace:
+        from ecwam_tpu_torch import tracing
+        tracing.start()
+        try:
+            _, log = run_model(cfg, args.rundir, device=args.device)
+        finally:
+            tracing.stop()
+            tracing.write_chrome(args.trace)
+        print(f"[ecwave] wrote trace {args.trace}")
+    else:
+        _, log = run_model(cfg, args.rundir, device=args.device)
     if args.validate:
         return _validate(cfg, log.entries)
     return 0
@@ -719,6 +736,9 @@ def main(argv=None):
                             help="'cpu' or 'cuda' (default: the card)")
         if name == "run":
             sp.add_argument("--validate", action="store_true")
+            sp.add_argument("--trace", default=None, metavar="FILE",
+                            help="write the run's spans to FILE as a "
+                                 "Chrome trace (Perfetto loads it)")
         if name == "bouint":
             sp.add_argument("--input", required=True)
             sp.add_argument("--output", required=True)

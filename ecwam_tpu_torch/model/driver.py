@@ -23,15 +23,12 @@ retry (GETCURR → LUPDTWGHT).
 
 from __future__ import annotations
 
-import dataclasses
 import datetime as _dt
-import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ecwam_tpu_torch.device import synchronize
 from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.model.setup import ModelSetup, pad_point_field
 from ecwam_tpu_torch.model import preset as preset_mod
@@ -40,6 +37,7 @@ from ecwam_tpu_torch.model.stepper import initial_stress
 from ecwam_tpu_torch.ops import propagation_fused as pfz
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
 from ecwam_tpu_torch.ops.physics import means as means_mod
+from ecwam_tpu_torch.tracing import Tally, span
 
 DATE_FMT = "%Y%m%d%H%M%S"
 
@@ -53,15 +51,33 @@ def format_date(d: _dt.datetime) -> str:
     return d.strftime(DATE_FMT)
 
 
-@dataclasses.dataclass
 class StepTimers:
-    """TIME_PROPAG / TIME_PHYS split (runwam.F90:389-397), seconds of
-    host clock around synchronised device work; ``phys_full`` is the part
-    of ``phys`` spent in output-date (full-mode) physics steps."""
-    propag: float = 0.0
-    phys: float = 0.0
-    phys_full: float = 0.0
-    steps: int = 0
+    """TIME_PROPAG / TIME_PHYS split (runwam.F90:389-397): the seconds of
+    the model's ``advect`` and ``phys`` spans, device time between CUDA
+    events on the card (from the step's first operation to its last,
+    never waited on while stepping) and host time on the CPU;
+    ``phys_full`` is the part of ``phys`` spent in output-date (full-mode)
+    physics steps.  Reading a field waits on that field's events alone."""
+
+    def __init__(self):
+        self.tallies = dict(propag=Tally(), phys=Tally(), phys_full=Tally())
+        self.steps = 0
+
+    @property
+    def propag(self) -> float:
+        return self.tallies["propag"].seconds
+
+    @property
+    def phys(self) -> float:
+        return self.tallies["phys"].seconds
+
+    @property
+    def phys_full(self) -> float:
+        return self.tallies["phys_full"].seconds
+
+    def __repr__(self):
+        return (f"StepTimers(propag={self.propag!r}, phys={self.phys!r}, "
+                f"phys_full={self.phys_full!r}, steps={self.steps!r})")
 
 
 class WaveModel:
@@ -91,19 +107,22 @@ class WaveModel:
         self.forcing_provider = forcing_provider
         self.date = (parse_date(start_date) if isinstance(start_date, str)
                      else start_date)
-        self.steps = stepper_mod.make_step(setup, plain=plain)
-        self.step_full, self.step_adv, self.step_phys = self.steps
-        frc, self._currents = self._forcing_host(self.date)
-        self.frc = self._to_device(frc)
-        if self._currents is not None:
-            self.steps.refresh_currents(*self._currents)
-        # cold start and first-guess stress from the forcing as the model
-        # holds it (model dtype), like the reference
-        wind = {k: self.frc[k].cpu().numpy() for k in ("wswave", "wdwave")}
-        self.fl1 = (preset_mod.mstart(setup.tb, wind["wswave"],
-                                      wind["wdwave"]) if fl1 is None else fl1)
-        self.stress = initial_stress(setup, wind) if stress is None \
-            else stress
+        with span("model.init"):
+            self.steps = stepper_mod.make_step(setup, plain=plain)
+            self.step_full, self.step_adv, self.step_phys = self.steps
+            frc, self._currents = self._forcing_host(self.date)
+            self.frc = self._to_device(frc)
+            if self._currents is not None:
+                self.steps.refresh_currents(*self._currents)
+            # cold start and first-guess stress from the forcing as the
+            # model holds it (model dtype), like the reference
+            wind = {k: self.frc[k].cpu().numpy()
+                    for k in ("wswave", "wdwave")}
+            self.fl1 = (preset_mod.mstart(setup.tb, wind["wswave"],
+                                          wind["wdwave"])
+                        if fl1 is None else fl1)
+            self.stress = initial_stress(setup, wind) if stress is None \
+                else stress
         self.state = {}
         self.timers = StepTimers()
         self._phys_elapsed = 0.0
@@ -189,27 +208,32 @@ class WaveModel:
         ICODE 1/2: take u* from the forcing and rebuild
         TAUW = u*²·(1−(α/CHARNOCK)²), zeroed below USTMIN_RESET_TAUW.
         New currents re-derive the CTU weights (GETCURR → LUPDTWGHT)."""
-        frc, cur = self._forcing_host(date)
-        frc = self._to_device(frc)
-        stress = dict(self.stress)
-        if self.setup.phys.icode_wnd == 3:
-            u10 = frc["wswave"]
-            tlwmax = (1.0 / self.WSPMIN_RESET_TAUW) * (
-                self._ACD + self._BCD * u10) * u10**3
-            stress["tauw"] = torch.where(
-                u10 < self.WSPMIN_RESET_TAUW,
-                torch.minimum(stress["tauw"], tlwmax), stress["tauw"])
-        else:
-            us = frc["ufric"]
-            alpha = self.setup.phys.params.alpha
-            tauw = us**2 * (1.0 - (alpha / stress["chrnck"]) ** 2)
-            stress.update(ufric=us, tauw=torch.where(
-                us < self.USTMIN_RESET_TAUW, torch.zeros_like(tauw), tauw))
-        self.stress = stress
-        self.frc = frc
-        if cur is not None:
-            self._currents = cur
-            self.steps.refresh_currents(*cur)
+        with span("newwind"):
+            with span("newwind.forcing"):
+                frc, cur = self._forcing_host(date)
+            with span("newwind.upload"):
+                frc = self._to_device(frc)
+            stress = dict(self.stress)
+            if self.setup.phys.icode_wnd == 3:
+                u10 = frc["wswave"]
+                tlwmax = (1.0 / self.WSPMIN_RESET_TAUW) * (
+                    self._ACD + self._BCD * u10) * u10**3
+                stress["tauw"] = torch.where(
+                    u10 < self.WSPMIN_RESET_TAUW,
+                    torch.minimum(stress["tauw"], tlwmax), stress["tauw"])
+            else:
+                us = frc["ufric"]
+                alpha = self.setup.phys.params.alpha
+                tauw = us**2 * (1.0 - (alpha / stress["chrnck"]) ** 2)
+                stress.update(ufric=us, tauw=torch.where(
+                    us < self.USTMIN_RESET_TAUW, torch.zeros_like(tauw),
+                    tauw))
+            self.stress = stress
+            self.frc = frc
+            if cur is not None:
+                self._currents = cur
+                with span("refresh"):
+                    self.steps.refresh_currents(*cur)
         return self
 
     def advance(self, n_steps: int = 1, wind_every: int | None = None,
@@ -221,24 +245,20 @@ class WaveModel:
         ``full_phys`` is taken for parity with :class:`FastWaveModel`.
         The timers split each step into its advection and its physics."""
         s, dev = self.setup, self.setup.device
+        tal = self.timers.tallies
         for i in range(n_steps):
             if wind_every and i > 0 and i % wind_every == 0:
                 self.newwind(self.date)
-            t0 = time.perf_counter()
-            fl1 = self.step_adv(self._fl1)
-            synchronize(dev)
-            self.timers.propag += time.perf_counter() - t0
+            with span("advect", dev, (tal["propag"],)):
+                fl1 = self.step_adv(self._fl1)
             self._phys_elapsed += s.idelpro
             if self._phys_elapsed >= s.idelt - 1e-6:
-                t0 = time.perf_counter()
-                fl1, st = self.steps.phys_inplace(fl1, self.frc, self.stress)
-                self.stress = {k: st[k] for k in ipk.STRESS_KEYS}
+                with span("phys", dev, (tal["phys"], tal["phys_full"])):
+                    fl1, st = self.steps.phys_inplace(fl1, self.frc,
+                                                      self.stress)
+                    self.stress = {k: st[k] for k in ipk.STRESS_KEYS}
                 self.state = st
                 self._phys_elapsed = 0.0
-                synchronize(dev)
-                dt = time.perf_counter() - t0
-                self.timers.phys += dt
-                self.timers.phys_full += dt
             self._fl1 = fl1
             self.timers.steps += 1
             self.date += _dt.timedelta(seconds=s.idelpro)
@@ -301,23 +321,25 @@ class FastWaveModel(WaveModel):
         self.forcing_provider = forcing_provider
         self.date = (parse_date(start_date)
                      if isinstance(start_date, str) else start_date)
-        self.fp = fp = FusedPropagation(setup, plain=plain)
-        frc, self._currents = self._forcing_host(self.date)
-        self.frc = self._to_device(frc)
-        if self._currents is not None:
-            fp.refresh(*self._currents)
-        # cold start and first-guess stress from the forcing as the model
-        # holds it (model dtype), like the reference
-        wind = {k: self.frc[k].cpu().numpy() for k in ("wswave", "wdwave")}
-        if fl1 is None:
-            self._f_srl, self._tail = fp.initial_srl(wind["wswave"],
-                                                     wind["wdwave"])
-        else:
-            self.fl1 = fl1
-        if stress is None:
-            stress = initial_stress(setup, wind)
-        (self._env2d, self._denv, self._frc6,
-         self._stress6) = fp.build_phys_srl(self.frc, stress)
+        with span("model.init"):
+            self.fp = fp = FusedPropagation(setup, plain=plain)
+            frc, self._currents = self._forcing_host(self.date)
+            self.frc = self._to_device(frc)
+            if self._currents is not None:
+                fp.refresh(*self._currents)
+            # cold start and first-guess stress from the forcing as the
+            # model holds it (model dtype), like the reference
+            wind = {k: self.frc[k].cpu().numpy()
+                    for k in ("wswave", "wdwave")}
+            if fl1 is None:
+                self._f_srl, self._tail = fp.initial_srl(wind["wswave"],
+                                                         wind["wdwave"])
+            else:
+                self.fl1 = fl1
+            if stress is None:
+                stress = initial_stress(setup, wind)
+            (self._env2d, self._denv, self._frc6,
+             self._stress6) = fp.build_phys_srl(self.frc, stress)
         self.state = {}
         self.timers = StepTimers()
         self._phys_elapsed = 0.0
@@ -327,19 +349,25 @@ class FastWaveModel(WaveModel):
         (newwind.F90:97-178): TAUW ≤ (ACD+BCD·U10)·U10³/WSPMIN_RESET_TAUW.
         New currents re-derive the refraction inputs (GETCURR →
         LUPDTWGHT)."""
-        frc, cur = self._forcing_host(date)
-        self.frc = self._to_device(frc)
-        if cur is not None:
-            self._currents = cur
-            self.fp.refresh(*cur)
-        self._frc6 = self.fp.frc_srl(self.frc)
-        u10 = self._frc6[0]
-        tlwmax = (1.0 / self.WSPMIN_RESET_TAUW) * (
-            self._ACD + self._BCD * u10) * u10**3
-        tauw = self._stress6[1]
-        self._stress6 = self._stress6.clone()
-        self._stress6[1] = torch.where(u10 < self.WSPMIN_RESET_TAUW,
-                                       torch.minimum(tauw, tlwmax), tauw)
+        with span("newwind"):
+            with span("newwind.forcing"):
+                frc, cur = self._forcing_host(date)
+            with span("newwind.upload"):
+                self.frc = self._to_device(frc)
+            if cur is not None:
+                self._currents = cur
+                with span("refresh"):
+                    self.fp.refresh(*cur)
+            with span("newwind.rows"):
+                self._frc6 = self.fp.frc_srl(self.frc)
+                u10 = self._frc6[0]
+                tlwmax = (1.0 / self.WSPMIN_RESET_TAUW) * (
+                    self._ACD + self._BCD * u10) * u10**3
+                tauw = self._stress6[1]
+                self._stress6 = self._stress6.clone()
+                self._stress6[1] = torch.where(
+                    u10 < self.WSPMIN_RESET_TAUW,
+                    torch.minimum(tauw, tlwmax), tauw)
         return self
 
     # -- stepping ---------------------------------------------------------
@@ -353,31 +381,27 @@ class FastWaveModel(WaveModel):
         chunked, and ``state`` takes their diagnostics at the canonical
         points."""
         s, dev = self.setup, self.setup.device
+        tal = self.timers.tallies
+        into = (tal["phys"], tal["phys_full"]) if full_phys else \
+            (tal["phys"],)
         for i in range(n_steps):
             if wind_every and i > 0 and i % wind_every == 0:
                 self.newwind(self.date)
-            t0 = time.perf_counter()
-            self._f_srl = self.fp.advect_srl(self._f_srl)
-            synchronize(dev)
-            self.timers.propag += time.perf_counter() - t0
+            with span("advect", dev, (tal["propag"],)):
+                self._f_srl = self.fp.advect_srl(self._f_srl)
             self._phys_elapsed += s.idelpro
             if self._phys_elapsed >= s.idelt - 1e-6:
-                t0 = time.perf_counter()
                 args = (self._f_srl, self._stress6, self._frc6, self._denv,
                         self._env2d, self._tail)
-                if full_phys:
-                    (self._f_srl, self._stress6, self._tail,
-                     state) = self.fp.phys_srl_full_chunked(*args)
-                    self.state = self._extract(state)
-                else:
-                    self._f_srl, self._stress6, self._tail = \
-                        self.fp.phys_srl(*args)
+                with span("phys", dev, into):
+                    if full_phys:
+                        (self._f_srl, self._stress6, self._tail,
+                         state) = self.fp.phys_srl_full_chunked(*args)
+                        self.state = self._extract(state)
+                    else:
+                        self._f_srl, self._stress6, self._tail = \
+                            self.fp.phys_srl(*args)
                 self._phys_elapsed = 0.0
-                synchronize(dev)
-                dt = time.perf_counter() - t0
-                self.timers.phys += dt
-                if full_phys:
-                    self.timers.phys_full += dt
             self.timers.steps += 1
             self.date += _dt.timedelta(seconds=s.idelpro)
         return self

@@ -33,6 +33,7 @@ from ecwam_tpu_torch.device import resolve
 from ecwam_tpu_torch.ops import propagation as prop
 from ecwam_tpu_torch.ops import propagation_fused as pfz
 from ecwam_tpu_torch.ops.physics import implsch as impl
+from ecwam_tpu_torch.tracing import span
 
 # env fields built from the dispersion relation (core/dispersion.py)
 PROPS = ("wavnum", "cinv", "cgroup", "xk2cg", "omosnh2kd", "stokfac")
@@ -229,50 +230,52 @@ def build_model(
     # segment size scales with the typical row length (16..128)
     seg = 1 << max(4, min(7, int(np.log2(max(16, grid.ngx // 4)))))
     fused = weights_mode == "fused"
-    cached = cache_key = None
-    if cache_dir is not None:
-        from ecwam_tpu_torch.model import tablecache
-        cache_key = tablecache.build_key(
-            grid, bathy, nang=nang, nfre=nfre, nfre_red=nfre_red,
-            pad_to=pad_to, seg=seg if fused else 0,
-            obstructions=obstructions)
-        cached = tablecache.load(
-            cache_dir, cache_key, blk_cls=SeaPointBlock,
-            st_cls=prop.StencilTables, ft_cls=pfz.FusedTables)
-    if cached is not None:
-        blk, st_real, ft, props_ext = cached
-        n_real = blk.nsea
-        n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
-    else:
-        blk = build_sea_point_block(grid, bathy)
-        n_real = blk.nsea
-        n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
-        st_real = prop.build_stencil(grid, blk, nfre_red,
-                                     obstructions=obstructions)
-        ft = (pfz.build_fused_tables(st_real, blk.kxlt, nfre_red, S=seg,
-                                     land_index=n_pad) if fused else None)
-    depth = np.empty(n_pad)
-    depth[:n_real] = blk.depth
-    depth[n_real:] = blk.depth[0]
-    depth_ext = np.concatenate([depth, [dispersion.BATHYMAX]])
-    if cached is None:
-        props_ext = dispersion.depth_properties(depth_ext, tb.fr)
+    with span("setup.tables"):
+        cached = cache_key = None
         if cache_dir is not None:
-            tablecache.save(cache_dir, cache_key, blk=blk, stencil=st_real,
-                            fused=ft, props=props_ext)
+            from ecwam_tpu_torch.model import tablecache
+            cache_key = tablecache.build_key(
+                grid, bathy, nang=nang, nfre=nfre, nfre_red=nfre_red,
+                pad_to=pad_to, seg=seg if fused else 0,
+                obstructions=obstructions)
+            cached = tablecache.load(
+                cache_dir, cache_key, blk_cls=SeaPointBlock,
+                st_cls=prop.StencilTables, ft_cls=pfz.FusedTables)
+        if cached is not None:
+            blk, st_real, ft, props_ext = cached
+            n_real = blk.nsea
+            n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
+        else:
+            blk = build_sea_point_block(grid, bathy)
+            n_real = blk.nsea
+            n_pad = ((n_real + pad_to - 1) // pad_to) * pad_to
+            st_real = prop.build_stencil(grid, blk, nfre_red,
+                                         obstructions=obstructions)
+            ft = (pfz.build_fused_tables(st_real, blk.kxlt, nfre_red, S=seg,
+                                         land_index=n_pad) if fused else None)
+        depth = np.empty(n_pad)
+        depth[:n_real] = blk.depth
+        depth[n_real:] = blk.depth[0]
+        depth_ext = np.concatenate([depth, [dispersion.BATHYMAX]])
+        if cached is None:
+            props_ext = dispersion.depth_properties(depth_ext, tb.fr)
+            if cache_dir is not None:
+                tablecache.save(cache_dir, cache_key, blk=blk, stencil=st_real,
+                                fused=ft, props=props_ext)
     uc, vc = np.zeros(n_pad + 1), np.zeros(n_pad + 1)
     if currents is not None:
         uc[:n_real], vc[:n_real] = currents[0], currents[1]
 
+    with span("setup.upload"):
+        stencil = _pad_stencil(st_real, n_real, n_pad)
+        env = _env_tensors(props_ext, depth_ext, n_pad, dtype, dev, uc, vc)
+        fused_env = (_fused_env(ft, props_ext, depth_ext, nfre_red, irefra)
+                     if fused else None)
     return ModelSetup(
-        grid=grid, blk=blk, tb=tb, phys=phys,
-        stencil=_pad_stencil(st_real, n_real, n_pad),
+        grid=grid, blk=blk, tb=tb, phys=phys, stencil=stencil,
         n_real=n_real, n_pad=n_pad, idelpro=idelpro, idelt=idelt,
         delpro_lf=delpro_lf or idelpro, ifrelfmax=ifrelfmax, irefra=irefra,
-        env=_env_tensors(props_ext, depth_ext, n_pad, dtype, dev, uc, vc),
-        dtype=dtype, device=dev, fused=ft,
-        fused_env=(_fused_env(ft, props_ext, depth_ext, nfre_red, irefra)
-                   if fused else None),
+        env=env, dtype=dtype, device=dev, fused=ft, fused_env=fused_env,
         weights_mode=weights_mode, otf_block=otf_block,
         phys_chunk=phys_chunk)
 

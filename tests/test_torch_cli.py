@@ -17,11 +17,13 @@ reference's, on the CPU.
     the swell-train fields: statistics.log against the reference's CLI,
     which takes its own ``WaveModel`` on the CPU for these modes, within
     1e-5 of each entry, and the train fields in the GRIB output;
-  * ``chip_smoke.py``'s CLI phase rehearsed at a small size.
+  * ``chip_smoke.py``'s CLI phase rehearsed at a small size;
+  * ``run --trace FILE`` writes the run's spans as a Chrome trace.
 """
 
 import dataclasses
 import datetime as dt
+import json
 import os
 import signal
 import subprocess
@@ -375,3 +377,36 @@ def test_smoke_cli_phase_on_cpu():
     assert max(v[0] for v in fields.values()) <= chip_smoke.PRODUCT_TOL
     assert out["secspom_ms"] > 0.0
 
+
+def test_run_trace_writes_the_spans(tmp_path):
+    """``run --trace FILE``: every step's ``advect`` and ``phys``, each
+    output date's stages with the second order inside the products, the
+    restart and the set-up, as complete events of a Chrome trace, with
+    the totals beside them."""
+    cfgfile = tmp_path / "cfg.yml"
+    cfgfile.write_text(RUN_CFG)
+    path = tmp_path / "trace.json"
+    rundir = tmp_path / "run"
+    assert t_cli.main(["run", "--config", str(cfgfile), "--rundir",
+                       str(rundir), "--device", "cpu", "--trace",
+                       str(path)]) == 0
+    assert (rundir / "statistics.log").exists()
+    doc = json.loads(path.read_text())
+    ev = doc["traceEvents"]
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in ev)
+    count = {}
+    for e in ev:
+        count[e["name"]] = count.get(e["name"], 0) + 1
+    # 2 h of 900 s steps, output at 0, 1 and 2 h, new winds at 1 and 2 h
+    assert count == {
+        "setup.tables": 1, "setup.upload": 1, "model.init": 1,
+        "advect": 8, "phys": 8, "newwind": 2, "newwind.forcing": 2,
+        "newwind.upload": 2, "newwind.rows": 2, "output.products": 3,
+        "output.secondorder": 3, "output.d2h": 3, "output.write": 3,
+        "restart": 1}
+    parents = {e["name"]: e["args"].get("parent") for e in ev}
+    assert parents["output.secondorder"] == "output.products"
+    assert parents["newwind.upload"] == "newwind"
+    assert parents["advect"] is None
+    totals = doc["otherData"]["totals"]
+    assert totals["advect"]["count"] >= 8 and totals["phys"]["host_s"] > 0

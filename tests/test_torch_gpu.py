@@ -29,12 +29,19 @@ same limits as chip_smoke.py):
   kernel C, u* (UST)       as one physics step in full mode, the U10 row
                            ≤ STRESS_TOL (chip_smoke.check_compact)
   kernel C on chunk views  bit for bit the whole field's step
+  the port's spans         the profiler's device operations the same
+                           with them as without, none of their own;
+                           StepTimers within SPAN_TOL of kernels A and
+                           B's profiled time over 4 O320 steps; an
+                           operator's profiler start inside its span to
+                           SPAN_CLOCK_NS
 With the cycle-49/50 options, a row off the limits whose
 gravity-capillary decision margin (float64) lies within GC_WIDTH of its
 edge is held out, at most one a grid; with ISNONLIN=2 likewise a row whose
 PEAK_ANG peak lies within PEAK_WIDTH of the next direction maximum.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -66,6 +73,8 @@ TRAJ_TOL = 2.5e-4
 TRAJ_STRESS_TOL = 5e-3
 GC_WIDTH = 1e-4
 PEAK_WIDTH = 1e-5
+SPAN_TOL = 0.02
+SPAN_CLOCK_NS = 100_000
 
 
 def refraction_kw():
@@ -579,3 +588,78 @@ def test_sharded_phase_on_card(cuda):
     assert out["nccl"]["rel"] <= 1e-12
     for mode in ("minimal", "full"):
         assert out["wide"][mode]["n_off"] == 0
+
+
+def _device_events(prof) -> list:
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def _profiled(fn):
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+@pytest.mark.gpu
+def test_spans_put_nothing_on_the_device_timeline(cuda, monkeypatch):
+    """Under the profiler (tracing on: CUDA events, NVTX ranges and
+    intervals) the device operations are the ones of a run whose spans
+    are no-ops, and none is named after a span; the operators of
+    ``newwind.rows`` start inside its intervals (the profiler's clock)."""
+    from ecwam_tpu_torch import tracing
+    ms = tsetup.build_model(grid_name="12.0", nang=12, nfre=18,
+                            nfre_red=15, idelpro=900.0, idelt=1800.0,
+                            pad_to=64, device=cuda)
+
+    def run():
+        m = tdriver.FastWaveModel(
+            ms, tdriver.constant_wind_forcing(ms.n_real), "20230101000000")
+        m.advance(2)
+        n = len(tracing.report()["intervals"])
+        prof = _profiled(lambda: (m.newwind(m.date), m.advance(2),
+                                  m.advance(2, full_phys=True)))
+        return prof, tracing.report()["intervals"][n:]
+    prof, iv = run()
+    on = {e.name() for e in _device_events(prof)}
+    rows = [(s, e) for n, _, s, e in iv if n == "newwind.rows"]
+    where = [e.start_ns() for e in prof.profiler.kineto_results.events()
+             if e.name() == "aten::where"]
+    # the TAUW cap's one torch.where
+    assert len(rows) == 1
+    assert sum(rows[0][0] - SPAN_CLOCK_NS <= t <= rows[0][1] + SPAN_CLOCK_NS
+               for t in where) == 1
+    monkeypatch.setattr(tdriver, "span",
+                        lambda *a, **k: contextlib.nullcontext())
+    prof, iv = run()
+    off = {e.name() for e in _device_events(prof)}
+    assert iv == []
+    assert on == off
+    assert not [n for n in on if n.startswith("ecwam")]
+    assert any("advect_kernel" in n for n in on)
+
+
+@pytest.mark.gpu
+def test_step_timers_match_the_profiled_kernels(cuda):
+    """StepTimers' propag + phys (CUDA events, never waited on while
+    stepping) against the profiler's device time of kernels A and B over
+    4 steps at O320, 36×36/29, physics every step."""
+    ms = tsetup.build_model(grid_name="O320", nang=36, nfre=36,
+                            nfre_red=29, idelpro=450.0, idelt=450.0,
+                            device=cuda)
+    m = tdriver.FastWaveModel(ms, tdriver.constant_wind_forcing(
+        ms.n_real, 12.0), "20230101000000")
+    m.advance(2)
+    t0, n0 = m.timers.propag + m.timers.phys, m.timers.steps
+    prof = _profiled(lambda: m.advance(4))
+    timed = m.timers.propag + m.timers.phys - t0
+    kern = [e for e in _device_events(prof) if "advect_kernel" in e.name()
+            or "implsch_kernel" in e.name()]
+    assert len(kern) == 8 and m.timers.steps - n0 == 4
+    k_s = sum(e.duration_ns() for e in kern) * 1e-9
+    assert abs(timed - k_s) <= SPAN_TOL * k_s, (timed, k_s)
