@@ -151,10 +151,27 @@
 //    are dead: sl holds B, fld the rate d, and the second SINPUT forms
 //    fld + d and sl + d·F as the reference orders them;
 //  * SNONLIN (41 %): the direction wraps of the taps by compare-and-
-//    subtract, once per row and KH; weights and indices from shared
-//    memory; each lane reads the old values of its five target bins
-//    before it writes any (they are distinct, pack_tables checks); one
-//    writer per bin in a fixed order, no atomics;
+//    subtract, once per row and KH; each lane reads the old values of its
+//    five target bins before it writes any (they are distinct,
+//    pack_tables checks); one writer per bin in a fixed order, no
+//    atomics.  With one row a warp its step loop was bound by the SM's
+//    shared-memory pipe and by two __syncwarp a step (151 warp-wide
+//    shared-memory instructions a step in the build's SASS at 36
+//    directions: scalar table reads, re-read after each store they might
+//    alias, the tap stage's 9 loads and 4 stores and the scatter's 20
+//    loads and 10 stores, each twice), so it is a two-stage pipeline: a
+//    step's weights, indices and af11 are one 16-byte-aligned record read
+//    in 9 float4 broadcasts; the lane's own ad and delad stay in its
+//    registers; step j + 1's taps (fl is constant through SNONLIN) go
+//    into a second buffer after step j's scatter has read the first, so
+//    one __syncwarp a step orders both; and the two target bins a step
+//    shares with the next (ikm1, ikp1 are the next ikm, ikp) stay in
+//    registers.  74 shared-memory instructions a step (PERF.md); the row
+//    does not grow: the second buffer lies over cosw and sin2, dead
+//    through SNONLIN (cosw is formed again after it).  The scatter takes
+//    one direction slot q at a time, and the taps follow it: with both
+//    slots' loads ahead of the taps ptxas spilled registers all over the
+//    kernel and the step ran no faster than the parent's;
 //  * SINPUT (24 %): the two gusts of the second call side by side in one
 //    direction pass; the first call writes no source arrays (the second
 //    overwrites them) and full mode's PHIWA terms only in the second;
@@ -280,10 +297,8 @@ struct Tabs {
   const float* wmat; const float* swellft; const float* wtauhf;
   const float* gc;                             // GcTab's first NGCSTAGE
   const float* gcx;                            // every GcTab, global
-  const float* af11; const float* rnl; const float* xk_ext;
-  const int* ic; const int* ip; const int* ip1; const int* im;
-  const int* im1; const int* ikm; const int* ikm1; const int* ikp;
-  const int* ikp1; const int* shifts;
+  const float* dia;                            // the DIA step records
+  const float* xk_ext; const int* shifts;
   int nang, nfre, nred, mlsthg, niab, nwav, opts;
   const float* dfimfr2; const float* cideac;   // EXT only
   // the bin walk (for_bins): the direction pitch of fl/fld/sl (nfre,
@@ -654,8 +669,9 @@ __device__ float transf(const float* P, float xk, float depth) {
 
 // Per-row working set in shared memory: fl, fld, sl (nang rows of pitch
 // nfp each), five per-frequency arrays, sx/sy (SNONLIN's factors enh over
-// them once STRESSO is done), the three per-direction rows and dx
-// (SNONLIN's four transfer arrays; in full mode, each in its own stage,
+// them once STRESSO is done), the three per-direction rows flm, cosw, sin2
+// and dx (SNONLIN's two buffers of three transfer arrays over cosw, sin2
+// and dx; in full mode, each in its own stage,
 // also sp, the flux-source sums sumt/sumx/sumy and the windsea-mask words
 // of the second FEMEANWS); in full mode, after them, the wide build's
 // mask words (mask_at) and EXT's pre-SNONLIN flux sums (pre_at)
@@ -707,10 +723,10 @@ __device__ __forceinline__ Work work_at(float* w, const Tabs& T) {
   W.sx = W.ws + nfre;
   W.sy = W.sx + nfre;
   W.enh = W.sx;
-  W.cosw = W.sx + sxy_floats(nfre, T.mlsthg);
+  W.flm = W.sx + sxy_floats(nfre, T.mlsthg);
+  W.cosw = W.flm + T.nang;
   W.sin2 = W.cosw + T.nang;
-  W.flm = W.sin2 + T.nang;
-  W.dx = W.flm + T.nang;
+  W.dx = W.sin2 + T.nang;
   W.sp = W.dx;                                 // FULL only, as are
   W.sumt = W.dx + nfre;                        // sumt, sumx and sumy
   W.sumx = W.sumt + nfre;
@@ -1352,13 +1368,86 @@ __device__ float transf_snl(const float* P, float xk0, float depth,
   return on ? val : 1.f;
 }
 
+// The DIA step records, one a step j (MC) of DIA_REC floats, 16-byte
+// aligned (implsch_cuda.DIA_RECORD): the tap stage's part first, TAP_REC
+// floats (the weights rnl 0-4 and 13-16, af11, and the tap frequencies
+// ic, ip, ip1, im, im1 as int bits), then the scatter's (the weights rnl
+// 5-12 and 17-24, and the targets ikm, ikm1, ikp, ikp1, Fortran's 1-based
+// indices, as int bits).  Every lane reads the same record, so each part
+// comes in float4 broadcasts: 4 loads and 5, not 36 scalar ones
+constexpr int TAP_REC = 16, DIA_REC = 36;
+
+struct DiaTap {
+  float w0, w1, w2, w3, w4, w13, w14, w15, w16, af11;
+  int ic, ip, ip1, im, im1;
+};
+
+struct DiaScatter {
+  float w5, w6, w7, w8, w9, w10, w11, w12;
+  float w17, w18, w19, w20, w21, w22, w23, w24;
+  int ikm, ikm1, ikp, ikp1;
+};
+
+__device__ __forceinline__ DiaTap dia_tap(const float* dia, int j) {
+  const float4* r = reinterpret_cast<const float4*>(dia + j * DIA_REC);
+  const float4 a = r[0], b = r[1], c = r[2], d = r[3];
+  return DiaTap{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y,
+                __float_as_int(c.z), __float_as_int(c.w), __float_as_int(d.x),
+                __float_as_int(d.y), __float_as_int(d.z)};
+}
+
+__device__ __forceinline__ DiaScatter dia_scatter(const float* dia, int j) {
+  const float4* r = reinterpret_cast<const float4*>(
+      dia + j * DIA_REC + TAP_REC);
+  const float4 a = r[0], b = r[1], c = r[2], d = r[3], e = r[4];
+  return DiaScatter{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                    c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w,
+                    __float_as_int(e.x), __float_as_int(e.y),
+                    __float_as_int(e.z), __float_as_int(e.w)};
+}
+
+// one direction's four transfer terms of a step: fl's taps at the
+// direction's own row (offset rk) and at the rows k + s (q1, q11, q2, q21)
+struct DiaTerms {
+  float ad, delad, delap, delam;
+};
+
+__device__ __forceinline__ DiaTerms dia_terms(const DiaTap& t,
+                                              const float* fl, int rk,
+                                              int q1, int q11, int q2,
+                                              int q21, float ftemp,
+                                              float dal1, float dal2) {
+  const float sap = t.w1 * fl[q1 + t.ip] + t.w2 * fl[q11 + t.ip]
+      + t.w3 * fl[q1 + t.ip1] + t.w4 * fl[q11 + t.ip1];
+  const float sam = t.w13 * fl[q2 + t.im] + t.w14 * fl[q21 + t.im]
+      + t.w15 * fl[q2 + t.im1] + t.w16 * fl[q21 + t.im1];
+  const float fij = fl[rk + t.ic] * t.w0;
+  float fad1 = fij * (sap + sam);
+  const float fad2 = fad1 - 2.f * sap * sam;
+  fad1 = fad1 + fad2;
+  const float fcen = ftemp * fij;
+  return DiaTerms{fad2 * fcen, fad1 * ftemp, (fij - 2.f * sam) * dal1 * fcen,
+                  (fij - 2.f * sap) * dal2 * fcen};
+}
+
 // SNONLIN DIA with the TRANSF enhancement (snonlin.F90:70-470); EXT adds
 // ISNONLIN=0 (one factor ``enhfr`` for every MC) and ISNONLIN=2
 // (TRANSF_SNL with PEAK_ANG's ``xnu`` and ``sig_th``).  Per KH the lane's
-// directions' tap directions k + s and k − s are wrapped once; per MC each
-// lane computes the four transfer values of its directions into dx, then
-// adds them into its own directions' target bins: one writer per bin,
-// MC in order, bit-reproducible
+// directions' tap directions k + s and k − s are wrapped once.  Per step
+// j each lane adds the transfer terms into its own directions' target
+// bins: one writer per bin, steps in order, KH 0 then 1, bit-reproducible.
+// The steps run as a two-stage pipeline, one __syncwarp a step: between
+// two of them a lane does step j's scatter, which reads the terms of the
+// shifted directions from one buffer (ad, delap, delam; its own ad and
+// delad from its registers), then step j + 1's taps, which read only fl
+// (constant here) and go into the other buffer; the buffers are the
+// row's dx and its cosw/sin2 rows (row_step puts cosw back afterwards;
+// sin2 is dead).  Of a step's five targets
+// (own, ikm, ikm1, ikp, ikp1) ikm1 and ikp1 are the next step's ikm and
+// ikp (pack_tables checks), so those two bins stay in registers from one
+// step to the next: three old values of sl and of fld are read a step
+// and three written.  The wide build's directions past GRP take the same
+// pipeline but write every target each step, their delad taken again
 template <bool EXT>
 __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
                         float enhfr, float xnu, float sig_th) {
@@ -1375,16 +1464,17 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
                         P[P_ENH_MAX]);
   }
   __syncwarp();
-  const float* r = T.rnl;
+  const float dal1 = P[P_DAL1], dal2 = P[P_DAL2];
   const float* fl = W.fl;
-  float* ad = W.dx;
-  float* delad = W.dx + nang;
-  float* delap = W.dx + 2 * nang;
-  float* delam = W.dx + 3 * nang;
+  // buffer b of the terms: ad, delap, delam (nang each) from W.dx + nang
+  // − 3·nang·b; buffer 1 lies over cosw, sin2 and dx's first nang
+  auto buf = [&](int b) { return W.dx + nang - 3 * nang * b; };
   for (int kh = 0; kh < 2; ++kh) {
     const int s1 = T.shifts[4 * kh], s11 = T.shifts[4 * kh + 1];
     const int s2 = T.shifts[4 * kh + 2], s21 = T.shifts[4 * kh + 3];
-    // rows of fl at k + s, and the directions k − s (shifts in [0, nang))
+    // rows of fl at k + s, and the directions k − s (shifts in [0, nang));
+    // a lane's slot q past nang works on direction nang − 1 and writes
+    // nothing
     int r1[KPL], r11[KPL], r2[KPL], r21[KPL];
     int u1[KPL], u11[KPL], u2[KPL], u21[KPL];
 #pragma unroll
@@ -1399,166 +1489,200 @@ __device__ void snonlin(const Tabs& T, const Work& W, int lane, float depth,
       u2[q] = wrap(k - s2 + nang, nang);
       u21[q] = wrap(k - s21 + nang, nang);
     }
-    for (int j = 0; j < ml; ++j) {
-      auto w = [&](int i) { return r[i * ml + j]; };
-      const int ic = T.ic[j], ip = T.ip[j], ip1 = T.ip1[j];
-      const int im = T.im[j], im1 = T.im1[j];
-      const float ftemp = T.af11[j] * W.enh[j];
+    // a step's terms of the lane's directions, stored into buffer
+    // (step & 1) for the shifted directions; the lane's own ad and delad
+    // stay here for the step's scatter
+    DiaTerms dt[KPL];
+    auto taps = [&](int j) {
+      const DiaTap t = dia_tap(T.dia, j);
+      const float ftemp = t.af11 * W.enh[j];
+#pragma unroll
+      for (int q = 0; q < KPL; ++q)
+        dt[q] = dia_terms(t, fl, min(lane + RL * q, nang - 1) * nfp, r1[q],
+                          r11[q], r2[q], r21[q], ftemp, dal1, dal2);
+    };
+    auto put_taps = [&](int j, int p) {
+      float* b = buf(p);
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
         const int k = lane + RL * q;
-        if (k >= nang) continue;
-        const float sap = w(1) * fl[r1[q] + ip] + w(2) * fl[r11[q] + ip]
-            + w(3) * fl[r1[q] + ip1] + w(4) * fl[r11[q] + ip1];
-        const float sam = w(13) * fl[r2[q] + im] + w(14) * fl[r21[q] + im]
-            + w(15) * fl[r2[q] + im1] + w(16) * fl[r21[q] + im1];
-        const float fij = fl[k * nfp + ic] * w(0);
-        float fad1 = fij * (sap + sam);
-        const float fad2 = fad1 - 2.f * sap * sam;
-        fad1 = fad1 + fad2;
-        const float fcen = ftemp * fij;
-        ad[k] = fad2 * fcen;
-        delad[k] = fad1 * ftemp;
-        delap[k] = (fij - 2.f * sam) * P[P_DAL1] * fcen;
-        delam[k] = (fij - 2.f * sap) * P[P_DAL2] * fcen;
+        if (k < nang) {
+          b[k] = dt[q].ad;
+          b[nang + k] = dt[q].delap;
+          b[2 * nang + k] = dt[q].delam;
+        }
       }
 #ifdef IMPLSCH_WIDE
       // the directions past the first group, their rows of fl at k + s
       // found here (the same expressions as the group's)
-      for (int k = lane + GRP; k < nang; k += RL) {
-        const int q1 = wrap(k + s1, nang) * nfp;
-        const int q11 = wrap(k + s11, nang) * nfp;
-        const int q2 = wrap(k + s2, nang) * nfp;
-        const int q21 = wrap(k + s21, nang) * nfp;
-        const float sap = w(1) * fl[q1 + ip] + w(2) * fl[q11 + ip]
-            + w(3) * fl[q1 + ip1] + w(4) * fl[q11 + ip1];
-        const float sam = w(13) * fl[q2 + im] + w(14) * fl[q21 + im]
-            + w(15) * fl[q2 + im1] + w(16) * fl[q21 + im1];
-        const float fij = fl[k * nfp + ic] * w(0);
-        float fad1 = fij * (sap + sam);
-        const float fad2 = fad1 - 2.f * sap * sam;
-        fad1 = fad1 + fad2;
-        const float fcen = ftemp * fij;
-        ad[k] = fad2 * fcen;
-        delad[k] = fad1 * ftemp;
-        delap[k] = (fij - 2.f * sam) * P[P_DAL1] * fcen;
-        delam[k] = (fij - 2.f * sap) * P[P_DAL2] * fcen;
+      if (GRP < nang) {
+        const DiaTap t = dia_tap(T.dia, j);
+        const float ftemp = t.af11 * W.enh[j];
+        for (int k = lane + GRP; k < nang; k += RL) {
+          const DiaTerms d = dia_terms(
+              t, fl, k * nfp, wrap(k + s1, nang) * nfp,
+              wrap(k + s11, nang) * nfp, wrap(k + s2, nang) * nfp,
+              wrap(k + s21, nang) * nfp, ftemp, dal1, dal2);
+          b[k] = d.ad;
+          b[nang + k] = d.delap;
+          b[2 * nang + k] = d.delam;
+        }
       }
 #endif
-      __syncwarp();
-      // the MC's target frequencies: its own (inside the ladder) and the
+    };
+    // sl and fld of the targets ikm and ikp carried into the next step
+    float cs[KPL][2], cf[KPL][2];
+    taps(0);
+    put_taps(0, 0);
+    {
+      const DiaScatter s = dia_scatter(T.dia, 0);
+      const int tm = s.ikm - 1, tp = s.ikp - 1;
+      const bool cm = tm >= 0 && tm < nfre, cp = tp >= 0 && tp < nfre;
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int kk = min(lane + RL * q, nang - 1);
+        cs[q][0] = cm ? W.sl[kk * nfp + tm] : 0.f;
+        cf[q][0] = cm ? W.fld[kk * nfp + tm] : 0.f;
+        cs[q][1] = cp ? W.sl[kk * nfp + tp] : 0.f;
+        cf[q][1] = cp ? W.fld[kk * nfp + tp] : 0.f;
+      }
+    }
+    __syncwarp();
+    int lm1 = -1, lp1 = -1;                    // the last step's carried
+    for (int j = 0; j < ml; ++j) {
+      const float* ad = buf(j & 1);
+      const float* delap = ad + nang;
+      const float* delam = ad + 2 * nang;
+      // the step's target frequencies: its own (inside the ladder) and the
       // four of ikm, ikm1, ikp, ikp1 inside it, distinct (pack_tables
-      // checks), so each lane first reads every old value and transfer
-      // term it needs, then adds and writes
-      const int tm = T.ikm[j] - 1, tm1 = T.ikm1[j] - 1;
-      const int tp = T.ikp[j] - 1, tp1 = T.ikp1[j] - 1;
+      // checks)
+      const DiaScatter s = dia_scatter(T.dia, j);
+      const int tm = s.ikm - 1, tm1 = s.ikm1 - 1;
+      const int tp = s.ikp - 1, tp1 = s.ikp1 - 1;
       const bool c0 = j < nfre, cm = tm >= 0 && tm < nfre;
       const bool cm1 = tm1 >= 0 && tm1 < nfre, cp = tp >= 0 && tp < nfre;
       const bool cp1 = tp1 >= 0 && tp1 < nfre;
 #pragma unroll
       for (int q = 0; q < KPL; ++q) {
         const int k = lane + RL * q;
-        if (k >= nang) continue;
-        float* slk = W.sl + k * nfp;
-        float* fldk = W.fld + k * nfp;
-        float os[5], of[5], a[10];
-        os[0] = c0 ? slk[j] : 0.f;
-        of[0] = c0 ? fldk[j] : 0.f;
-        os[1] = cm ? slk[tm] : 0.f;
-        of[1] = cm ? fldk[tm] : 0.f;
-        os[2] = cm1 ? slk[tm1] : 0.f;
-        of[2] = cm1 ? fldk[tm1] : 0.f;
-        os[3] = cp ? slk[tp] : 0.f;
-        of[3] = cp ? fldk[tp] : 0.f;
-        os[4] = cp1 ? slk[tp1] : 0.f;
-        of[4] = cp1 ? fldk[tp1] : 0.f;
-        a[0] = ad[k];
-        a[1] = delad[k];
-        a[2] = ad[u2[q]];
-        a[3] = ad[u21[q]];
-        a[4] = delam[u2[q]];
-        a[5] = delam[u21[q]];
-        a[6] = ad[u1[q]];
-        a[7] = ad[u11[q]];
-        a[8] = delap[u1[q]];
-        a[9] = delap[u11[q]];
-        if (c0) {
-          slk[j] = os[0] + -2.f * a[0];
-          fldk[j] = of[0] + -2.f * a[1];
+        const bool put = k < nang;
+        float* slk = W.sl + min(k, nang - 1) * nfp;
+        float* fldk = W.fld + min(k, nang - 1) * nfp;
+        // the old values of the targets not carried, and the terms of
+        // the shifted directions, all read before any is written
+        const float os0 = c0 ? slk[j] : 0.f, of0 = c0 ? fldk[j] : 0.f;
+        const float os1 = cm1 ? slk[tm1] : 0.f;
+        const float of1 = cm1 ? fldk[tm1] : 0.f;
+        const float os2 = cp1 ? slk[tp1] : 0.f;
+        const float of2 = cp1 ? fldk[tp1] : 0.f;
+        const float a0 = ad[u2[q]], a1 = ad[u21[q]];
+        const float a2 = delam[u2[q]], a3 = delam[u21[q]];
+        const float a4 = ad[u1[q]], a5 = ad[u11[q]];
+        const float a6 = delap[u1[q]], a7 = delap[u11[q]];
+        if (put && c0) {
+          slk[j] = os0 + -2.f * dt[q].ad;
+          fldk[j] = of0 + -2.f * dt[q].delad;
         }
-        if (cm) {
-          slk[tm] = os[1] + (w(20) * a[2] + w(19) * a[3]);
-          fldk[tm] = of[1] + (w(23) * a[4] + w(24) * a[5]);
+        if (put && cm) {
+          slk[tm] = cs[q][0] + (s.w20 * a0 + s.w19 * a1);
+          fldk[tm] = cf[q][0] + (s.w23 * a2 + s.w24 * a3);
         }
-        if (cm1) {
-          slk[tm1] = os[2] + (w(17) * a[2] + w(18) * a[3]);
-          fldk[tm1] = of[2] + (w(21) * a[4] + w(22) * a[5]);
+        if (put && cp) {
+          slk[tp] = cs[q][1] + (s.w8 * a4 + s.w7 * a5);
+          fldk[tp] = cf[q][1] + (s.w11 * a6 + s.w12 * a7);
         }
-        if (cp) {
-          slk[tp] = os[3] + (w(8) * a[6] + w(7) * a[7]);
-          fldk[tp] = of[3] + (w(11) * a[8] + w(12) * a[9]);
-        }
-        if (cp1) {
-          slk[tp1] = os[4] + (w(5) * a[6] + w(6) * a[7]);
-          fldk[tp1] = of[4] + (w(9) * a[8] + w(10) * a[9]);
-        }
+        cs[q][0] = os1 + (s.w17 * a0 + s.w18 * a1);
+        cf[q][0] = of1 + (s.w21 * a2 + s.w22 * a3);
+        cs[q][1] = os2 + (s.w5 * a4 + s.w6 * a5);
+        cf[q][1] = of2 + (s.w9 * a6 + s.w10 * a7);
       }
+      lm1 = cm1 ? tm1 : -1;
+      lp1 = cp1 ? tp1 : -1;
+      // step j + 1's terms into the other buffer (at the last step its
+      // own again, into the buffer no step reads any more): fl is
+      // constant through SNONLIN
+      taps(min(j + 1, ml - 1));
+      put_taps(min(j + 1, ml - 1), (j + 1) & 1);
 #ifdef IMPLSCH_WIDE
-      // the directions past the first group: the same update, the
-      // directions k − s found here
-      for (int k = lane + GRP; k < nang; k += RL) {
-        const int v1 = wrap(k - s1 + nang, nang);
-        const int v11 = wrap(k - s11 + nang, nang);
-        const int v2 = wrap(k - s2 + nang, nang);
-        const int v21 = wrap(k - s21 + nang, nang);
-        float* slk = W.sl + k * nfp;
-        float* fldk = W.fld + k * nfp;
-        float os[5], of[5], a[10];
-        os[0] = c0 ? slk[j] : 0.f;
-        of[0] = c0 ? fldk[j] : 0.f;
-        os[1] = cm ? slk[tm] : 0.f;
-        of[1] = cm ? fldk[tm] : 0.f;
-        os[2] = cm1 ? slk[tm1] : 0.f;
-        of[2] = cm1 ? fldk[tm1] : 0.f;
-        os[3] = cp ? slk[tp] : 0.f;
-        of[3] = cp ? fldk[tp] : 0.f;
-        os[4] = cp1 ? slk[tp1] : 0.f;
-        of[4] = cp1 ? fldk[tp1] : 0.f;
-        a[0] = ad[k];
-        a[1] = delad[k];
-        a[2] = ad[v2];
-        a[3] = ad[v21];
-        a[4] = delam[v2];
-        a[5] = delam[v21];
-        a[6] = ad[v1];
-        a[7] = ad[v11];
-        a[8] = delap[v1];
-        a[9] = delap[v11];
-        if (c0) {
-          slk[j] = os[0] + -2.f * a[0];
-          fldk[j] = of[0] + -2.f * a[1];
-        }
-        if (cm) {
-          slk[tm] = os[1] + (w(20) * a[2] + w(19) * a[3]);
-          fldk[tm] = of[1] + (w(23) * a[4] + w(24) * a[5]);
-        }
-        if (cm1) {
-          slk[tm1] = os[2] + (w(17) * a[2] + w(18) * a[3]);
-          fldk[tm1] = of[2] + (w(21) * a[4] + w(22) * a[5]);
-        }
-        if (cp) {
-          slk[tp] = os[3] + (w(8) * a[6] + w(7) * a[7]);
-          fldk[tp] = of[3] + (w(11) * a[8] + w(12) * a[9]);
-        }
-        if (cp1) {
-          slk[tp1] = os[4] + (w(5) * a[6] + w(6) * a[7]);
-          fldk[tp1] = of[4] + (w(9) * a[8] + w(10) * a[9]);
+      // the directions past the first group: every target read and
+      // written here, the directions k − s found here, delad taken again
+      // from step j's taps (the same expression, so the same value)
+      if (GRP < nang) {
+        const DiaTap t = dia_tap(T.dia, j);
+        const float ftemp = t.af11 * W.enh[j];
+        for (int k = lane + GRP; k < nang; k += RL) {
+          const int v1 = wrap(k - s1 + nang, nang);
+          const int v11 = wrap(k - s11 + nang, nang);
+          const int v2 = wrap(k - s2 + nang, nang);
+          const int v21 = wrap(k - s21 + nang, nang);
+          const float dl = dia_terms(
+              t, fl, k * nfp, wrap(k + s1, nang) * nfp,
+              wrap(k + s11, nang) * nfp, wrap(k + s2, nang) * nfp,
+              wrap(k + s21, nang) * nfp, ftemp, dal1, dal2).delad;
+          float* slk = W.sl + k * nfp;
+          float* fldk = W.fld + k * nfp;
+          float gs[5], gf[5], ga[10];
+          gs[0] = c0 ? slk[j] : 0.f;
+          gf[0] = c0 ? fldk[j] : 0.f;
+          gs[1] = cm ? slk[tm] : 0.f;
+          gf[1] = cm ? fldk[tm] : 0.f;
+          gs[2] = cm1 ? slk[tm1] : 0.f;
+          gf[2] = cm1 ? fldk[tm1] : 0.f;
+          gs[3] = cp ? slk[tp] : 0.f;
+          gf[3] = cp ? fldk[tp] : 0.f;
+          gs[4] = cp1 ? slk[tp1] : 0.f;
+          gf[4] = cp1 ? fldk[tp1] : 0.f;
+          ga[0] = ad[k];
+          ga[1] = dl;
+          ga[2] = ad[v2];
+          ga[3] = ad[v21];
+          ga[4] = delam[v2];
+          ga[5] = delam[v21];
+          ga[6] = ad[v1];
+          ga[7] = ad[v11];
+          ga[8] = delap[v1];
+          ga[9] = delap[v11];
+          if (c0) {
+            slk[j] = gs[0] + -2.f * ga[0];
+            fldk[j] = gf[0] + -2.f * ga[1];
+          }
+          if (cm) {
+            slk[tm] = gs[1] + (s.w20 * ga[2] + s.w19 * ga[3]);
+            fldk[tm] = gf[1] + (s.w23 * ga[4] + s.w24 * ga[5]);
+          }
+          if (cm1) {
+            slk[tm1] = gs[2] + (s.w17 * ga[2] + s.w18 * ga[3]);
+            fldk[tm1] = gf[2] + (s.w21 * ga[4] + s.w22 * ga[5]);
+          }
+          if (cp) {
+            slk[tp] = gs[3] + (s.w8 * ga[6] + s.w7 * ga[7]);
+            fldk[tp] = gf[3] + (s.w11 * ga[8] + s.w12 * ga[9]);
+          }
+          if (cp1) {
+            slk[tp1] = gs[4] + (s.w5 * ga[6] + s.w6 * ga[7]);
+            fldk[tp1] = gf[4] + (s.w9 * ga[8] + s.w10 * ga[9]);
+          }
         }
       }
 #endif
       __syncwarp();
     }
+    // the last step's ikm1 and ikp1 bins, carried out of the loop
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + RL * q;
+      if (k >= nang) continue;
+      if (lm1 >= 0) {
+        W.sl[k * nfp + lm1] = cs[q][0];
+        W.fld[k * nfp + lm1] = cf[q][0];
+      }
+      if (lp1 >= 0) {
+        W.sl[k * nfp + lp1] = cs[q][1];
+        W.fld[k * nfp + lp1] = cf[q][1];
+      }
+    }
   }
+  __syncwarp();
 }
 
 // SINPUT_JAN (sinput_jan.F90:84-280), Janssen's quasi-linear input of WAM
@@ -2107,6 +2231,8 @@ __device__ __forceinline__ void row_step(
     __syncwarp();
   }
   snonlin<EXT>(T, W, lane, depth, enhfr, xnu, sig_th);
+  // SNONLIN's second buffer took cosw: SETICE reads it again
+  for (int k = lane; k < nang; k += RL) W.cosw[k] = cosf(T.th[k] - wdwave);
 
   // ---- WNFLUXES' source sums, SNONLIN included (implsch.F90:297-305)
   if (FULL && lcflx && !snl_flux) {
@@ -2556,14 +2682,16 @@ __host__ __device__ __forceinline__ int staged_w(int nang) {
 // from ``s``: the parameter block with the per-frequency and per-direction
 // tables and W (contiguous in the packed array; in the wide build only
 // while it is staged, STAGED_W), the
-// tail-integral weights, the DIA weights, (OPTS) the gc tables, and the
-// DIA index tables; then the bin walk's constants.  Every thread of the
-// block takes part; it returns the tables pointed there
+// tail-integral weights, (OPTS) the gc tables, the DIA step records from
+// the next 16-byte boundary, and SNONLIN's shifts; then the bin walk's
+// constants.  Every thread of the block takes part; it returns the tables
+// pointed there
 template <bool OPTS>
 __host__ __device__ __forceinline__ int table_floats(int nang, int nfre,
                                                      int mlsthg, int nwav) {
-  const int n = NPAR + NFREQTAB * nfre + 3 * nang + STAGED_W(nang) + JTOT
-      + 26 * mlsthg + (OPTS ? NGCSTAGE * nwav : 0) + 9 * mlsthg + 8;
+  const int head = NPAR + NFREQTAB * nfre + 3 * nang + STAGED_W(nang) + JTOT
+      + (OPTS ? NGCSTAGE * nwav : 0);
+  const int n = ((head + 3) & ~3) + DIA_REC * mlsthg + 8;
   return (n + 31) & ~31;
 }
 
@@ -2594,20 +2722,23 @@ __device__ Tabs stage_tables(const Tabs& G, float* s) {
   copy(q, G.wtauhf, JTOT);
   T.wtauhf = q;
   q += JTOT;
-  copy(q, G.af11, 26 * ml);                    // af11, then rnl
-  T.af11 = q;
-  T.rnl = q + ml;
-  q += 26 * ml;
   if (OPTS) {
     copy(q, G.gc, NGCSTAGE * G.nwav);
     T.gc = q;
     q += NGCSTAGE * G.nwav;
   }
+  q = s + (((q - s) + 3) & ~3);                // float4 reads
+  {
+    // the records hold ints as bits: copied as words
+    const unsigned* g = reinterpret_cast<const unsigned*>(G.dia);
+    unsigned* d = reinterpret_cast<unsigned*>(q);
+    for (int i = tid; i < DIA_REC * ml; i += nth) d[i] = g[i];
+  }
+  T.dia = q;
+  q += DIA_REC * ml;
   int* qi = reinterpret_cast<int*>(q);
-  for (int i = tid; i < 9 * ml + 8; i += nth) qi[i] = G.ic[i];
-  T.ic = qi; T.ip = qi + ml; T.ip1 = qi + 2 * ml; T.im = qi + 3 * ml;
-  T.im1 = qi + 4 * ml; T.ikm = qi + 5 * ml; T.ikm1 = qi + 6 * ml;
-  T.ikp = qi + 7 * ml; T.ikp1 = qi + 8 * ml; T.shifts = qi + 9 * ml;
+  for (int i = tid; i < 8; i += nth) qi[i] = G.shifts[i];
+  T.shifts = qi;
   const int lane = threadIdx.x & (RL - 1);
   T.nfp = nfre | 1;
   T.dk = RL / nfre;
@@ -2740,20 +2871,9 @@ extern "C" int implsch_launch(
   T.swellft = t; t += niab;
   T.wtauhf = t; t += JTOT;
   T.gc = T.gcx = t; t += NGCTAB * nwav;
-  T.af11 = t; t += mlsthg;
-  T.rnl = t; t += 25 * mlsthg;
+  T.dia = t; t += DIA_REC * mlsthg;
   T.xk_ext = t;
-  const int* it = itab;
-  T.ic = it; it += mlsthg;
-  T.ip = it; it += mlsthg;
-  T.ip1 = it; it += mlsthg;
-  T.im = it; it += mlsthg;
-  T.im1 = it; it += mlsthg;
-  T.ikm = it; it += mlsthg;
-  T.ikm1 = it; it += mlsthg;
-  T.ikp = it; it += mlsthg;
-  T.ikp1 = it; it += mlsthg;
-  T.shifts = it;
+  T.shifts = itab;
   T.dfimfr2 = ft[T_DFIMFR2];
   T.cideac = T.xk_ext + (mlsthg - nfre);
   T.nfp = T.dk = T.dm = T.k0 = T.m0 = 0;       // set in each block

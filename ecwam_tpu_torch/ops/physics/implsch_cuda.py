@@ -157,6 +157,19 @@ NFREQTAB, JTOT, NGCSTAGE, GRP_WIDE = 12, 19, 5, 128
 # order of csrc/implsch.cu's GcTab enum
 GC_TABLES = ("logxk", "cm", "om3gmkm", "xkmsqrtvgoc2", "delkcc_omxkm3",
              "c2osqrtvg", "dns_omxkm3", "omega")
+# SNONLIN's record of a DIA step (MC) in the order of csrc/implsch.cu's
+# DiaTap and DiaScatter, 16-byte aligned: the tap stage's part
+# (DIA_TAP_REC words: the weights rnl[i, j], af11[j], the tap frequencies;
+# one pad word) and the scatter's (the weights and the target indices);
+# the indices are int32 words, as the tables hold them
+DIA_RECORD = (
+    "rnl0", "rnl1", "rnl2", "rnl3", "rnl4", "rnl13", "rnl14", "rnl15",
+    "rnl16", "af11", "ic", "ip", "ip1", "im", "im1", None,
+    "rnl5", "rnl6", "rnl7", "rnl8", "rnl9", "rnl10", "rnl11", "rnl12",
+    "rnl17", "rnl18", "rnl19", "rnl20", "rnl21", "rnl22", "rnl23", "rnl24",
+    "ikm", "ikm1", "ikp", "ikp1")
+DIA_TAP_REC = DIA_RECORD.index(None) + 1
+DIA_INTS = ("ic", "ip", "ip1", "im", "im1", "ikm", "ikm1", "ikp", "ikp1")
 
 
 def minimal_config(cfg: impl.PhysicsConfig) -> impl.PhysicsConfig:
@@ -228,12 +241,13 @@ def library(cfg: impl.PhysicsConfig, full: bool,
         "_compact" if compact else "")
 
 
-def shared_bytes(cfg: impl.PhysicsConfig, full: bool = False) -> int:
-    """Bytes of shared memory a block of the kernel needs for its tables
-    and one row: csrc/implsch.cu's ``table_floats`` + ``row_floats`` for
-    the build :func:`library` picks and the instantiation the options
-    pick (OPTS stages the gc tables; EXT's LWVFLX_SNL off keeps three
-    more sums a row)."""
+def smem_layout(cfg: impl.PhysicsConfig, full: bool = False) -> dict:
+    """csrc/implsch.cu's block of shared memory, in floats, for the build
+    :func:`library` picks and the instantiation the options pick (OPTS
+    stages the gc tables; EXT's LWVFLX_SNL off keeps three more sums a
+    row): ``table`` (``table_floats``: the staged tables), ``dia`` (where
+    the DIA step records start among them) and ``row`` (``row_floats``:
+    one row's working set)."""
     tb = cfg.tables
     nang, nfre = tb.nang, tb.nfre
     ml = int(cfg.dia.mlsthg)
@@ -245,15 +259,23 @@ def shared_bytes(cfg: impl.PhysicsConfig, full: bool = False) -> int:
     def up32(n):
         return (n + 31) & ~31
     staged_w = nang * nang if not wide or nang <= GRP_WIDE else 0
-    table = up32(len(PAR_NAMES) + NFREQTAB * nfre + 3 * nang + staged_w
-                 + JTOT + 26 * ml
-                 + (NGCSTAGE * int(gc_mod.gc_tables().nwav) if opts else 0)
-                 + 9 * ml + 8)
+    head = (len(PAR_NAMES) + NFREQTAB * nfre + 3 * nang + staged_w + JTOT
+            + (NGCSTAGE * int(gc_mod.gc_tables().nwav) if opts else 0))
+    # the DIA step records from a 16-byte boundary, then SNONLIN's shifts
+    dia = (head + 3) & ~3
     dx = 4 * nfre if full and nfre > nang else 4 * nang
     row = (3 * nang * (nfre | 1) + 5 * nfre + max(2 * nfre, ml) + 3 * nang
            + dx + (nang * ((nfre + 31) >> 5) if full and wide else 0)
            + (3 * nfre if pre else 0))
-    return 4 * (table + up32(row))
+    return dict(table=up32(dia + len(DIA_RECORD) * ml + 8), dia=dia,
+                row=up32(row))
+
+
+def shared_bytes(cfg: impl.PhysicsConfig, full: bool = False) -> int:
+    """Bytes of shared memory a block of the kernel needs for its tables
+    and one row (:func:`smem_layout`)."""
+    lay = smem_layout(cfg, full)
+    return 4 * (lay["table"] + lay["row"])
 
 
 def kernel_supports(cfg: impl.PhysicsConfig, full: bool = False, *,
@@ -357,10 +379,32 @@ def _gc_block() -> np.ndarray:
     return np.stack([rows[k] for k in GC_TABLES])
 
 
+def dia_records(dia) -> np.ndarray:
+    """SNONLIN's step records (mlsthg, len(DIA_RECORD)) float32, in the
+    order of :data:`DIA_RECORD`: the weights ``rnl[i, j]`` and ``af11[j]``
+    rounded to float32, the index entries as the bits of their int32
+    values, the pad word 0."""
+    ml = int(dia.mlsthg)
+    rec = np.zeros((ml, len(DIA_RECORD)), np.float32)
+    ints = rec.view(np.int32)
+    rnl = np.asarray(dia.rnl, np.float64)
+    for i, name in enumerate(DIA_RECORD):
+        if name is None:
+            continue
+        if name in DIA_INTS:
+            ints[:, i] = np.asarray(getattr(dia, name), np.int64)
+        elif name == "af11":
+            rec[:, i] = np.asarray(dia.af11, np.float64)
+        else:
+            rec[:, i] = rnl[int(name[3:])]
+    return rec
+
+
 def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
     """The kernel's parameter block and tables as two device arrays, in
     the layout csrc/implsch.cu's ``implsch_launch`` unpacks (the same for
-    both modes and layouts)."""
+    both modes and layouts): the float tables with SNONLIN's step records
+    (:func:`dia_records`) among them, and SNONLIN's shifts."""
     tb, dia = cfg.tables, cfg.dia
     if int(tables.JTOT_TAUHF) != 19:
         raise ValueError("the physics kernel integrates JTOT=19 nodes")
@@ -378,30 +422,33 @@ def pack_tables(cfg: impl.PhysicsConfig, device) -> dict:
             wmat[np.minimum(off, tb.nang - off) > ns] != 0.0):
         raise ValueError("the physics kernel sums the saturation over "
                          "2·NSDSNTH+1 directions")
-    ftab = np.concatenate(
-        [_parameters(cfg)] + [np.asarray(a, np.float64) for a in ftabs]
-        + [tb.th, tb.sinth, tb.costh, wmat.reshape(-1), swellft,
-           np.asarray(cfg.wtauhf, np.float64), _gc_block().reshape(-1),
-           dia.af11,
-           np.asarray(dia.rnl, np.float64).reshape(-1),
-           dia_mod.enhancement_xk(dia, tb),
-           sdice_mod.load_cideac()["cideac"].reshape(-1)])
-    # the kernel reads the target bins of each MC before it writes them
-    nfre = tb.nfre
-    for j in range(int(dia.mlsthg)):
+    f32 = lambda parts: np.concatenate(parts).astype(np.float32)
+    ftab = np.concatenate([
+        f32([_parameters(cfg)] + [np.asarray(a, np.float64) for a in ftabs]
+            + [tb.th, tb.sinth, tb.costh, wmat.reshape(-1), swellft,
+               np.asarray(cfg.wtauhf, np.float64), _gc_block().reshape(-1)]),
+        dia_records(dia).reshape(-1),
+        f32([dia_mod.enhancement_xk(dia, tb),
+             sdice_mod.load_cideac()["cideac"].reshape(-1)])])
+    # the kernel reads the target bins of each MC before it writes them,
+    # and keeps a step's ikm1 and ikp1 bins for the next step's ikm and ikp
+    nfre, ml = tb.nfre, int(dia.mlsthg)
+    for j in range(ml):
         t = [j] if j < nfre else []
         t += [int(x) - 1 for x in (dia.ikm[j], dia.ikm1[j], dia.ikp[j],
                                    dia.ikp1[j]) if 1 <= x <= nfre]
         if len(set(t)) != len(t):
             raise ValueError("the physics kernel takes DIA steps whose "
                              "target frequencies differ")
+    if ml > 1 and (np.any(dia.ikm1[:ml - 1] != dia.ikm[1:ml])
+                   or np.any(dia.ikp1[:ml - 1] != dia.ikp[1:ml])):
+        raise ValueError("the physics kernel takes DIA steps whose ikm1 "
+                         "and ikp1 are the next step's ikm and ikp")
     shifts = dia_mod.build_dia_projection(dia).shifts
-    itab = np.concatenate(
-        [dia.ic, dia.ip, dia.ip1, dia.im, dia.im1, dia.ikm, dia.ikm1,
-         dia.ikp, dia.ikp1, shifts.reshape(-1)])
     return dict(
-        tab=torch.as_tensor(ftab.astype(np.float32), device=device),
-        itab=torch.as_tensor(itab.astype(np.int32), device=device),
+        tab=torch.as_tensor(ftab, device=device),
+        itab=torch.as_tensor(shifts.reshape(-1).astype(np.int32),
+                             device=device),
         mlsthg=int(dia.mlsthg), niab=int(swellft.shape[0]),
         nwav=int(gc_mod.gc_tables().nwav),
         opts=option_bits(cfg) & ~MODE_BITS)

@@ -184,10 +184,8 @@ MUTATIONS = {
     # the wide build's third and fourth directions of a lane (k ≥ 64)
     # left out of SNONLIN's target bins
     "kpl4_snonlin_targets": (("shapes",), IMPLSCH,
-        "        if (k >= nang) continue;\n"
-        "        float* slk = W.sl + k * nfp;",
-        "        if (k >= nang || q >= 2) continue;\n"
-        "        float* slk = W.sl + k * nfp;"),
+        "        const bool put = k < nang;",
+        "        const bool put = k < nang && q < 2;"),
     # LWVFLX_SNL off: the flux source before SNONLIN dropped
     "no_pre_snonlin_flux": (("shapes",), IMPLSCH,
         "        const float ss = W.sl[k * nfp + m];",

@@ -29,6 +29,8 @@ same limits as chip_smoke.py):
   kernel C, u* (UST)       as one physics step in full mode, the U10 row
                            ≤ STRESS_TOL (chip_smoke.check_compact)
   kernel C on chunk views  bit for bit the whole field's step
+  kernel B on O320         bit for bit the digests of the kernel before
+                           SNONLIN's pipeline (36 and 72 directions)
   the port's spans         the profiler's device operations the same
                            with them as without, none of their own;
                            StepTimers within SPAN_TOL of kernels A and
@@ -478,6 +480,32 @@ USTAR_OPTIONS = {
     "ust_ext": dict(isnonlin=2),
     "ust_jan": dict(cases.CY49R1, iphys=0),
 }
+
+
+# SHA-256 of kernel B's inputs and outputs on every SRL row of the O320
+# state after two steps (ecwam_tpu_torch/tools/implsch_digest.py), as the
+# kernel wrote them before SNONLIN's step loop became a pipeline (an
+# H100 80GB HBM3, built for sm_90a): 36 directions through the
+# default build, 72 through the wide build (four directions a lane)
+EARLIER_DIGESTS = {
+    36: {"in": "0a611be9f4ac715dec82117fd9dc37a32b73b9625a2be51dcf9edd34fead9927",
+         "minimal": "3a033f9a8e9a54ffa8089cf8ce668cca1efb9d6a43b03431fef01141031e9b26",
+         "full": "9020a5d219def7d4fdde3992f3a4d090c5423f330285de5b3b63b68b66673c2f"},
+    72: {"in": "db49590289b207dd203e72d28a5d1ba68a5be09e608a5684bf3820cf919a2fe4",
+         "minimal": "092f0810030a4d9ef9cd8ab85b4f34230f03aa34f241c63de5bdcf153dcd725c",
+         "full": "412463feeeb6b2bd72f86d4510b70e8db994627869543bf86b935b164b9dcff0"},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nang", sorted(EARLIER_DIGESTS))
+def test_kernel_b_on_o320_equals_the_earlier_kernel_bit_for_bit(cuda, nang):
+    """Kernel B minimal and full on every O320 SRL row after two steps
+    (the model's own kernels A and B) gives, bit for bit, what the kernel
+    before the SNONLIN pipeline gave, at 36 directions and through the
+    wide build at 72."""
+    from ecwam_tpu_torch.tools import implsch_digest
+    assert implsch_digest.digests(cuda, nang) == EARLIER_DIGESTS[nang]
 
 
 @pytest.mark.gpu

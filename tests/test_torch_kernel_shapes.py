@@ -327,3 +327,103 @@ def test_every_build_the_wrapper_picks_is_built():
                     t_ipk.WIDE_LIB)
                 seen.add(lib)
     assert seen == {n for n in _build.SOURCES if n.startswith("implsch")}
+
+
+def _o640_physics(**kw):
+    """The o640_oper cell's physics: 36 directions × 36 frequencies, the
+    default options (the DIA ladder to mlsthg 40)."""
+    return t_impl.make_physics_config(
+        t_tables(nang=36, nfre=36), t_pp.set_phys_params(iphys=1, nang=36),
+        idelt=450.0, **kw)
+
+
+@pytest.mark.parametrize("nang,nfre", [(36, 36), (12, 25), (72, 25)])
+def test_dia_step_records_hold_each_step(nang, nfre):
+    """SNONLIN's record of step j holds rnl[:, j], af11[j] and the nine
+    index entries of j, in csrc/implsch.cu's order, in whole 16-byte words
+    and at a 16-byte boundary of the staged tables; the packed table
+    carries them where ``implsch_launch`` reads them."""
+    cfg = t_impl.make_physics_config(
+        t_tables(nang=nang, nfre=nfre),
+        t_pp.set_phys_params(iphys=1, nang=nang), idelt=900.0)
+    dia = cfg.dia
+    ml = int(dia.mlsthg)
+    names = t_ipk.DIA_RECORD
+    assert len(names) % 4 == 0 and t_ipk.DIA_TAP_REC % 4 == 0
+    assert names[t_ipk.DIA_TAP_REC - 1] is None
+    assert names.count(None) == 1
+    want = {f"rnl{i}" for i in range(25)} | {"af11"} | set(t_ipk.DIA_INTS)
+    assert set(names) - {None} == want and len(names) == len(want) + 1
+    rec = t_ipk.dia_records(dia)
+    assert rec.shape == (ml, len(names)) and rec.dtype == np.float32
+    ints = rec.view(np.int32)
+    rnl = np.asarray(dia.rnl, np.float64)
+    for j in range(ml):
+        for i in range(25):
+            assert rec[j, names.index(f"rnl{i}")] == np.float32(rnl[i, j])
+        assert rec[j, names.index("af11")] == np.float32(dia.af11[j])
+        for n in t_ipk.DIA_INTS:
+            assert ints[j, names.index(n)] == int(getattr(dia, n)[j]), n
+        assert ints[j, t_ipk.DIA_TAP_REC - 1] == 0
+    for full in (False, True):
+        c = cfg if full else t_ipk.minimal_config(cfg)
+        assert t_ipk.smem_layout(c, full)["dia"] % 4 == 0
+    tab = t_ipk.pack_tables(cfg, "cpu")["tab"].numpy()
+    at = (len(t_ipk.PAR_NAMES) + t_ipk.NFREQTAB * nfre + 3 * nang
+          + nang * nang + t_ipk.tables.tabu_swellft().shape[0] + t_ipk.JTOT
+          + len(t_ipk.GC_TABLES) * int(t_ipk.gc_mod.gc_tables().nwav))
+    np.testing.assert_array_equal(
+        tab[at:at + rec.size].view(np.int32), rec.reshape(-1).view(np.int32))
+
+
+def test_pack_tables_refuses_dia_steps_it_cannot_pipeline():
+    """Coinciding target frequencies in a step (the kernel reads every old
+    value before it writes), and a step whose ikm1/ikp1 are not the next
+    step's ikm/ikp (the kernel keeps those bins from one step to the
+    next), are refused."""
+    cfg = _o640_physics()
+    dia = cfg.dia
+    t_ipk.pack_tables(cfg, "cpu")
+    same = dataclasses.replace(cfg, dia=dataclasses.replace(
+        dia, ikp1=np.asarray(dia.ikp).copy()))
+    with pytest.raises(ValueError, match="target frequencies differ"):
+        t_ipk.pack_tables(same, "cpu")
+    ikm1 = np.asarray(dia.ikm1).copy()
+    ikm1[5] = -50                       # off the ladder: no coincidence
+    apart = dataclasses.replace(cfg, dia=dataclasses.replace(dia, ikm1=ikm1))
+    with pytest.raises(ValueError, match="next step's ikm and ikp"):
+        t_ipk.pack_tables(apart, "cpu")
+
+
+def _block_rows(cfg, full) -> int:
+    """The rows (warps) a block of kernel B takes, as csrc/implsch.cu's
+    ``launch`` finds them: as many as SMEM_BLOCK holds beside the tables,
+    at most 12 (the wide build 8), 16 banks apart where that costs none."""
+    lay = t_ipk.smem_layout(cfg, full)
+    most = 8 if t_ipk.library(cfg, full) == t_ipk.WIDE_LIB else 12
+
+    def fit(stride):
+        return min((t_ipk.SMEM_BLOCK - 4 * lay["table"]) // (4 * stride),
+                   most)
+    rf = lay["row"]
+    return fit(rf if fit(rf + 16) < fit(rf) else rf + 16)
+
+
+@pytest.mark.parametrize("options", [False, True])
+@pytest.mark.parametrize("full", [False, True])
+def test_o640_oper_block_holds_twelve_rows(full, options):
+    """At the o640_oper cell's 36×36 (mlsthg 40) a block of kernel B holds
+    12 rows (warps) beside its tables in minimal and full mode, the
+    default and the cycle-50r1 instantiation alike."""
+    cfg = _o640_physics(**(dict(lciwa3=True, lciscal=True) if options
+                           else {}))
+    if options:
+        cfg = dataclasses.replace(cfg, params=t_pp.set_phys_params(
+            iphys=1, nang=36, **cases.CY49R1))
+    cfg = cfg if full else t_ipk.minimal_config(cfg)
+    assert int(cfg.dia.mlsthg) == 40
+    assert t_ipk.library(cfg, full) == "implsch"
+    assert bool(t_ipk.option_bits(cfg, full)) == options
+    lay = t_ipk.smem_layout(cfg, full)
+    assert _block_rows(cfg, full) == 12
+    assert 4 * (lay["table"] + 12 * lay["row"]) <= t_ipk.SMEM_BLOCK
