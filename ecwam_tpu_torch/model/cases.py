@@ -31,6 +31,7 @@ from ecwam_tpu_torch.io import norms as norms_mod
 from ecwam_tpu_torch.model.driver import FastWaveModel, WaveModel, parse_date
 from ecwam_tpu_torch.model.fusedstep import FusedPropagation
 from ecwam_tpu_torch.model.setup import build_model
+from ecwam_tpu_torch.ops import propagation as prop
 from ecwam_tpu_torch.ops import propagation_cuda as pcu
 from ecwam_tpu_torch.ops import propagation_fused as pfz
 from ecwam_tpu_torch.ops.physics import implsch as impl
@@ -420,6 +421,67 @@ def advect_kernel_vs_plain(kw: dict, device, seed: int = 0) -> dict:
              diag=fk.cfl_diagnostics(), diag_plain=fpl.cfl_diagnostics(),
              obs=not fk.tabs["obs_ones"])
     return r
+
+
+def host_refresh(fp: FusedPropagation, ucur, vcur):
+    """The refraction tables of ``fp`` for the currents ``ucur``/``vcur``
+    ((n_pad,) host arrays) built the way the host built them before the
+    refresh moved onto the device: GRADI on the host in float64
+    (:func:`prop.gradi`), the (n_pad+1, 8) table with ω·∂d (irefra 3)
+    gathered to the SRL rows and cast once, then the CFL retry's pass on
+    those tables and its mask.  Returns (uv, grads, bad) on ``fp``'s
+    device; ``fp``'s own tables are left as they were."""
+    setup = fp.setup
+    src = np.asarray(fp.ft.srl_src)
+    u_ext, v_ext = (np.append(np.asarray(a, np.float64)[:setup.n_pad], 0.0)
+                    for a in (ucur, vcur))
+    g = prop.gradi(setup.stencil, setup.fused_env["depth_ext"], u_ext,
+                   v_ext, setup.irefra)
+    dco = np.asarray(setup.stencil.cosphm1_pt, np.float64)
+    grads = np.zeros((setup.n_pad + 1, 8))
+    grads[:-1, 0] = g["ddphi"]
+    grads[:-1, 1] = g["ddlam"] * dco
+    grads[:-1, 2] = g["duphi"]
+    grads[:-1, 3] = g["dvphi"]
+    grads[:-1, 4] = g["dulam"] * dco
+    grads[:-1, 5] = g["dvlam"] * dco
+    if setup.irefra == 3:
+        grads[:-1, 6] = (v_ext[:-1] * g["ddphi"]
+                         + u_ext[:-1] * g["ddlam"] * dco)
+    uv = fp._t(np.stack([u_ext[src], v_ext[src]], -1))
+    grads = fp._t(grads[src])
+    own = fp.tabs
+    fp.tabs = dict(own, uv=uv, grads=grads)
+    try:
+        _, bad = fp._pass(fp._zero_srl(), fp.nfre_red, fp.lc, with_cfl=True)
+    finally:
+        fp.tabs = own
+    grads[:, 2:7] *= (~bad).to(grads.dtype)[:, None]
+    return uv, grads, bad
+
+
+def refresh_vs_host(fp: FusedPropagation, ucur, vcur) -> dict:
+    """``fp.refresh`` on the device, given the currents ``ucur``/``vcur``
+    ((n_pad,) host arrays) as tensors on ``fp``'s device in its dtype,
+    against :func:`host_refresh` of the same values: the elements of
+    ``uv`` and ``grads`` more than one rounding of the dtype apart
+    (relative, |got − want| > eps·|want|), the largest gap over max|want|,
+    the SRL rows whose CFL masks differ, and the rows masked."""
+    held = [np.asarray(torch.as_tensor(np.asarray(a, np.float64),
+                                       dtype=fp.dtype), np.float64)
+            for a in (ucur, vcur)]
+    uv, grads, bad = host_refresh(fp, *held)
+    fp.refresh(*(torch.as_tensor(a, dtype=fp.dtype, device=fp.device)
+                 for a in held))
+    eps = torch.finfo(fp.dtype).eps
+    out = {}
+    for name, want in (("uv", uv), ("grads", grads)):
+        d = (fp.tabs[name] - want).abs()
+        out[name + "_off"] = int((d > eps * want.abs()).sum())
+        out[name + "_gap"] = float(d.max() / want.abs().max())
+    out.update(mask_differ=int((fp.cfl_bad != bad).sum()),
+               masked=int(bad.sum()))
+    return out
 
 
 def spectrum_error(got, want, keep=None) -> float:

@@ -40,6 +40,8 @@ from ecwam_tpu_torch.ops.physics import means as means_mod
 from ecwam_tpu_torch.tracing import Tally, span
 
 DATE_FMT = "%Y%m%d%H%M%S"
+# the forcing's surface currents (GETCURR), uploaded with the rest
+CURRENT_KEYS = ("ucur", "vcur")
 
 
 def parse_date(s: str) -> _dt.datetime:
@@ -107,11 +109,12 @@ class WaveModel:
         self.forcing_provider = forcing_provider
         self.date = (parse_date(start_date) if isinstance(start_date, str)
                      else start_date)
+        self._uploaded = None                  # the last upload's event
         with span("model.init"):
             self.steps = stepper_mod.make_step(setup, plain=plain)
             self.step_full, self.step_adv, self.step_phys = self.steps
-            frc, self._currents = self._forcing_host(self.date)
-            self.frc = self._to_device(frc)
+            self.frc, self._currents = self._upload(
+                self._forcing_host(self.date))
             if self._currents is not None:
                 self.steps.refresh_currents(*self._currents)
             # cold start and first-guess stress from the forcing as the
@@ -141,8 +144,11 @@ class WaveModel:
     def currents(self):
         """The surface currents (ucur, vcur) the propagation was last
         refreshed with (GETCURR), (n_pad,) float64 host arrays as the model
-        holds them, or None."""
-        return self._currents
+        holds them (its dtype), or None.  The model keeps them on its
+        device; reading them copies them to the host."""
+        if self._currents is None:
+            return None
+        return tuple(np.asarray(c.cpu(), np.float64) for c in self._currents)
 
     def take_points(self, idx) -> torch.Tensor:
         """The spectra (nang, nfre, nb) at the canonical points ``idx``."""
@@ -170,26 +176,22 @@ class WaveModel:
 
     # -- forcing (GETWND / NEWWIND) ---------------------------------------
     def _forcing_host(self, date):
-        """Provider fields → padded (n_pad,) float64 host arrays, and the
-        currents (ucur, vcur) the same way (as the model's dtype holds
-        them) or None.  Under U10 forcing (icode_wnd 3) the wind is floored
+        """Provider fields → padded (n_pad,) float64 host arrays, the
+        surface currents ``ucur``/``vcur`` among them where the provider
+        gives them.  Under U10 forcing (icode_wnd 3) the wind is floored
         at WSPMIN (wamwnd.F90 CASE(3)); u* forcing brings ``ufric``."""
         raw = self.forcing_provider(format_date(date))
         keys = ["wswave", "wdwave", "aird", "wstar", "cicover"]
         keys += [k for k in ("cithick", "ufric") if k in raw]
+        if "ucur" in raw:
+            keys += list(CURRENT_KEYS)
         out = {}
         for k in keys:
             v = np.asarray(raw[k], dtype=np.float64)
             if k == "wswave" and self.setup.phys.icode_wnd == 3:
                 v = np.maximum(v, 1.0)
             out[k] = pad_point_field(self.setup, v)
-        cur = None
-        if "ucur" in raw:
-            # as the model holds them (its dtype), like the reference
-            cur = tuple(np.asarray(torch.as_tensor(pad_point_field(
-                self.setup, np.asarray(raw[k], np.float64)),
-                dtype=self.setup.dtype), np.float64) for k in ("ucur", "vcur"))
-        return out, cur
+        return out
 
     def _as_tensor(self, value) -> torch.Tensor:
         """A numpy array or a tensor on any device as the model's dtype on
@@ -197,8 +199,32 @@ class WaveModel:
         return torch.as_tensor(value, dtype=self.setup.dtype,
                                device=self.setup.device)
 
-    def _to_device(self, fields: dict) -> dict:
-        return {k: self._as_tensor(v) for k, v in fields.items()}
+    def _upload(self, fields: dict):
+        """The hour's host fields (:meth:`_forcing_host`) on the device in
+        the model's dtype, split into the forcing and the currents
+        (ucur, vcur), as the model holds them, or None.
+
+        One copy: the fields are stacked and cast on the host, into
+        pinned memory for a card, and copied without waiting for the work
+        queued before it, so that the card stays busy while the host
+        prepares the next period; each field is a row of the one device
+        tensor.  The host waits only until the previous upload has run
+        on the card, so it stays at most about one forcing period ahead
+        and no launch of the period's work waits for room in the queue."""
+        dev = self.setup.device
+        host = torch.from_numpy(np.stack(list(fields.values()))).to(
+            self.setup.dtype)
+        if dev.type == "cuda":
+            host = host.pin_memory()
+            if self._uploaded is not None:
+                self._uploaded.synchronize()
+        frc = dict(zip(fields, host.to(dev, non_blocking=True)))
+        if dev.type == "cuda":
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record(torch.cuda.current_stream(dev))
+        if CURRENT_KEYS[0] not in frc:
+            return frc, None
+        return frc, tuple(frc.pop(k) for k in CURRENT_KEYS)
 
     def newwind(self, date):
         """Swap staged forcing in (newwind.F90:97-178).
@@ -207,12 +233,16 @@ class WaveModel:
         TAUW ≤ (ACD+BCD·U10)·U10³/WSPMIN_RESET_TAUW (newwind.F90:125-146).
         ICODE 1/2: take u* from the forcing and rebuild
         TAUW = u*²·(1−(α/CHARNOCK)²), zeroed below USTMIN_RESET_TAUW.
-        New currents re-derive the CTU weights (GETCURR → LUPDTWGHT)."""
+        New currents re-derive the CTU weights (GETCURR → LUPDTWGHT).
+
+        The provider's fields are padded on the host and uploaded at once,
+        currents included; the weights (``refresh``, timed on the device)
+        and the stress update run on the model's device."""
         with span("newwind"):
             with span("newwind.forcing"):
-                frc, cur = self._forcing_host(date)
+                fields = self._forcing_host(date)
             with span("newwind.upload"):
-                frc = self._to_device(frc)
+                frc, cur = self._upload(fields)
             stress = dict(self.stress)
             if self.setup.phys.icode_wnd == 3:
                 u10 = frc["wswave"]
@@ -232,7 +262,7 @@ class WaveModel:
             self.frc = frc
             if cur is not None:
                 self._currents = cur
-                with span("refresh"):
+                with span("refresh", self.setup.device):
                     self.steps.refresh_currents(*cur)
         return self
 
@@ -321,10 +351,11 @@ class FastWaveModel(WaveModel):
         self.forcing_provider = forcing_provider
         self.date = (parse_date(start_date)
                      if isinstance(start_date, str) else start_date)
+        self._uploaded = None                  # the last upload's event
         with span("model.init"):
             self.fp = fp = FusedPropagation(setup, plain=plain)
-            frc, self._currents = self._forcing_host(self.date)
-            self.frc = self._to_device(frc)
+            self.frc, self._currents = self._upload(
+                self._forcing_host(self.date))
             if self._currents is not None:
                 fp.refresh(*self._currents)
             # cold start and first-guess stress from the forcing as the
@@ -348,15 +379,23 @@ class FastWaveModel(WaveModel):
         """Swap forcing in and cap TAUW where the new wind is weak
         (newwind.F90:97-178): TAUW ≤ (ACD+BCD·U10)·U10³/WSPMIN_RESET_TAUW.
         New currents re-derive the refraction inputs (GETCURR →
-        LUPDTWGHT)."""
+        LUPDTWGHT).
+
+        On the host: the provider's fields, padded (``newwind.forcing``),
+        and one upload of them all, currents included (``newwind.upload``:
+        the host's one wait, for the previous upload, :meth:`_upload`).
+        The rest runs on the model's device without a copy either way:
+        the refresh of the refraction inputs and the CFL retry
+        (``refresh``, :meth:`FusedPropagation.refresh`), the forcing rows
+        and the TAUW cap (``newwind.rows``)."""
         with span("newwind"):
             with span("newwind.forcing"):
-                frc, cur = self._forcing_host(date)
+                fields = self._forcing_host(date)
             with span("newwind.upload"):
-                self.frc = self._to_device(frc)
+                self.frc, cur = self._upload(fields)
             if cur is not None:
                 self._currents = cur
-                with span("refresh"):
+                with span("refresh", self.setup.device):
                     self.fp.refresh(*cur)
             with span("newwind.rows"):
                 self._frc6 = self.fp.frc_srl(self.frc)

@@ -30,6 +30,7 @@ from ecwam_tpu_torch.ops import propagation_cuda as pcu
 from ecwam_tpu_torch.ops import propagation_fused as pfz
 from ecwam_tpu_torch.ops import propagation_rebase as prb
 from ecwam_tpu_torch.ops.physics import implsch_cuda as ipk
+from ecwam_tpu_torch.tracing import set_counter, span
 
 
 # windsea/swell separation keys precomputed by the chunked full step
@@ -148,47 +149,59 @@ class FusedPropagation:
         self.tabs = tabs
         self.phys_tables = None
         self.cfl_bad = None
+        self._gradi = self._depth_grads = None
+        if setup.irefra:
+            self._static_gradients()
         self.refresh()
 
     # -- LUPDTWGHT / GETCURR --------------------------------------------
-    def refresh(self, ucur=None, vcur=None):
-        """Recompute the refraction inputs (propdot.F90:60-150 via GRADI):
-        the depth gradients (irefra 1/3) and, with currents (irefra 2/3),
-        the current field ``uv``, its gradients and ω·∂d (``omdd``,
-        irefra 3), then the CFL current retry.  ``ucur``/``vcur`` are
-        compact (n_pad,) arrays (GETCURR); None takes the setup's."""
+    def _static_gradients(self):
+        """The refraction inputs that depth alone fixes, once, on the host
+        in float64 (GRADI, :func:`prop.gradi`): the depth gradients
+        (columns 0-1 of ``tabs["grads"]``, irefra 1/3; zero under irefra
+        2).  With currents (irefra 2/3) also GRADI's stencil gathered to
+        the SRL rows on the device (:func:`prop.gradi_stencil`), and for
+        irefra 3 the depth gradients in float64 there, for ω·∂d."""
         setup = self.setup
-        if not setup.irefra:
-            return
-        src = np.asarray(self.ft.srl_src)
-        zeros = np.zeros(setup.n_pad + 1)
-        u_ext = v_ext = zeros
-        cur = setup.irefra in (2, 3)
-        if cur:
-            if ucur is not None:
-                u_ext, v_ext = (np.concatenate(
-                    [np.asarray(a, np.float64)[:setup.n_pad], [0.0]])
-                    for a in (ucur, vcur))
-            else:
-                u_ext, v_ext = (setup.env[k].cpu().numpy().astype(np.float64)
-                                for k in ("ucur_ext", "vcur_ext"))
-            self.tabs["uv"] = self._t(np.stack([u_ext[src], v_ext[src]], -1))
-        g = prop.gradi(setup.stencil, self.setup.fused_env["depth_ext"],
-                       u_ext, v_ext, setup.irefra)
-        dco = np.asarray(setup.stencil.cosphm1_pt, np.float64)
+        st, src = setup.stencil, np.asarray(self.ft.srl_src)
+        nz = np.zeros(setup.n_pad + 1)
+        g = prop.gradi(st, setup.fused_env["depth_ext"], nz, nz,
+                       1 if setup.irefra in (1, 3) else 0)
+        dco = np.asarray(st.cosphm1_pt, np.float64)
         grads = np.zeros((setup.n_pad + 1, 8))
         grads[:-1, 0] = g["ddphi"]
         grads[:-1, 1] = g["ddlam"] * dco
-        if cur:
-            grads[:-1, 2] = g["duphi"]
-            grads[:-1, 3] = g["dvphi"]
-            grads[:-1, 4] = g["dulam"] * dco
-            grads[:-1, 5] = g["dvlam"] * dco
-            if setup.irefra == 3:
-                grads[:-1, 6] = (v_ext[:-1] * g["ddphi"]
-                                 + u_ext[:-1] * g["ddlam"] * dco)
         self.tabs["grads"] = self._t(grads[src])
-        if cur:
+        if setup.irefra in (2, 3):
+            self._gradi = prop.gradi_stencil(st, src, self.device)
+        if setup.irefra == 3:
+            self._depth_grads = torch.as_tensor(
+                np.stack([np.append(g[k], 0.0)[src]
+                          for k in ("ddphi", "ddlam")]),
+                dtype=torch.float64, device=self.device)
+
+    def refresh(self, ucur=None, vcur=None):
+        """GETCURR → LUPDTWGHT with current refraction (irefra 2/3; a
+        no-op otherwise: the depth gradients never change and were set
+        once): the current field ``uv``, its gradients (GRADI with the
+        reference's land fallbacks and clip) and ω·∂d (irefra 3) into
+        columns 2-6 of ``tabs["grads"]``, in place, then the CFL current
+        retry.  ``ucur``/``vcur`` are compact (n_pad,) fields, tensors on
+        any device or host arrays (GETCURR); None takes the setup's.
+
+        Everything runs on this object's device: GRADI in float64 at the
+        SRL rows (:func:`prop.gradi_rows`, the host's arithmetic), cast
+        once to the table's dtype, then one CFL pass of kernel A (the
+        plain pass on the CPU).  Given tensors on the device, it neither
+        copies to or from the host nor waits for the device; the number
+        of rows the retry dropped goes to the ``cfl_dropped_rows``
+        counter unread."""
+        if self._gradi is None:
+            return
+        with span("refresh.gradi", self.device):
+            self._current_gradients(self._ext(ucur, "ucur_ext"),
+                                    self._ext(vcur, "vcur_ext"))
+        with span("refresh.cfl", self.device):
             # CFL current retry (ctuw.F90:114-123): drop the current terms
             # wherever a pass with them would break the CFL condition,
             # tested by kernel A (or the plain pass) on a zero spectrum
@@ -196,6 +209,32 @@ class FusedPropagation:
                                 with_cfl=True)
             self.cfl_bad = bad                 # SRL rows whose currents drop
             self.tabs["grads"][:, 2:7] *= (~bad).to(self.dtype)[:, None]
+        set_counter("cfl_dropped_rows", bad.sum())
+
+    def _ext(self, a, key):
+        """A compact (n_pad,) current field, or the setup's (``key``), as
+        the (n_pad+1,) float64 ext layout (land slot 0) on this device."""
+        if a is None:
+            return self.setup.env[key].to(self.device, torch.float64)
+        t = torch.as_tensor(a, device=self.device)[:self.setup.n_pad]
+        t = t.to(torch.float64)
+        return torch.cat([t, t.new_zeros(1)])
+
+    def _current_gradients(self, u_ext, v_ext):
+        """``tabs["uv"]`` and columns 2-6 of ``tabs["grads"]`` from the
+        (n_pad+1,) float64 currents, in float64 at the SRL rows and cast
+        once (the host's order of operations: the table equals its
+        columns to the bit)."""
+        src, dco = self.tabs["srl_src"], self._gradi.dco
+        u, v = u_ext[src], v_ext[src]
+        self.tabs["uv"] = torch.stack([u, v], -1).to(self.dtype)
+        g = prop.gradi_rows(self._gradi, u_ext, v_ext)
+        cols = [g["duphi"], g["dvphi"], g["dulam"] * dco, g["dvlam"] * dco]
+        if self._depth_grads is not None:
+            # ω·∂d (irefra 3)
+            ddphi, ddlam = self._depth_grads
+            cols.append(v * ddphi + u * ddlam * dco)
+        self.tabs["grads"][:, 2:2 + len(cols)] = torch.stack(cols, -1)
 
     def _t(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,

@@ -333,8 +333,7 @@ def make_step(setup, *, plain: bool = False) -> StepBundle:
             # the compact layout back (kernel C reads points contiguous)
             return fp.advect(fl1).contiguous()
 
-        def refresh_currents(uc, vc):
-            fp.refresh(np.asarray(uc, np.float64), np.asarray(vc, np.float64))
+        refresh_currents = fp.refresh
     elif setup.weights_mode == "otf":
         def step_adv(fl1):
             return propagate_otf(setup, fl1, st, cg_ext, wenv)

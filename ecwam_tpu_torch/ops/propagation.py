@@ -4,6 +4,10 @@ Port of ``ecwam_tpu/ops/propagation.py``:
   - host numpy, float64: the constructors of the reference's neighbour tables
     and interpolation weights (propconnect.F90:44-950,
     ctuwini.F90:45-125) and GRADI (gradi.F90:60-185);
+  - GRADI again in float64 on the tensors' device, on a stencil gathered to
+    the rows that need it (:func:`gradi_stencil`, :func:`gradi_rows`), for
+    the fused step's hourly current refresh; the host form stays its
+    oracle;
   - plain PyTorch on the tensors' device: PROPDOT's refraction rates
     (propdot.F90:60-150), CTUW's weights with the obstruction
     coefficients and the CFL flag (ctuw.F90:90-745) and PROPAGS2's
@@ -280,6 +284,92 @@ def gradi(st, depth_ext, u_ext, v_ext, irefra: int):
         out["dulam"] = clip(zonal_grad(u_ext, True))
         out["dvlam"] = clip(zonal_grad(v_ext, True))
     return out
+
+
+# GRADI's neighbours of a row, in the order of GradiStencil.idx: the two
+# northern and two southern candidates (klat), then east and west (klon)
+_PP, _PP2, _PM, _PM2, _LP, _LM = range(6)
+
+
+@dataclasses.dataclass
+class GradiStencil:
+    """:func:`gradi`'s static inputs for the current gradients, gathered
+    to a set of rows, as tensors on one device, for :func:`gradi_rows`.
+    A row is a point of the (npts+1) ext layout; a row at the land slot
+    has land for every neighbour, so its gradients are 0."""
+
+    idx: torch.Tensor      # (6, nrows) int32 neighbours, land slot = nland
+    land: torch.Tensor     # (6, nrows) bool: the neighbour is the land slot
+    wp: torch.Tensor       # (nrows,) float64 northern/southern weights
+    wm: torch.Tensor
+    dellam2: torch.Tensor  # (nrows,) float64 2·Δλ of the row in metres
+    cgmax: torch.Tensor    # (nrows,) float64 CURRENT_GRADIENT_MAX·cosφ
+    dco: torch.Tensor      # (nrows,) float64 1/cosφ (ICASE=1 spherical)
+    oneo2delphi: float
+
+
+def gradi_stencil(st, rows, device) -> GradiStencil:
+    """GRADI's stencil (:class:`StencilTables` ``st``) gathered on the host
+    to ``rows`` (indices into the (npts+1) ext layout) and moved to
+    ``device``; the float64 factors are formed here as :func:`gradi`
+    forms them, so that :func:`gradi_rows` repeats its arithmetic."""
+    rows = np.asarray(rows, np.int64)
+    nland = st.klon.shape[0]
+
+    def ext(a, land):
+        a = np.asarray(a)
+        return np.concatenate([a, np.full((1,) + a.shape[1:], land,
+                                          a.dtype)])[rows]
+    klat, klon = ext(st.klat, nland), ext(st.klon, nland)
+    idx = np.stack([klat[:, 1, 0], klat[:, 1, 1], klat[:, 0, 0],
+                    klat[:, 0, 1], klon[:, 1], klon[:, 0]]).astype(np.int32)
+    wlat = ext(np.asarray(st.wlat, np.float64), 0.0)
+    cosphm1 = ext(np.asarray(st.cosphm1_pt, np.float64), 1.0)
+    zdello = ext(np.asarray(st.zdello_pt, np.float64), 1.0)
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+    return GradiStencil(
+        idx=torch.as_tensor(idx, device=device),
+        land=torch.as_tensor(idx == nland, device=device),
+        wp=f64(wlat[:, 1]), wm=f64(wlat[:, 0]),
+        dellam2=f64(2.0 * zdello * (c.CIRC / 360.0)),
+        cgmax=f64(CURRENT_GRADIENT_MAX / cosphm1), dco=f64(cosphm1),
+        oneo2delphi=0.5 / (st.xdella * c.CIRC / 360.0))
+
+
+def gradi_rows(gs: GradiStencil, u_ext, v_ext) -> dict:
+    """:func:`gradi`'s current gradients (irefra 2/3) at the rows of
+    ``gs``, on their device: the same float64 operations in the same
+    order, so the results equal the host's to the bit.  ``u_ext``/``v_ext``
+    are (npts+1,) float64 tensors on that device, the land slot last.
+    Returns duphi/dulam/dvphi/dvlam, (nrows,) float64."""
+    un, vn = u_ext[gs.idx], v_ext[gs.idx]
+    # a neighbour without current, (u, v) == (0, 0), counts as land
+    land = gs.land | ((un == 0.0) & (vn == 0.0))
+    lpp, lpp2, lpm, lpm2 = land[_PP], land[_PP2], land[_PM], land[_PM2]
+    all4 = ~(lpp | lpp2 | lpm | lpm2)
+    prim = ~(lpp | lpm)
+    merid_ok = all4 | prim | ~(lpp2 | lpm2)
+    zonal_ok = ~(land[_LP] | land[_LM])
+    zero = un.new_zeros(())
+
+    def clip(g):
+        return torch.sign(g) * torch.minimum(torch.abs(g), gs.cgmax)
+
+    def merid_grad(fn):
+        def side(w, i, i2):
+            return torch.where(all4, w * fn[i] + (1.0 - w) * fn[i2],
+                               torch.where(prim, fn[i], fn[i2]))
+        fp = side(gs.wp, _PP, _PP2)
+        fm = side(gs.wm, _PM, _PM2)
+        return clip(torch.where(merid_ok, (fp - fm) * gs.oneo2delphi, zero))
+
+    def zonal_grad(fn):
+        return clip(torch.where(zonal_ok, (fn[_LP] - fn[_LM]) / gs.dellam2,
+                                zero))
+    return dict(duphi=merid_grad(un), dvphi=merid_grad(vn),
+                dulam=zonal_grad(un), dvlam=zonal_grad(vn))
 
 
 # the weight planes, in order: 1 - the total outflow's complement

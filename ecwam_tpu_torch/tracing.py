@@ -21,18 +21,23 @@ an NVTX range ``ecwam.<name>`` for ``nsys``.  Tracing is on while a
 :func:`stop`.  A span never opens a ``record_function``: the profiler
 would put that range on the device's timeline, among the operations.
 
-:func:`report` returns the totals, the intervals and the launch counters
-of kernels A and B; :func:`write_chrome` writes the intervals and totals
-as a Chrome trace (Perfetto loads it).
+:func:`report` returns the totals, the intervals and the counters: the
+launch counters of kernels A and B and those set by :func:`set_counter`;
+:func:`write_chrome` writes the intervals and totals as a Chrome trace
+(Perfetto loads it).
 
 The spans, each with what reads it: ``advect`` and ``phys`` (device
 timed) in the models' ``advance`` (``StepTimers``); ``newwind`` around
-``newwind.forcing``, ``newwind.upload``, ``newwind.rows`` and
-``refresh`` (the idle share of the device inside the port); the set-up's
+``newwind.forcing``, ``newwind.upload``, ``newwind.rows`` and the
+device-timed ``refresh`` around ``refresh.gradi`` and ``refresh.cfl``
+(the idle share of the device inside the port; the refresh's device and
+host time a refresh); the set-up's
 ``setup.tables``, ``setup.upload`` and ``model.init``; the CLI's
 ``output.products``, ``output.secondorder``, ``output.d2h``,
 ``output.write``, ``restart``, ``rim`` and ``boundary``
-(``OutputTimers``).
+(``OutputTimers``).  The counter ``cfl_dropped_rows`` is the number of
+SRL rows whose current terms the last CFL current retry dropped (None
+before the first).
 """
 
 from __future__ import annotations
@@ -91,6 +96,9 @@ class _Total:
 
 
 _totals: dict = {}
+# counters beyond the launch counters: an int, a 0-d tensor (read from its
+# device only by report()) or None where nothing has set it yet
+_counters: dict = {"cfl_dropped_rows": None}
 _intervals: list = []
 _open: list = []          # names of the open spans, innermost last
 _forced = False
@@ -176,6 +184,13 @@ class span:
         return False
 
 
+def set_counter(name: str, value) -> None:
+    """Set the counter ``name`` to ``value``, an int or a 0-d tensor on
+    any device; a tensor is not read (nor waited for) until
+    :func:`report`."""
+    _counters[name] = value
+
+
 def _launch_counters() -> dict:
     """The launch counters of kernels A and B (both modes)."""
     from ecwam_tpu_torch.ops import propagation_cuda as pcu
@@ -189,13 +204,17 @@ def report() -> dict:
     """``totals``: name → count, host seconds and device seconds (None
     for a span without a CUDA device), the device time waited for;
     ``intervals``: the (name, parent, start_ns, end_ns) recorded while
-    tracing; ``counters``: the launch counters of kernels A and B."""
+    tracing; ``counters``: the launch counters of kernels A and B and
+    those of :func:`set_counter`, as ints (None where unset)."""
     totals = {n: dict(count=t.count, host_s=t.host_s,
                       device_s=None if t.device is None
                       else t.device.seconds)
               for n, t in _totals.items()}
+    counters = _launch_counters()
+    counters.update({k: None if v is None else int(v)
+                     for k, v in _counters.items()})
     return dict(totals=totals, intervals=list(_intervals),
-                counters=_launch_counters())
+                counters=counters)
 
 
 def write_chrome(path: str) -> None:

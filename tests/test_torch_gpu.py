@@ -31,6 +31,12 @@ same limits as chip_smoke.py):
   kernel C on chunk views  bit for bit the whole field's step
   kernel B on O320         bit for bit the digests of the kernel before
                            SNONLIN's pipeline (36 and 72 directions)
+  the current refresh      on every O320 row at 24 and 36 directions the
+                           card's tables equal the host GRADI's to one
+                           float32 rounding (float64 on both, cast once),
+                           the CFL mask identical; the refresh spans time
+                           the device and ``cfl_dropped_rows`` counts the
+                           mask
   the port's spans         the profiler's device operations the same
                            with them as without, none of their own;
                            StepTimers within SPAN_TOL of kernels A and
@@ -691,3 +697,89 @@ def test_step_timers_match_the_profiled_kernels(cuda):
     assert len(kern) == 8 and m.timers.steps - n0 == 4
     k_s = sum(e.duration_ns() for e in kern) * 1e-9
     assert abs(timed - k_s) <= SPAN_TOL * k_s, (timed, k_s)
+
+
+def _o320_currents(nang, cuda):
+    """An O320 setup at ``nang`` directions (36 frequencies, 29 advected,
+    irefra 2, idelpro 450 s) built with the benchmark's jet and eddies,
+    and that hour's (n_real,) current field a tenth stronger and its
+    eddies turned by a quarter wave."""
+    grid = grid_mod.octahedral_grid(320)
+    blk = grid_mod.build_sea_point_block(grid, grid_mod.aqua_bathymetry(grid))
+    lat, lon = cases.point_latlon(grid, blk)
+    phi, lam = np.radians(lat), np.radians(lon)
+
+    def field(a, p):
+        return (a * 0.9 * np.exp(-(lat / 8.0) ** 2)
+                - 0.3 * np.cos(3 * lam + p) * np.sin(2 * phi),
+                0.3 * np.sin(3 * lam + p) * np.cos(phi))
+    ms = tsetup.build_model(grid=grid, nang=nang, nfre=36, nfre_red=29,
+                            idelpro=450.0, idelt=900.0, pad_to=8192,
+                            irefra=2, currents=field(1.0, 0.0), device=cuda)
+    return ms, field(1.1, np.pi / 6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nang", [24, 36])
+def test_refresh_on_card_equals_the_host_gradi_on_o320(cuda, nang):
+    """``FusedPropagation.refresh`` on the card against the host path it
+    replaced (``cases.host_refresh``: GRADI on the host in float64, the
+    table cast once, the CFL pass on it), on every O320 row: the
+    hour's currents, where the CFL retry drops no row, and the same with
+    150 m/s at every 997th point, where it drops the rows around them."""
+    ms, (u, v) = _o320_currents(nang, cuda)
+    fp = FusedPropagation(ms)
+    spiked = u.copy()
+    spiked[::997] = 150.0
+    for name, uu in (("hour", u), ("spikes", spiked)):
+        r = cases.refresh_vs_host(fp, tsetup.pad_point_field(ms, uu),
+                                  tsetup.pad_point_field(ms, v))
+        assert r["uv_off"] == r["grads_off"] == 0, (name, r)
+        assert r["mask_differ"] == 0, (name, r)
+        if name == "spikes":
+            assert 0 < r["masked"] < ms.fused.nsrl, r
+
+
+@pytest.mark.gpu
+def test_refresh_spans_time_the_device(cuda):
+    """NEWWIND with new currents: ``refresh`` and its ``refresh.gradi``
+    and ``refresh.cfl`` record device time, one count each, and the
+    counter ``cfl_dropped_rows`` reads the rows the retry masked."""
+    from ecwam_tpu_torch import tracing
+    kw = cases.currents_kw(3, cfl=True)
+    u, v = kw["currents"]
+    ms = tsetup.build_model(device=cuda, **kw)
+    frc = dict(tdriver.constant_wind_forcing(ms.n_real)("x"), ucur=0.9 * u,
+               vcur=v)
+    m = tdriver.FastWaveModel(ms, lambda d: frc, cases.START)
+    names = ("refresh", "refresh.gradi", "refresh.cfl")
+    before = tracing.report()["totals"]
+    m.newwind(m.date)
+    rep = tracing.report()
+    for n in names:
+        t, t0 = rep["totals"][n], before.get(n, dict(count=0, device_s=0.0))
+        assert t["count"] == t0["count"] + 1, n
+        assert t["device_s"] > (t0["device_s"] or 0.0), n
+    assert rep["counters"]["cfl_dropped_rows"] == int(m.fp.cfl_bad.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_newwind_leaves_the_card_running(cuda):
+    """NEWWIND with new currents (the hour's upload from pinned memory,
+    the refresh with its CFL pass, the forcing rows and the TAUW cap)
+    returns while the card still runs the work queued before it: nothing
+    in it waits for the stream."""
+    kw = cases.currents_kw(3, cfl=True)
+    u, v = kw["currents"]
+    ms = tsetup.build_model(device=cuda, **kw)
+    frc = dict(tdriver.constant_wind_forcing(ms.n_real)("x"), ucur=0.9 * u,
+               vcur=v)
+    m = tdriver.FastWaveModel(ms, lambda d: frc, cases.START)
+    m.newwind(m.date)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    torch.cuda._sleep(1_000_000_000)
+    m.newwind(m.date)
+    assert not stream.query()
+    torch.cuda.synchronize()
+    assert int(m.fp.cfl_bad.sum()) > 0

@@ -7,6 +7,9 @@
   * ``FastWaveModel.advance`` and ``WaveModel.advance`` never synchronise,
     and their ``StepTimers`` still count steps and positive seconds;
   * the set-up's spans split ``build_model`` and the model's start;
+  * NEWWIND with new currents opens ``refresh`` around ``refresh.gradi``
+    and ``refresh.cfl`` (host time on the CPU), and the counter
+    ``cfl_dropped_rows`` reads the rows the CFL retry dropped;
   * the Chrome trace holds the intervals and the totals.
 
 The card's side (no device event of a span's own, the timers against
@@ -53,7 +56,8 @@ def test_tracing_off_records_no_intervals():
     assert rep["totals"]["test.off"]["device_s"] is None
     assert set(rep["counters"]) == {"advect.launches",
                                     "implsch_srl.launches",
-                                    "implsch_srl.full_launches"}
+                                    "implsch_srl.full_launches",
+                                    "cfl_dropped_rows"}
 
 
 def test_intervals_nest_on_the_profilers_clock():
@@ -165,6 +169,31 @@ def test_newwind_spans_nest_under_newwind(fast_setup):
                    ("newwind.upload", "newwind"),
                    ("newwind.rows", "newwind"), ("newwind", None),
                    ("advect", None), ("advect", None), ("phys", None)]
+
+
+def test_refresh_spans_and_the_cfl_counter():
+    from ecwam_tpu_torch.model import cases
+    kw = cases.currents_kw(3, cfl=True)
+    u, v = kw["currents"]
+    ms = setup.build_model(device="cpu", **kw)
+    frc = dict(driver.constant_wind_forcing(ms.n_real)("x"), ucur=0.9 * u,
+               vcur=v)
+    m = driver.FastWaveModel(ms, lambda d: frc, "20230101000000")
+    before = tracing.report()["totals"]
+    tracing.start()
+    try:
+        m.newwind(m.date)
+    finally:
+        tracing.stop()
+    rep = tracing.report()
+    got = [i[:2] for i in rep["intervals"] if i[0].startswith("refresh")]
+    assert got == [("refresh.gradi", "refresh"), ("refresh.cfl", "refresh"),
+                   ("refresh", "newwind")]
+    for n in ("refresh", "refresh.gradi", "refresh.cfl"):
+        t = rep["totals"][n]
+        assert t["count"] == before.get(n, dict(count=0))["count"] + 1, n
+        assert t["host_s"] > 0.0 and t["device_s"] is None, n
+    assert rep["counters"]["cfl_dropped_rows"] == int(m.fp.cfl_bad.sum()) > 0
 
 
 def test_chrome_trace_holds_intervals_and_totals(tmp_path):
